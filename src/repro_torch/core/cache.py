@@ -1,0 +1,278 @@
+"""SemanticCache — the paper's query-handling workflow (§2.5, §2.8), PyTorch
+port of ``repro.core.cache``.
+
+Workflow per batch of queries:
+  1. embed (done by the caller / serving engine),
+  2. ``lookup`` — search the slab, the threshold policy decides hit/miss,
+  3. hit  -> cached response returned, LRU/LFU counters touched,
+  4. miss -> caller generates with the LLM backend, then ``insert`` stores
+     (embedding, response) and the index absorbs the new entries.
+
+All mutable state lives in one ``CacheRuntime``; every method takes a
+runtime and returns the next one. The slab tensors are updated in place
+(see ``repro_torch.core.store``), so the runtime passed in must not be used
+after a call that returns a new one. ``step`` keeps the padded fixed-shape
+batch and its ``valid`` mask, so every batch has one shape.
+
+    cache = SemanticCache(config)
+    runtime = cache.init("cuda")
+    peek, _ = cache.lookup(runtime, queries, now, update_counters=False)
+    result, runtime = cache.step(runtime, queries, miss_values, miss_lens,
+                                 now, peeked=peek, valid=valid)
+
+Tenant partitions and context fusion arrive with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import store
+from repro_torch.core.index import ExactIndex
+from repro_torch.core.policy import FixedThreshold
+from repro_torch.core.runtime import CacheRuntime
+from repro_torch.core.types import (CacheConfig, CacheStats, LookupResult,
+                                    init_cache_state, resolve_device)
+
+
+class _LocalComm:
+    """Identity communication seam: the single-device form of the points in
+    ``lookup``/``commit``/``insert`` where a sharded step would cross
+    shards (top-k merge, best-row fetch, touch ownership, counter
+    attribution, insert routing). The sharded slice substitutes its own."""
+
+    #: shards participating in the step
+    num_shards: int = 1
+
+    def merge_topk(self, top_s: torch.Tensor, top_i: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        return top_s, top_i
+
+    def fetch_best(self, state, top0: torch.Tensor):
+        """(values, value_lens, source_id) rows of each row's best slot
+        (-1 = no visible slot; that row's payload is unused)."""
+        idx = torch.clamp(top0, min=0).to(torch.int64)
+        return state.values[idx], state.value_lens[idx], state.source_id[idx]
+
+    def touch(self, state, slot: torch.Tensor, now, hit: torch.Tensor):
+        return store.touch(state, slot, now, hit)
+
+    def primary(self, counts: torch.Tensor) -> torch.Tensor:
+        return counts
+
+    def insert_take(self, mask: torch.Tensor, n_inserts: torch.Tensor
+                    ) -> torch.Tensor:
+        return mask
+
+    def prepare_insert(self, state):
+        return state
+
+    def finalize_insert(self, state, prev_n_inserts: torch.Tensor,
+                        mask: torch.Tensor):
+        return state
+
+
+LOCAL_COMM = _LocalComm()
+
+
+@dataclasses.dataclass(frozen=True)
+class SemanticCache:
+    """Stateless orchestrator; all state lives in one CacheRuntime."""
+
+    config: CacheConfig
+    index: Any = None          # Index protocol plugin (None -> ExactIndex)
+    policy: Any = None         # Policy protocol plugin (None -> FixedThreshold)
+    partition: Any = None      # tenant partition: the tenancy slice
+    fusion: Any = None         # context fusion: the sessions slice
+
+    def __post_init__(self):
+        if self.partition is not None:
+            raise NotImplementedError(
+                "tenant partitions arrive with the tenancy slice")
+        if self.fusion is not None:
+            raise NotImplementedError(
+                "context fusion arrives with the sessions slice")
+        if self.index is None:
+            object.__setattr__(self, "index", ExactIndex(topk=self.config.topk))
+        if self.policy is None:
+            object.__setattr__(
+                self, "policy", FixedThreshold(threshold=self.config.threshold))
+
+    # -- state ------------------------------------------------------------
+    def init(self, device: str | torch.device = "cuda") -> CacheRuntime:
+        """Fresh runtime on ``device``: empty slab, zero counters, initial
+        policy and index state."""
+        dev = resolve_device(device)
+        return CacheRuntime(
+            state=init_cache_state(self.config, dev),
+            stats=CacheStats.zeros(dev),
+            policy_state=self.policy.init_state(dev),
+            index_state=self.index.init(self.config),
+        )
+
+    # -- near-hit band (all-False unless the policy defines one) -----------
+    def _near_mask(self, hit: torch.Tensor, score: torch.Tensor,
+                   pstate: torch.Tensor) -> torch.Tensor:
+        """[τ_lo, τ_hi) band membership per row; all-False on a band-less
+        policy, which is every policy ported so far."""
+        if not hasattr(self.policy, "near"):
+            return torch.zeros_like(hit)
+        return self.policy.near(score, pstate) & ~hit & (score > float("-inf"))
+
+    # -- lookup (paper §2.5 step 1) ----------------------------------------
+    def lookup(self, runtime: CacheRuntime, queries: torch.Tensor, now, *,
+               update_counters: bool = True,
+               comm: _LocalComm = LOCAL_COMM
+               ) -> tuple[LookupResult, CacheRuntime]:
+        """Search + threshold decision. ``update_counters=False`` is a pure
+        peek (no LRU touch, no stats, no policy-state commit): the engine
+        uses it to learn the miss set before the fused ``step``."""
+        state, stats = runtime.state, runtime.stats
+        b = queries.shape[0]
+        alive = store.alive_mask(state, now)
+        top_s, top_i = self.index.search(runtime.index_state, queries,
+                                         state.keys, alive)
+        top_s, top_i = comm.merge_topk(top_s, top_i)
+
+        best_idx = torch.clamp(top_i[:, 0], min=0)   # -1 guard: empty cache
+        best_score = torch.where(top_i[:, 0] >= 0, top_s[:, 0],
+                                 torch.full_like(top_s[:, 0], float("-inf")))
+        hit, pstate = self.policy.decide(best_score, runtime.policy_state)
+        hit = hit & (best_score > float("-inf"))
+        near = self._near_mask(hit, best_score, runtime.policy_state)
+
+        values, value_lens, src = comm.fetch_best(state, top_i[:, 0])
+        result = LookupResult(
+            index=best_idx.to(torch.int32), score=best_score, hit=hit,
+            values=values, value_lens=value_lens, source_id=src,
+            topk_index=top_i, topk_score=top_s, near=near)
+        if not update_counters:
+            return result, runtime
+        state = comm.touch(state, best_idx, now, hit)
+        stats = stats.record_lookups(b, hit.sum(dtype=torch.int32))
+        return result, runtime.replace(state=state, stats=stats,
+                                       policy_state=pstate)
+
+    def gather_topk(self, runtime: CacheRuntime, result: LookupResult
+                    ) -> dict[str, torch.Tensor]:
+        """Top-k neighbour payload of a lookup result: cached responses,
+        lengths, provenance and scores of every visible neighbour. Invalid
+        neighbours (index -1) come back with length 0, source -1 and score
+        -inf. A pure gather that touches no counter."""
+        idx = torch.clamp(result.topk_index, min=0).to(torch.int64)
+        ok = result.topk_index >= 0
+        state = runtime.state
+        return {
+            "values": torch.where(ok[..., None], state.values[idx], 0),
+            "value_lens": torch.where(ok, state.value_lens[idx], 0),
+            "source_id": torch.where(ok, state.source_id[idx], -1),
+            "score": torch.where(ok, result.topk_score,
+                                 torch.full_like(result.topk_score,
+                                                 float("-inf"))),
+        }
+
+    # -- insert (paper §2.5 step 3) -----------------------------------------
+    def insert(self, runtime: CacheRuntime, queries: torch.Tensor,
+               values: torch.Tensor, value_lens: torch.Tensor, now, *,
+               source_id: torch.Tensor | None = None,
+               mask: torch.Tensor | None = None,
+               comm: _LocalComm = LOCAL_COMM) -> CacheRuntime:
+        if mask is None:
+            mask = torch.ones((queries.shape[0],), dtype=torch.bool,
+                              device=queries.device)
+        take = comm.insert_take(mask, runtime.state.n_inserts)
+        state0 = comm.prepare_insert(runtime.state)
+        prev_n_inserts = runtime.state.n_inserts
+        state, slots = store.insert(
+            self.config, state0, queries, values, value_lens, now,
+            source_id=source_id, mask=take)
+        state = comm.finalize_insert(state, prev_n_inserts, mask)
+        istate = self.index.absorb(runtime.index_state, slots, queries, take)
+        stats = dataclasses.replace(
+            runtime.stats,
+            inserts=runtime.stats.inserts + mask.sum(dtype=torch.int32))
+        return runtime.replace(state=state, stats=stats, index_state=istate)
+
+    # -- maintenance (paper §2.7 TTL; §2.4 rebalancing) ----------------------
+    def expire(self, runtime: CacheRuntime, now) -> CacheRuntime:
+        state, n = store.expire(runtime.state, now)
+        stats = dataclasses.replace(
+            runtime.stats,
+            expired_evictions=runtime.stats.expired_evictions + n)
+        return runtime.replace(state=state, stats=stats)
+
+    def refit(self, runtime: CacheRuntime, now, rng: torch.Generator
+              ) -> CacheRuntime:
+        """Periodic index rebuild (§2.4); a no-op for stateless indexes."""
+        alive = store.alive_mask(runtime.state, now)
+        istate = self.index.refit(runtime.index_state, runtime.state.keys,
+                                  alive, rng)
+        return runtime.replace(index_state=istate)
+
+    def update_policy(self, runtime: CacheRuntime, *,
+                      was_positive: torch.Tensor, was_hit: torch.Tensor
+                      ) -> CacheRuntime:
+        """Judged-outcome feedback into the policy (paper §2.10 loop)."""
+        pstate = self.policy.update(runtime.policy_state,
+                                    was_positive=was_positive, was_hit=was_hit)
+        return runtime.replace(policy_state=pstate)
+
+    # -- fused serve-side step (DESIGN.md §7) -------------------------------
+    def commit(self, runtime: CacheRuntime, peeked: LookupResult, now, *,
+               valid: torch.Tensor | None = None,
+               comm: _LocalComm = LOCAL_COMM
+               ) -> tuple[LookupResult, CacheRuntime]:
+        """Commit a peeked lookup (counters, LRU touch, policy state)
+        without searching again. The hit mask is re-derived from the peeked
+        scores against the current policy state, so peek -> commit equals a
+        counted ``lookup``. ``valid`` marks the real rows of a padded batch:
+        padding rows stay out of the hit mask, the touch and every
+        counter."""
+        hit, pstate = self.policy.decide(peeked.score, runtime.policy_state)
+        hit = hit & (peeked.score > float("-inf"))
+        near = self._near_mask(hit, peeked.score, runtime.policy_state)
+        if valid is None:
+            n_lookups = peeked.score.shape[0]
+        else:
+            hit = hit & valid
+            near = near & valid
+            n_lookups = valid.sum(dtype=torch.int32)
+        result = dataclasses.replace(peeked, hit=hit, near=near)
+        state = comm.touch(runtime.state, peeked.index, now, hit)
+        stats = runtime.stats.record_lookups(n_lookups,
+                                             hit.sum(dtype=torch.int32))
+        return result, runtime.replace(state=state, stats=stats,
+                                       policy_state=pstate)
+
+    def step(self, runtime: CacheRuntime, queries: torch.Tensor,
+             miss_values: torch.Tensor, miss_value_lens: torch.Tensor, now, *,
+             source_id: torch.Tensor | None = None,
+             peeked: LookupResult | None = None,
+             valid: torch.Tensor | None = None,
+             comm: _LocalComm = LOCAL_COMM
+             ) -> tuple[LookupResult, CacheRuntime]:
+        """Lookup, then insert exactly the missed queries' fresh responses.
+
+        ``miss_values`` carries a response row for every query (rows of hits
+        are ignored through the insert mask), so the step has one shape per
+        batch. ``peeked`` (from ``lookup(update_counters=False)``) skips the
+        search: the slab is searched once per batch. ``valid`` marks the
+        real rows of a padded batch: padding rows neither count nor get
+        inserted."""
+        if peeked is None and valid is None:
+            result, runtime = self.lookup(runtime, queries, now, comm=comm)
+        else:
+            if peeked is None:
+                peeked, _ = self.lookup(runtime, queries, now,
+                                        update_counters=False, comm=comm)
+            result, runtime = self.commit(runtime, peeked, now, valid=valid,
+                                          comm=comm)
+        insert_mask = ~result.hit
+        if valid is not None:
+            insert_mask = insert_mask & valid
+        runtime = self.insert(runtime, queries, miss_values, miss_value_lens,
+                              now, source_id=source_id, mask=insert_mask,
+                              comm=comm)
+        return result, runtime
