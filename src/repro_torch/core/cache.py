@@ -20,7 +20,13 @@ batch and its ``valid`` mask, so every batch has one shape.
     result, runtime = cache.step(runtime, queries, miss_values, miss_lens,
                                  now, peeked=peek, valid=valid)
 
-Tenant partitions and context fusion arrive with later slices.
+Multi-tenancy: an optional ``partition`` (``repro_torch.tenancy.
+PartitionMap``) splits the slab into disjoint per-tenant regions. A per-row
+``tenant_id`` tensor restricts every lookup to its row's own region (per-row
+interval operands, the interval kernel on CUDA) and routes every insert
+into its row's own ring, so cross-tenant hits are impossible by
+construction and one batch may mix tenants freely. Context fusion arrives
+with the sessions slice.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.core.policy import FixedThreshold
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import (CacheConfig, CacheStats, LookupResult,
                                     init_cache_state, resolve_device)
+from repro_torch.tenancy.partition import TenancyState
 
 
 class _LocalComm:
@@ -84,13 +91,21 @@ class SemanticCache:
     config: CacheConfig
     index: Any = None          # Index protocol plugin (None -> ExactIndex)
     policy: Any = None         # Policy protocol plugin (None -> FixedThreshold)
-    partition: Any = None      # tenant partition: the tenancy slice
+    partition: Any = None      # PartitionMap for multi-tenant regions
     fusion: Any = None         # context fusion: the sessions slice
 
     def __post_init__(self):
         if self.partition is not None:
-            raise NotImplementedError(
-                "tenant partitions arrive with the tenancy slice")
+            if self.partition.capacity != self.config.capacity:
+                raise ValueError(
+                    f"partition covers {self.partition.capacity} slots, "
+                    f"slab capacity is {self.config.capacity}")
+            if self.config.eviction != "ring":
+                # per-tenant LRU/LFU would need an in-region arg-min scan;
+                # refusing beats evicting across regions
+                raise ValueError(
+                    "tenant partitioning currently supports ring eviction "
+                    f"only (got {self.config.eviction!r})")
         if self.fusion is not None:
             raise NotImplementedError(
                 "context fusion arrives with the sessions slice")
@@ -103,14 +118,64 @@ class SemanticCache:
     # -- state ------------------------------------------------------------
     def init(self, device: str | torch.device = "cuda") -> CacheRuntime:
         """Fresh runtime on ``device``: empty slab, zero counters, initial
-        policy and index state."""
+        policy and index state (and per-tenant ring pointers and counters
+        when partitioned)."""
         dev = resolve_device(device)
         return CacheRuntime(
             state=init_cache_state(self.config, dev),
             stats=CacheStats.zeros(dev),
             policy_state=self.policy.init_state(dev),
             index_state=self.index.init(self.config),
+            tenancy=None if self.partition is None
+            else TenancyState.zeros(len(self.partition), dev),
         )
+
+    # -- tenancy helpers (no-ops when partition is None) -------------------
+    def _require_tenants(self, tenant_id, device: torch.device
+                         ) -> torch.Tensor | None:
+        """A partitioned cache must be told each row's tenant; an
+        unpartitioned one ignores the argument."""
+        if self.partition is None:
+            return None
+        if tenant_id is None:
+            raise ValueError("cache is tenant-partitioned: every call needs "
+                             "a per-row tenant_id vector")
+        return torch.as_tensor(tenant_id, dtype=torch.int32, device=device)
+
+    def _tenant_interval(self, tenant_id: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B,) tenant ids -> per-row ``(starts, sizes)`` operands: a row
+        sees only its own region's slots, so a cosine-1.0 duplicate in
+        another tenant's region is invisible, not just sub-threshold."""
+        dev, tid = tenant_id.device, tenant_id.to(torch.int64)
+        return (self.partition.starts_array(dev)[tid],
+                self.partition.sizes_array(dev)[tid])
+
+    def _apply_threshold_overrides(self, hit: torch.Tensor,
+                                   score: torch.Tensor,
+                                   tenant_id: torch.Tensor) -> torch.Tensor:
+        """Rows of a tenant with a threshold override re-decide against it;
+        the others keep the policy's decision (negative = no override)."""
+        thr = self.partition.thresholds_array(tenant_id.device)[
+            tenant_id.to(torch.int64)]
+        return torch.where(thr >= 0.0, score >= thr, hit)
+
+    def _account_lookups(self, tenancy, tenant_id: torch.Tensor | None, *,
+                         hit: torch.Tensor, valid: torch.Tensor | None,
+                         comm: _LocalComm = LOCAL_COMM):
+        """Scatter-add one batch of lookups and hits into the per-tenant
+        counters; padding rows (``valid=False``) add nothing."""
+        if tenancy is None or tenant_id is None:
+            return tenancy
+        ones = torch.ones_like(tenant_id)
+        if valid is not None:
+            ones = torch.where(valid, ones, 0)
+        ones = comm.primary(ones)
+        tid = tenant_id.to(torch.int64)
+        return dataclasses.replace(
+            tenancy,
+            lookups=tenancy.lookups.index_add(0, tid, ones),
+            hits=tenancy.hits.index_add(0, tid, torch.where(hit, ones, 0)))
 
     # -- near-hit band (all-False unless the policy defines one) -----------
     def _near_mask(self, hit: torch.Tensor, score: torch.Tensor,
@@ -124,22 +189,32 @@ class SemanticCache:
     # -- lookup (paper §2.5 step 1) ----------------------------------------
     def lookup(self, runtime: CacheRuntime, queries: torch.Tensor, now, *,
                update_counters: bool = True,
+               tenant_id: torch.Tensor | None = None,
                comm: _LocalComm = LOCAL_COMM
                ) -> tuple[LookupResult, CacheRuntime]:
         """Search + threshold decision. ``update_counters=False`` is a pure
         peek (no LRU touch, no stats, no policy-state commit): the engine
-        uses it to learn the miss set before the fused ``step``."""
+        uses it to learn the miss set before the fused ``step``. On a
+        partitioned cache ``tenant_id`` (B,) is required and each row
+        searches only its tenant's region."""
         state, stats = runtime.state, runtime.stats
+        tenant_id = self._require_tenants(tenant_id, state.keys.device)
         b = queries.shape[0]
         alive = store.alive_mask(state, now)
+        interval = None
+        if tenant_id is not None:
+            interval = self._tenant_interval(tenant_id)
         top_s, top_i = self.index.search(runtime.index_state, queries,
-                                         state.keys, alive)
+                                         state.keys, alive,
+                                         interval=interval)
         top_s, top_i = comm.merge_topk(top_s, top_i)
 
         best_idx = torch.clamp(top_i[:, 0], min=0)   # -1 guard: empty cache
         best_score = torch.where(top_i[:, 0] >= 0, top_s[:, 0],
                                  torch.full_like(top_s[:, 0], float("-inf")))
         hit, pstate = self.policy.decide(best_score, runtime.policy_state)
+        if tenant_id is not None:
+            hit = self._apply_threshold_overrides(hit, best_score, tenant_id)
         hit = hit & (best_score > float("-inf"))
         near = self._near_mask(hit, best_score, runtime.policy_state)
 
@@ -152,8 +227,10 @@ class SemanticCache:
             return result, runtime
         state = comm.touch(state, best_idx, now, hit)
         stats = stats.record_lookups(b, hit.sum(dtype=torch.int32))
+        tenancy = self._account_lookups(runtime.tenancy, tenant_id, hit=hit,
+                                        valid=None, comm=comm)
         return result, runtime.replace(state=state, stats=stats,
-                                       policy_state=pstate)
+                                       policy_state=pstate, tenancy=tenancy)
 
     def gather_topk(self, runtime: CacheRuntime, result: LookupResult
                     ) -> dict[str, torch.Tensor]:
@@ -178,22 +255,44 @@ class SemanticCache:
                values: torch.Tensor, value_lens: torch.Tensor, now, *,
                source_id: torch.Tensor | None = None,
                mask: torch.Tensor | None = None,
+               tenant_id: torch.Tensor | None = None,
                comm: _LocalComm = LOCAL_COMM) -> CacheRuntime:
+        """Insert the rows where ``mask`` is set; on a partitioned cache
+        each row goes into its tenant's own ring (``tenant_id`` required),
+        so a tenant can only ever overwrite itself."""
+        tenant_id = self._require_tenants(tenant_id, queries.device)
         if mask is None:
             mask = torch.ones((queries.shape[0],), dtype=torch.bool,
                               device=queries.device)
         take = comm.insert_take(mask, runtime.state.n_inserts)
         state0 = comm.prepare_insert(runtime.state)
         prev_n_inserts = runtime.state.n_inserts
+        tenancy = runtime.tenancy
+        slots = None
+        if tenant_id is not None:
+            slots, new_ptr = store.select_slots_tenant(
+                self.partition, tenancy.ptr, tenant_id, take)
+            # read before the insert overwrites the slab in place
+            alive_before = store.alive_mask(state0, now)
+            ones = torch.ones_like(tenant_id)
+            tid = tenant_id.to(torch.int64)
+            evicted = torch.where(
+                take & alive_before[slots.to(torch.int64)], ones, 0)
+            tenancy = dataclasses.replace(
+                tenancy, ptr=new_ptr,
+                inserts=tenancy.inserts.index_add(
+                    0, tid, torch.where(take, ones, 0)),
+                evictions=tenancy.evictions.index_add(0, tid, evicted))
         state, slots = store.insert(
             self.config, state0, queries, values, value_lens, now,
-            source_id=source_id, mask=take)
+            source_id=source_id, mask=take, slots=slots)
         state = comm.finalize_insert(state, prev_n_inserts, mask)
         istate = self.index.absorb(runtime.index_state, slots, queries, take)
         stats = dataclasses.replace(
             runtime.stats,
             inserts=runtime.stats.inserts + mask.sum(dtype=torch.int32))
-        return runtime.replace(state=state, stats=stats, index_state=istate)
+        return runtime.replace(state=state, stats=stats, index_state=istate,
+                               tenancy=tenancy)
 
     # -- maintenance (paper §2.7 TTL; §2.4 rebalancing) ----------------------
     def expire(self, runtime: CacheRuntime, now) -> CacheRuntime:
@@ -222,6 +321,7 @@ class SemanticCache:
     # -- fused serve-side step (DESIGN.md §7) -------------------------------
     def commit(self, runtime: CacheRuntime, peeked: LookupResult, now, *,
                valid: torch.Tensor | None = None,
+               tenant_id: torch.Tensor | None = None,
                comm: _LocalComm = LOCAL_COMM
                ) -> tuple[LookupResult, CacheRuntime]:
         """Commit a peeked lookup (counters, LRU touch, policy state)
@@ -229,8 +329,12 @@ class SemanticCache:
         scores against the current policy state, so peek -> commit equals a
         counted ``lookup``. ``valid`` marks the real rows of a padded batch:
         padding rows stay out of the hit mask, the touch and every
-        counter."""
+        counter, the per-tenant ones included."""
+        tenant_id = self._require_tenants(tenant_id, peeked.score.device)
         hit, pstate = self.policy.decide(peeked.score, runtime.policy_state)
+        if tenant_id is not None:
+            hit = self._apply_threshold_overrides(hit, peeked.score,
+                                                  tenant_id)
         hit = hit & (peeked.score > float("-inf"))
         near = self._near_mask(hit, peeked.score, runtime.policy_state)
         if valid is None:
@@ -243,14 +347,17 @@ class SemanticCache:
         state = comm.touch(runtime.state, peeked.index, now, hit)
         stats = runtime.stats.record_lookups(n_lookups,
                                              hit.sum(dtype=torch.int32))
+        tenancy = self._account_lookups(runtime.tenancy, tenant_id, hit=hit,
+                                        valid=valid, comm=comm)
         return result, runtime.replace(state=state, stats=stats,
-                                       policy_state=pstate)
+                                       policy_state=pstate, tenancy=tenancy)
 
     def step(self, runtime: CacheRuntime, queries: torch.Tensor,
              miss_values: torch.Tensor, miss_value_lens: torch.Tensor, now, *,
              source_id: torch.Tensor | None = None,
              peeked: LookupResult | None = None,
              valid: torch.Tensor | None = None,
+             tenant_id: torch.Tensor | None = None,
              comm: _LocalComm = LOCAL_COMM
              ) -> tuple[LookupResult, CacheRuntime]:
         """Lookup, then insert exactly the missed queries' fresh responses.
@@ -260,19 +367,22 @@ class SemanticCache:
         batch. ``peeked`` (from ``lookup(update_counters=False)``) skips the
         search: the slab is searched once per batch. ``valid`` marks the
         real rows of a padded batch: padding rows neither count nor get
-        inserted."""
+        inserted. ``tenant_id`` (required when partitioned) may mix tenants
+        in any proportion."""
         if peeked is None and valid is None:
-            result, runtime = self.lookup(runtime, queries, now, comm=comm)
+            result, runtime = self.lookup(runtime, queries, now,
+                                          tenant_id=tenant_id, comm=comm)
         else:
             if peeked is None:
                 peeked, _ = self.lookup(runtime, queries, now,
-                                        update_counters=False, comm=comm)
+                                        update_counters=False,
+                                        tenant_id=tenant_id, comm=comm)
             result, runtime = self.commit(runtime, peeked, now, valid=valid,
-                                          comm=comm)
+                                          tenant_id=tenant_id, comm=comm)
         insert_mask = ~result.hit
         if valid is not None:
             insert_mask = insert_mask & valid
         runtime = self.insert(runtime, queries, miss_values, miss_value_lens,
                               now, source_id=source_id, mask=insert_mask,
-                              comm=comm)
+                              tenant_id=tenant_id, comm=comm)
         return result, runtime

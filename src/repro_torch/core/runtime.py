@@ -31,7 +31,9 @@ class Index(Protocol):
                interval: tuple[torch.Tensor, torch.Tensor] | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """(B,d) queries vs the slab -> (scores (B,k), slot ids (B,k) int32).
-        Rows with no visible live slot return exactly (-inf, -1)."""
+        ``alive`` is (N,) shared or (B, N) per row; ``interval`` restricts
+        row b to slots ``[starts[b], starts[b] + sizes[b])``. Rows with no
+        visible live slot return exactly (-inf, -1)."""
         ...
 
     def absorb(self, istate: Any, slots: torch.Tensor, keys: torch.Tensor,
@@ -68,14 +70,16 @@ class CacheRuntime:
     """Everything a semantic cache mutates.
 
     Leaves: ``state`` (the slab), ``stats`` (counters), ``policy_state``
-    (threshold-policy state) and ``index_state`` (empty for ExactIndex).
-    The JAX runtime's ``tenancy`` and ``fusion`` groups arrive with their
-    slices."""
+    (threshold-policy state), ``index_state`` (empty for ExactIndex) and
+    ``tenancy`` (per-tenant ring pointers and counters, a
+    ``TenancyState``; ``None`` for a single-tenant cache). The JAX
+    runtime's ``fusion`` group arrives with the sessions slice."""
 
     state: CacheState
     stats: CacheStats
     policy_state: torch.Tensor
     index_state: Any
+    tenancy: Any = None
 
     def replace(self, **kw) -> "CacheRuntime":
         return dataclasses.replace(self, **kw)

@@ -83,6 +83,43 @@ def select_slots(config: CacheConfig, state: CacheState, now, m: int,
     return idx.to(torch.int32)
 
 
+def select_slots_tenant(partition, tenant_ptr: torch.Tensor,
+                        tenant_id: torch.Tensor, mask: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tenant ring slot selection inside disjoint slab regions.
+
+    Each tenant runs its own FIFO ring over its contiguous region
+    ``[start_t, start_t + size_t)``; ``tenant_ptr`` is the (T,) vector of
+    per-tenant ring offsets. Written rows of a tenant pack contiguously from
+    that tenant's pointer (the packing of ``select_slots``); masked-out rows
+    park on the tenant's slots just past its written block. Slots are
+    distinct across tenants by construction, and within a tenant as long as
+    a batch's rows of that tenant fit in its region (the engine checks
+    ``min region >= batch``).
+
+    Returns ``(slots (B,) int32, new_tenant_ptr (T,) int32)``.
+    """
+    dev = tenant_ptr.device
+    b = tenant_id.shape[0]
+    tid = tenant_id.to(torch.int64)
+    starts = partition.starts_array(dev)[tid]
+    sizes = partition.sizes_array(dev)[tid]
+    mask = mask.to(torch.bool)
+    same = tenant_id[:, None] == tenant_id[None, :]               # (B, B)
+    before = torch.tril(torch.ones((b, b), dtype=torch.bool, device=dev),
+                        diagonal=-1)
+    i32 = dict(dim=1, dtype=torch.int32)
+    written_rank = (same & before & mask[None, :]).sum(**i32)
+    skipped_rank = (same & before & ~mask[None, :]).sum(**i32)
+    written_total = (same & mask[None, :]).sum(**i32)
+    off = torch.where(mask, written_rank, written_total + skipped_rank)
+    slots = starts + (tenant_ptr[tid] + off) % sizes
+    counts = torch.zeros_like(tenant_ptr).index_add_(
+        0, tid, mask.to(torch.int32))
+    new_ptr = (tenant_ptr + counts) % partition.sizes_array(dev)
+    return slots.to(torch.int32), new_ptr
+
+
 def insert(config: CacheConfig, state: CacheState, embeddings: torch.Tensor,
            values: torch.Tensor, value_lens: torch.Tensor, now, *,
            source_id: torch.Tensor | None = None,

@@ -1,11 +1,20 @@
 // Masked cosine top-k over the cache slab, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/cosine_topk.py::_cosine_topk_kernel
-// (entry point cosine_topk_pallas): scores = queries (B, d) x keys (N, d)^T
-// under a shared (N,) validity mask, then the k <= 8 best slots of each row,
-// ordered by (score desc, slot id asc), with (-inf, -1) where fewer than k
-// slots are visible. Keys are f32, bf16 or int8; int8 keys are loaded as one
-// byte each and scaled by 1/127 in registers.
+// in three of its visibility forms, one C entry point each:
+//   cosine_topk_launch           shared (N,) validity mask (cosine_topk_pallas)
+//   cosine_topk_interval_launch  shared mask and one slot interval per row,
+//                                [starts[b], starts[b] + sizes[b]), the
+//                                tenancy path (cosine_topk_interval_pallas)
+//   cosine_topk_masked_launch    dense (B, N) bool mask, aliveness folded in
+//                                by the caller (cosine_topk_masked_pallas)
+// scores = queries (B, d) x keys (N, d)^T, then the k <= 8 best visible slots
+// of each row, ordered by (score desc, slot id asc), with (-inf, -1) where
+// fewer than k slots are visible. Keys are f32, bf16 or int8; int8 keys are
+// loaded as one byte each and scaled by 1/127 in registers. The mask source
+// is a template parameter of pass 1; it decides which scores are offered to
+// the top-k lists, so a slot outside a row's interval (or dense mask) never
+// enters that row's list, whatever its score or slot id.
 //
 // Bound on an H100 SXM at the main path's shapes (B=128, d=384, N=16384, f32
 // keys): 2*B*d*N = 1.61 GFLOP at the 67 TFLOP/s f32 CUDA-core peak is 24 us,
@@ -29,6 +38,17 @@
 // about two per SM, all resident at once. Left for later work: 12 shared-
 // memory loads per 32 FMAs, loads not overlapped with compute, the query tile
 // reloaded for every key tile, and the merge not fused into pass 1.
+//
+// Interval form. A block loads the 64 intervals of its query rows into
+// shared memory once and skips every 128-key tile that lies outside all of
+// them (the skip is uniform over the block, so it leaves the barriers
+// intact); rows past B get an empty interval. Counting only the visible work,
+// the tenancy path (B=128, N=65536, four 16384-slot regions) needs 1.61 GFLOP
+// (24 us at 67 TFLOP/s) and reads the 100.7 MB f32 slab (30 us at 3.35 TB/s),
+// so its bound is set by bytes: the slab no longer fits the 50 MB L2. But a
+// 64-row tile there mixes tenants, so the skip rarely fires and the kernel
+// scores all N, four times the visible operations. Dense form: one byte of
+// the (B, N) mask per score, read where the score tile is stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,6 +65,9 @@ constexpr int TN = BN / 16;                   // keys per thread
 constexpr int ROWS_PER_WARP = BQ / (NT / 32); // top-k lists per warp
 constexpr int MAX_K = 8;
 constexpr unsigned FULL = 0xffffffffu;
+
+// where a score's visibility comes from (template parameter of pass 1)
+enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -88,16 +111,22 @@ __device__ __forceinline__ void warp_offer(float s, int id, bool ok, int k, int 
   }
 }
 
-template <typename KT>
+// valid: (N,) bytes (SHARED_MASK, INTERVAL_MASK); starts/sizes: (B,) int32
+// (INTERVAL_MASK); mask: (B, N) bytes (DENSE_MASK). Unused pointers may be
+// null.
+template <typename KT, int MS>
 __global__ void __launch_bounds__(NT)
 cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
-                    const uint8_t* __restrict__ valid, int B, int N, int d, int k,
-                    int keys_per_chunk, float* __restrict__ part_s,
-                    int* __restrict__ part_i) {
+                    const uint8_t* __restrict__ valid, const int* __restrict__ starts,
+                    const int* __restrict__ sizes, const uint8_t* __restrict__ mask,
+                    int B, int N, int d, int k, int keys_per_chunk,
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
   // The two input tiles of the d loop and the score tile after it share one
   // buffer: qs [DK][BQ + 1] and ks [DK][BN + 1], then sc [BQ][BN + 1]. The +1
   // keeps the transposed stores free of bank conflicts.
   __shared__ float smem[BQ * (BN + 1)];
+  // INTERVAL_MASK: row r of the block sees [row_lo[r], row_hi[r])
+  __shared__ int row_lo[BQ], row_hi[BQ];
   float* qs = smem;
   float* ks = smem + DK * (BQ + 1);
   float* sc = smem;
@@ -118,7 +147,30 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
     li[r] = -1;
   }
 
+  // keys [blk_lo, blk_hi) hold every slot some row of the block may see
+  int blk_lo = n_begin, blk_hi = n_end;
+  if (MS == INTERVAL_MASK) {
+    if (tid < BQ) {
+      const int gr = q0 + tid;
+      const int lo = gr < B ? starts[gr] : 0;
+      const int sz = gr < B ? sizes[gr] : 0;
+      row_lo[tid] = lo;
+      row_hi[tid] = sz > 0 ? lo + sz : lo;
+    }
+    __syncthreads();
+    int lo = N, hi = 0;
+    for (int r = 0; r < BQ; ++r) {
+      if (row_hi[r] > row_lo[r]) {
+        lo = min(lo, row_lo[r]);
+        hi = max(hi, row_hi[r]);
+      }
+    }
+    blk_lo = max(blk_lo, lo);
+    blk_hi = min(blk_hi, hi);
+  }
+
   for (int n0 = n_begin; n0 < n_end; n0 += BN) {
+    if (n0 + BN <= blk_lo || n0 >= blk_hi) continue;  // uniform over the block
     float acc[TQ][TN];
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
@@ -167,12 +219,22 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
     }
 
 #pragma unroll
-    for (int i = 0; i < TQ; ++i)
+    for (int i = 0; i < TQ; ++i) {
+      const int r = ty + 16 * i, gr = q0 + r;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int col = tx + 16 * j, gn = n0 + col;
-        sc[(ty + 16 * i) * (BN + 1) + col] = (gn < n_end && valid[gn]) ? acc[i][j] : -INFINITY;
+        bool vis = gn < n_end;
+        if (MS == SHARED_MASK) {
+          vis = vis && valid[gn];
+        } else if (MS == INTERVAL_MASK) {
+          vis = vis && valid[gn] && gn >= row_lo[r] && gn < row_hi[r];
+        } else {
+          vis = vis && gr < B && mask[(size_t)gr * N + gn];
+        }
+        sc[r * (BN + 1) + col] = vis ? acc[i][j] : -INFINITY;
       }
+    }
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -222,51 +284,94 @@ cosine_topk_merge(const float* __restrict__ part_s, const int* __restrict__ part
   }
 }
 
-template <typename KT>
-cudaError_t launch(const void* q, const void* keys, const void* valid, int B, int N, int d,
-                   int k, int keys_per_chunk, int chunks, void* part_s, void* part_i,
-                   void* out_s, void* out_i, cudaStream_t stream) {
-  const dim3 grid(chunks, (B + BQ - 1) / BQ);
-  cosine_topk_partial<KT><<<grid, NT, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const KT*>(keys),
-      static_cast<const uint8_t*>(valid), B, N, d, k, keys_per_chunk,
-      static_cast<float*>(part_s), static_cast<int*>(part_i));
+struct Args {
+  const void* q;
+  const void* keys;
+  const void* valid;
+  const void* starts;
+  const void* sizes;
+  const void* mask;
+  int B, N, d, k, keys_per_chunk, chunks;
+  void* part_s;
+  void* part_i;
+  void* out_s;
+  void* out_i;
+  cudaStream_t stream;
+};
+
+template <typename KT, int MS>
+cudaError_t launch(const Args& a) {
+  const dim3 grid(a.chunks, (a.B + BQ - 1) / BQ);
+  cosine_topk_partial<KT, MS><<<grid, NT, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
+      static_cast<const uint8_t*>(a.valid), static_cast<const int*>(a.starts),
+      static_cast<const int*>(a.sizes), static_cast<const uint8_t*>(a.mask), a.B, a.N,
+      a.d, a.k, a.keys_per_chunk, static_cast<float*>(a.part_s),
+      static_cast<int*>(a.part_i));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cosine_topk_merge<<<(B + NT / 32 - 1) / (NT / 32), NT, 0, stream>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i), B, chunks, k,
-      static_cast<float*>(out_s), static_cast<int*>(out_i));
+  cosine_topk_merge<<<(a.B + NT / 32 - 1) / (NT / 32), NT, 0, a.stream>>>(
+      static_cast<const float*>(a.part_s), static_cast<const int*>(a.part_i), a.B,
+      a.chunks, a.k, static_cast<float*>(a.out_s), static_cast<int*>(a.out_i));
   return cudaGetLastError();
+}
+
+// key_dtype: 0 = float32, 1 = bfloat16, 2 = int8
+template <int MS>
+int dispatch(int key_dtype, const Args& a) {
+  if (a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.keys_per_chunk < 1 ||
+      a.chunks < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
+      (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (key_dtype) {
+    case 0:
+      return launch<float, MS>(a);
+    case 1:
+      return launch<__nv_bfloat16, MS>(a);
+    case 2:
+      return launch<int8_t, MS>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// Each entry point returns the cudaError_t of its launches (0 on success).
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8. part_s/part_i hold
-// B * chunks * k entries; chunks * keys_per_chunk must cover N. Returns the
-// cudaError_t of the launches (0 on success).
+// B * chunks * k entries; chunks * keys_per_chunk must cover N.
+
+// shared (N,) mask
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,
                        int B, int N, int d, int k, int keys_per_chunk, int chunks,
                        void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
-  if (B < 1 || N < 1 || d < 1 || k < 1 || k > MAX_K || keys_per_chunk < 1 || chunks < 1 ||
-      (long long)chunks * keys_per_chunk < N ||
-      (long long)(chunks - 1) * keys_per_chunk >= N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (key_dtype) {
-    case 0:
-      return launch<float>(q, keys, valid, B, N, d, k, keys_per_chunk, chunks, part_s, part_i,
-                           out_s, out_i, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, keys, valid, B, N, d, k, keys_per_chunk, chunks, part_s,
-                                   part_i, out_s, out_i, s);
-    case 2:
-      return launch<int8_t>(q, keys, valid, B, N, d, k, keys_per_chunk, chunks, part_s, part_i,
-                            out_s, out_i, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Args a{q, keys, valid, nullptr, nullptr, nullptr, B, N, d, k, keys_per_chunk,
+               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  return dispatch<SHARED_MASK>(key_dtype, a);
+}
+
+// shared (N,) mask and per-row (B,) int32 intervals; the caller guarantees
+// 0 <= starts, 0 <= sizes and starts + sizes <= N
+int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
+                                const void* valid, const void* starts, const void* sizes,
+                                int B, int N, int d, int k, int keys_per_chunk, int chunks,
+                                void* part_s, void* part_i, void* out_s, void* out_i,
+                                void* stream) {
+  const Args a{q, keys, valid, starts, sizes, nullptr, B, N, d, k, keys_per_chunk,
+               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  return dispatch<INTERVAL_MASK>(key_dtype, a);
+}
+
+// dense (B, N) bool mask, row-major
+int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
+                              const void* mask, int B, int N, int d, int k,
+                              int keys_per_chunk, int chunks, void* part_s, void* part_i,
+                              void* out_s, void* out_i, void* stream) {
+  const Args a{q, keys, nullptr, nullptr, nullptr, mask, B, N, d, k, keys_per_chunk,
+               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  return dispatch<DENSE_MASK>(key_dtype, a);
 }
 
 const char* cosine_topk_error_string(int err) {

@@ -33,3 +33,23 @@ def cosine_topk_ref(queries: torch.Tensor, keys: torch.Tensor,
     vals, idx = masked_topk(scores, k)
     idx = torch.where(vals > NEG_INF, idx, torch.full_like(idx, -1))
     return vals, idx.to(torch.int32)
+
+
+def interval_mask(starts: torch.Tensor, sizes: torch.Tensor, n: int
+                  ) -> torch.Tensor:
+    """(B,) interval operands -> (B, N) bool visibility mask: row ``b`` sees
+    slots ``[starts[b], starts[b] + sizes[b])``. The plain form of the
+    per-row mask the interval kernel never builds."""
+    cols = torch.arange(n, dtype=torch.int32, device=starts.device)[None, :]
+    return (cols >= starts[:, None]) & (cols < (starts + sizes)[:, None])
+
+
+def cosine_topk_interval_ref(queries: torch.Tensor, keys: torch.Tensor,
+                             valid: torch.Tensor, starts: torch.Tensor,
+                             sizes: torch.Tensor, k: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the interval kernel (the tenancy path): the dense
+    (B, N) mask of shared aliveness and per-row interval, then the exact
+    top-k. Rows with ``sizes[b] == 0`` return (-inf, -1)."""
+    mask = valid[None, :] & interval_mask(starts, sizes, keys.shape[0])
+    return cosine_topk_ref(queries, keys, mask, k)

@@ -18,12 +18,18 @@ A ground-truth judge callback replaces the paper's GPT-4o-mini validation:
 judge(request, matched_source_id) -> bool; with it, judged hit outcomes feed
 the threshold policy (the adaptive controller of paper §2.10).
 
-Tenancy (``registry``), sessions (``fusion``), near-hit synthesis
-(``synthesizer``), tracing (``tracer``, ``events``, ``explain_responses``),
-resilience (including per-row containment of a failed backend call) and the
-sharded cache (``mesh``) arrive with later slices; each raises
-NotImplementedError until then. Without them, responses and
-``metrics.summary()`` match the JAX engine's request by request.
+Multi-tenancy: constructing the engine with a ``TenantRegistry`` partitions
+the slab into per-tenant regions and routes each request's ``tenant``
+through the same peek and step: lookups see only their tenant's region,
+misses go into their tenant's own ring, and both ``ServingMetrics`` and the
+device-side ``TenancyState`` keep per-tenant accounting.
+
+Sessions (``fusion``), near-hit synthesis (``synthesizer``), tracing
+(``tracer``, ``events``, ``explain_responses``), resilience (including
+per-row containment of a failed backend call) and the sharded cache
+(``mesh``) arrive with later slices; each raises NotImplementedError until
+then. Without them, responses and ``metrics.summary()`` match the JAX
+engine's request by request.
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ class Request:
     category: str = "default"
     source_id: int = -1          # ground-truth provenance (evaluation only)
     semantic_key: str = ""
+    tenant: str = "default"      # isolation domain; ignored without a
+                                 # registry
 
 
 @dataclasses.dataclass
@@ -87,7 +95,6 @@ class Batcher:
 
 
 _LATER = {
-    "registry": "the tenancy slice",
     "fusion": "the sessions slice",
     "synthesizer": "the near-hit slice",
     "tracer": "the observability slice",
@@ -119,9 +126,11 @@ class CachedEngine:
         # ``policy``: optional threshold policy (e.g. AdaptiveThreshold);
         # with a judge, judged hit outcomes are fed back after every batch.
         # ``index``: optional index, refit every ``rebuild_every`` inserts
-        # (a no-op for the exact index). ``device``: where the slab lives
-        # and the search runs; "cuda" raises when CUDA is absent.
-        given = dict(registry=registry, fusion=fusion, synthesizer=synthesizer,
+        # (a no-op for the exact index). ``registry``: optional
+        # TenantRegistry partitioning the slab into per-tenant regions.
+        # ``device``: where the slab lives and the search runs; "cuda"
+        # raises when CUDA is absent.
+        given = dict(fusion=fusion, synthesizer=synthesizer,
                      tracer=tracer, events=events, resilience=resilience,
                      mesh=mesh)
         for name, value in given.items():
@@ -131,12 +140,28 @@ class CachedEngine:
         if explain_responses:
             raise NotImplementedError(
                 "explained responses arrive with the observability slice")
-        if cache_config.capacity < batch_size:
+        self.registry = registry
+        partition = None
+        if registry is not None:
+            partition = registry.partition(cache_config.capacity)
+            if min(partition.sizes) < batch_size:
+                # the per-tenant ring gives distinct slots only while a
+                # batch's rows of a tenant fit inside the tenant's region
+                small = partition.names[
+                    partition.sizes.index(min(partition.sizes))]
+                raise ValueError(
+                    f"smallest tenant region ({min(partition.sizes)} slots, "
+                    f"tenant {small!r}) is below the batch size "
+                    f"({batch_size}); grow the slab or the tenant's "
+                    "share/quota")
+            self._tenant_index = {n: i for i, n in enumerate(partition.names)}
+        elif cache_config.capacity < batch_size:
             raise ValueError(
                 f"capacity ({cache_config.capacity} slots) is below the batch "
                 f"size ({batch_size}); grow the slab")
         self.device = resolve_device(device)
-        self.cache = SemanticCache(cache_config, policy=policy, index=index)
+        self.cache = SemanticCache(cache_config, policy=policy, index=index,
+                                   partition=partition)
         self.runtime: CacheRuntime = self.cache.init(self.device)
         self.use_fused_step = use_fused_step
         self.rebuild_every = rebuild_every
@@ -164,14 +189,38 @@ class CachedEngine:
     def policy_state(self):
         return self.runtime.policy_state
 
+    def tenant_stats(self) -> dict:
+        """Device-side per-tenant accounting (the TenancyState counters),
+        keyed by tenant name. Empty on a single-tenant engine."""
+        t = self.runtime.tenancy
+        if t is None:
+            return {}
+        t = t.reduced()
+        cols = {n: getattr(t, n).cpu().tolist()
+                for n in ("lookups", "hits", "inserts", "evictions")}
+        part = self.cache.partition
+        return {
+            name: {
+                "lookups": cols["lookups"][i],
+                "hits": cols["hits"][i],
+                "misses": cols["lookups"][i] - cols["hits"][i],
+                "inserts": cols["inserts"][i],
+                "evictions": cols["evictions"][i],
+                "region_slots": part.sizes[i],
+            }
+            for i, name in enumerate(part.names)
+        }
+
     def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(device=self.device,
                                                  dtype=dtype)
 
     # ------------------------------------------------------------------ #
     def save_cache(self, path: str) -> None:
-        """Persist the whole runtime (slab, counters, policy and index
-        state) in the JAX package's snapshot format."""
+        """Persist the whole runtime (slab, counters, policy, index and
+        tenancy state) in the JAX package's snapshot format. The manifest
+        records the partition map, which a restore must match."""
+        part = self.cache.partition
         checkpoint.save_checkpoint(
             path, checkpoint.runtime_to_numpy(self.runtime),
             metadata={"now": self._now,
@@ -179,22 +228,33 @@ class CachedEngine:
                       "capacity": self.cache.config.capacity,
                       "index": type(self.cache.index).__name__,
                       "policy": type(self.cache.policy).__name__,
-                      "partition": None,
+                      "partition": None if part is None
+                      else part.manifest(),
                       "fusion": None,
                       "shard_layout": None})
 
     def load_cache(self, path: str) -> None:
         """Restore a snapshot taken by this engine or by the JAX one, and
-        resume its TTL clock (expiries are absolute deadlines)."""
+        resume its TTL clock (expiries are absolute deadlines). A snapshot
+        taken under another tenant layout is refused: its regions and ring
+        pointers would land on the wrong slots."""
         flat = checkpoint.open_checkpoint(path)
         meta = checkpoint.read_metadata(path)
-        for key in ("partition", "fusion", "shard_layout"):
+        for key in ("fusion", "shard_layout"):
             if meta.get(key) is not None:
                 raise NotImplementedError(
                     f"snapshot {path!r} carries {key} state, which this "
                     "port does not restore yet")
-        restored = checkpoint.runtime_from_numpy(flat, self.cache.config,
-                                                 self.device)
+        part = self.cache.partition
+        current = None if part is None else part.manifest()
+        if meta and meta.get("partition") != current:
+            raise ValueError(
+                f"snapshot partition map {meta.get('partition')} does not "
+                f"match this engine's {current}; rebuild the engine with the "
+                "registry the snapshot was taken under")
+        restored = checkpoint.runtime_from_numpy(
+            flat, self.cache.config, self.device,
+            num_tenants=None if part is None else len(part))
         want = tuple(self.runtime.policy_state.shape)
         if tuple(restored.policy_state.shape) != want:
             raise ValueError(
@@ -221,10 +281,41 @@ class CachedEngine:
     def _embed(self, texts) -> torch.Tensor:
         return self._tensor(self.embedder.embed_batch(texts), torch.float32)
 
-    def warm(self, pairs) -> None:
-        """Cache population phase (paper §3.1): embed+insert the corpus."""
+    def _tenant_ids(self, batch) -> torch.Tensor | None:
+        """(B,) int32 tenant ids of a (possibly padded) batch; None on a
+        single-tenant engine. Pad rows route as tenant 0: the ``valid``
+        mask keeps them out of every counter and the slab."""
+        if self.registry is None:
+            return None
+        ids = []
+        for r in batch:
+            if r is PAD_REQUEST:
+                ids.append(0)
+                continue
+            try:
+                ids.append(self._tenant_index[r.tenant])
+            except KeyError:
+                raise KeyError(
+                    f"unknown tenant {r.tenant!r}; registered: "
+                    f"{tuple(self._tenant_index)}") from None
+        return self._tensor(ids, torch.int32)
+
+    def warm(self, pairs, tenant: str | None = None) -> None:
+        """Cache population phase (paper §3.1): embed+insert the corpus.
+
+        On a multi-tenant engine the corpus lands in ``tenant``'s region
+        (default: the registry's first tenant); warm each tenant
+        separately."""
         cfg = self.cache.config
         bs = min(256, cfg.capacity)
+        tid_value = None
+        if self.registry is not None:
+            name = tenant if tenant is not None else self.registry.names[0]
+            tid_value = self.registry.index(name)
+            # one chunk must fit in the tenant's ring to get distinct slots
+            bs = min(bs, self.cache.partition.sizes[tid_value])
+        elif tenant is not None:
+            raise ValueError("warm(tenant=...) needs a tenant registry")
         for i in range(0, len(pairs), bs):
             chunk = pairs[i:i + bs]
             toks, lens = self.tokenizer.encode_batch(
@@ -233,7 +324,9 @@ class CachedEngine:
                 self.runtime, self._embed([p.question for p in chunk]),
                 self._tensor(toks, torch.int32),
                 self._tensor(lens, torch.int32), np.float32(self._now),
-                source_id=self._tensor([p.qa_id for p in chunk], torch.int32))
+                source_id=self._tensor([p.qa_id for p in chunk], torch.int32),
+                tenant_id=None if tid_value is None else self._tensor(
+                    [tid_value] * len(chunk), torch.int32))
             self._inserts_since_rebuild += len(chunk)
 
     # ------------------------------------------------------------------ #
@@ -268,10 +361,18 @@ class CachedEngine:
         the judge, the metrics and the slab.
         """
         n_valid = len(batch)
+        if self.registry is not None and len(batch) > self.batcher.batch_size:
+            # the per-tenant ring gives distinct slots only for batches up
+            # to the batch size the constructor checked against the regions
+            raise ValueError(
+                f"tenant-partitioned engine got a {len(batch)}-row batch "
+                f"but batch_size={self.batcher.batch_size}; align the "
+                "scheduler's max_batch with the engine batch size")
         if self.use_fused_step:
             batch, n_valid = self.batcher.pad(batch)
         cfg = self.cache.config
         n = len(batch)
+        tid = self._tenant_ids(batch)
         t0 = time.perf_counter()
         emb = self._embed([r.query for r in batch])
         now = np.float32(self._now)
@@ -285,7 +386,7 @@ class CachedEngine:
             # 1. pure peek: learn the miss set without committing any state
             #    (the only slab search this batch — step commits it, §7)
             peek, _ = self.cache.lookup(self.runtime, emb, now,
-                                        update_counters=False)
+                                        update_counters=False, tenant_id=tid)
             peek_hit = peek.hit.cpu().numpy()
             cache_time = time.perf_counter() - t0
             miss_idx = [i for i in range(n_valid) if not peek_hit[i]]
@@ -306,13 +407,15 @@ class CachedEngine:
                 self._tensor(miss_lens, torch.int32), now,
                 source_id=self._tensor([r.source_id for r in batch],
                                        torch.int32),
-                peeked=peek, valid=self._tensor(valid, torch.bool))
+                peeked=peek, valid=self._tensor(valid, torch.bool),
+                tenant_id=tid)
             hit = result.hit.cpu().numpy()   # waits for the step
             cache_time += time.perf_counter() - t1
             self._inserts_since_rebuild += len(miss_idx)
         else:
             # reference path: counted lookup, then a subset insert
-            result, self.runtime = self.cache.lookup(self.runtime, emb, now)
+            result, self.runtime = self.cache.lookup(self.runtime, emb, now,
+                                                     tenant_id=tid)
             hit = result.hit.cpu().numpy()
             cache_time = time.perf_counter() - t0
             miss_idx = [i for i in range(n) if not hit[i]]
@@ -326,7 +429,8 @@ class CachedEngine:
                     self.runtime, emb[idx], self._tensor(toks, torch.int32),
                     self._tensor(lens, torch.int32), now,
                     source_id=self._tensor(
-                        [batch[i].source_id for i in miss_idx], torch.int32))
+                        [batch[i].source_id for i in miss_idx], torch.int32),
+                    tenant_id=None if tid is None else tid[idx])
                 self._inserts_since_rebuild += len(miss_idx)
 
         scores = result.score.cpu().numpy()
@@ -363,12 +467,15 @@ class CachedEngine:
             judged=[self.judge is not None and bool(hit[i]) for i in rows],
             cache_time_s=cache_time, llm_time_s=llm_time,
             llm_cost=llm_cost, baseline_cost=per_cost * n_valid,
-            baseline_time=baseline_time)
+            baseline_time=baseline_time,
+            tenants=None if self.registry is None else
+            [batch[i].tenant for i in rows])
 
         per_q_latency = (cache_time + llm_time) / max(n_valid, 1)
         for i in rows:
-            self.metrics.record_latency("hit" if hit[i] else "miss",
-                                        per_q_latency)
+            self.metrics.record_latency(
+                "hit" if hit[i] else "miss", per_q_latency,
+                tenant=None if self.registry is None else batch[i].tenant)
         return [Response(answer=answers[i], cached=bool(hit[i]),
                          score=float(scores[i]), latency_s=per_q_latency)
                 for i in rows]

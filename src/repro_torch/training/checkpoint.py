@@ -1,8 +1,9 @@
 """Cache-runtime checkpoints in the format of ``repro.training.checkpoint``.
 
 A runtime is flattened to '/'-joined key paths (``runtime/state/keys`` …
-``runtime/stats/inserts``, ``runtime/policy_state``), saved as one
-compressed npz plus a JSON manifest. The keys and dtypes are exactly those
+``runtime/stats/inserts``, ``runtime/policy_state`` and, on a partitioned
+cache, ``runtime/tenancy/ptr`` … ``runtime/tenancy/evictions``), saved as
+one compressed npz plus a JSON manifest. The keys and dtypes are exactly those
 the JAX package writes, so a snapshot taken by either package loads into
 the other. A bfloat16 slab is written as float32 (numpy has no bfloat16;
 the values are exact and the JAX loader casts them back).
@@ -24,9 +25,11 @@ import torch
 from repro_torch.core.index import ExactState
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, CacheState, CacheStats
+from repro_torch.tenancy.partition import TenancyState
 
 _STATE = tuple(f.name for f in CacheState.__dataclass_fields__.values())
 _STATS = tuple(f.name for f in CacheStats.__dataclass_fields__.values())
+_TENANCY = tuple(f.name for f in TenancyState.__dataclass_fields__.values())
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -50,20 +53,34 @@ def runtime_to_numpy(runtime: CacheRuntime, prefix: str = "runtime"
     flat.update({f"{prefix}/stats/{n}": _to_numpy(getattr(runtime.stats, n))
                  for n in _STATS})
     flat[f"{prefix}/policy_state"] = _to_numpy(runtime.policy_state)
+    if runtime.tenancy is not None:
+        flat.update({f"{prefix}/tenancy/{n}":
+                     _to_numpy(getattr(runtime.tenancy, n))
+                     for n in _TENANCY})
     return flat
 
 
 def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
-                       device: torch.device, prefix: str = "runtime"
-                       ) -> CacheRuntime:
-    """Rebuild a runtime of ``config`` on ``device`` from flattened arrays.
-    Raises ValueError on a missing key or a shape that ``config`` does not
-    give, and NotImplementedError on state of a slice not ported yet."""
+                       device: torch.device, prefix: str = "runtime", *,
+                       num_tenants: int | None = None) -> CacheRuntime:
+    """Rebuild a runtime of ``config`` on ``device`` from flattened arrays;
+    ``num_tenants`` is the tenant count of a partitioned cache (None for a
+    single-tenant one). Raises ValueError on a missing key, a shape that
+    ``config`` does not give or tenancy state that does not fit
+    ``num_tenants``, and NotImplementedError on state of a slice not ported
+    yet."""
+    groups = set()
     for k in flat:
         group = k[len(prefix) + 1:].split("/", 1)[0]
-        if group not in ("state", "stats", "policy_state"):
+        if group not in ("state", "stats", "policy_state", "tenancy"):
             raise NotImplementedError(
                 f"checkpoint key {k!r} belongs to a slice not ported yet")
+        groups.add(group)
+    if ("tenancy" in groups) != (num_tenants is not None):
+        raise ValueError(
+            "checkpoint tenancy state does not match the cache: "
+            f"{'has' if 'tenancy' in groups else 'lacks'} runtime/tenancy/*"
+            f" keys, the cache has {num_tenants or 'no'} tenant(s)")
     n, d, v = config.capacity, config.dim, config.value_len
     shapes = {"keys": (n, d), "values": (n, v), "ptr": (), "n_inserts": ()}
     dtypes = {"keys": config.key_dtype, "values": torch.int32,
@@ -95,8 +112,13 @@ def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
     if pkey not in flat:
         raise ValueError(f"checkpoint is missing key {pkey!r}")
     policy_state = get(pkey, tuple(np.shape(flat[pkey])), torch.float32)
+    tenancy = None
+    if num_tenants is not None:
+        tenancy = TenancyState(**{
+            name: get(f"{prefix}/tenancy/{name}", (num_tenants,),
+                      torch.int32) for name in _TENANCY})
     return CacheRuntime(state=state, stats=stats, policy_state=policy_state,
-                        index_state=ExactState())
+                        index_state=ExactState(), tenancy=tenancy)
 
 
 def save_checkpoint(path: str, flat: dict[str, np.ndarray],

@@ -193,9 +193,9 @@ def test_cuda_entry_points_raise_without_cuda():
         serve.main(["--corpus", "2", "--queries", "1"])
 
 
-@pytest.mark.parametrize("feature", ["registry", "fusion", "synthesizer",
-                                     "tracer", "events", "resilience",
-                                     "mesh"])
+@pytest.mark.parametrize("feature", ["fusion", "synthesizer", "tracer",
+                                     "events", "explain_responses",
+                                     "resilience", "mesh"])
 def test_unported_engine_features_raise(feature):
     cfg = CacheConfig(dim=8, capacity=64)
     with pytest.raises(NotImplementedError, match="slice"):

@@ -33,6 +33,13 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_tenancy_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"tenancy/partition.py", "tenancy/registry.py",
+            "tenancy/__init__.py", "serving/loadgen.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -41,6 +48,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch, repro_torch.core, repro_torch.serving\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.training.checkpoint, repro_torch.launch.serve\n"
+        "import repro_torch.tenancy, repro_torch.serving.loadgen\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -250,8 +250,6 @@ def test_expire_counts_and_gather_topk():
 
 def test_unported_features_raise():
     cfg = CacheConfig(dim=8, capacity=16)
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        SemanticCache(cfg, partition=object())
     with pytest.raises(NotImplementedError, match="sessions"):
         SemanticCache(cfg, fusion=object())
 
