@@ -10,7 +10,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
   card      the card's name and power limit; f32 products must not use TF32
   build     nvcc of every kernel source for sm_90a, with -Xptxas -v
   kernel    each CUDA kernel (shared-mask, per-row interval and dense-mask
-            cosine top-k) against its plain PyTorch version on the card
+            cosine top-k, k up to the IVF probe's 16 and past it; the IVF
+            candidate top-k on a real candidate matrix, all-visible,
+            all-empty, ragged and planted-tie cases) against its plain
+            PyTorch version on the card
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
             counted, held request by request against the same run on the CPU;
@@ -19,6 +22,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
             defaults) the same way, through the interval kernel; then
             ``ExactIndex.search`` with a per-row (B, N) mask through the
             dense-mask kernel, against the interval search
+  ivf       the IVF serve loop (``launch.serve --index ivf`` defaults) on
+            the card for f32 and int8 slabs and with ``--tenants 4``, held
+            against the CPU: one probe and one IVF launch per batch, the
+            same decisions, and any bucket-table difference of the two
+            k-means runs printed and checked against a CPU engine restored
+            from the card's post-refit snapshot
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events
 The last three lines are the card's name and power limit as nvidia-smi
@@ -31,6 +40,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,8 +54,10 @@ PEAK_BYTES = 3.35e12
 SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-2}
 MAIN_BATCHES = 16          # 2,000 test queries in batches of 128
 TENANTS = 4                # launch.serve --tenants 4: 4 x 16,384 slots
-KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked")
+KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked",
+           "ivf_topk")
 DECISION_FIELDS = ("lookups", "cache_hits", "hit_rate", "api_call_fraction")
+THRESHOLD = 0.8
 
 
 def fail(msg: str) -> None:
@@ -113,7 +125,7 @@ def _compare(torch, ks, ki, rs1, ri1, k, tol, where, tie_rows):
     """Hold a kernel's (scores, ids) against its plain version's top-(k+1)
     (one entry more, for the gap past the kernel's last entry). Returns the
     max abs score error over the finite entries. ``tie_rows`` maps a row to
-    the slot ids its planted ties must resolve to, lowest first."""
+    the slot ids its planted ties must resolve to, in order."""
     torch.cuda.synchronize()
     ks, ki, rs1, ri1 = (x.cpu() for x in (ks, ki, rs1, ri1))
     b = ks.shape[0]
@@ -142,7 +154,7 @@ def _compare(torch, ks, ki, rs1, ri1, k, tol, where, tie_rows):
         want = torch.tensor(want[:k], dtype=torch.int32)
         if not (torch.equal(ki[r, :len(want)], want)
                 and torch.equal(ri[r, :len(want)], want)):
-            fail(f"planted ties not resolved to the lowest visible slot at "
+            fail(f"planted ties not resolved by the tie rule at "
                  f"{where}: row {r} kernel {ki[r].tolist()}, plain "
                  f"{ri[r].tolist()}, expected {want.tolist()}")
     return err
@@ -270,6 +282,9 @@ def phase_kernel(torch) -> dict:
         (128, 1000, 384, 4, "none"),
         (7, 1000, 1536, 8, "few"),
         (200, 1048576, 384, 4, "random"),
+        (128, 128, 384, 16, "all"),        # the IVF serve probe
+        (128, 16384, 384, 16, "random"),
+        (7, 1000, 384, 32, "few"),
     ]
     per_row_cases = [  # (B, N, d, k, interval layout)
         (128, 65536, 384, 4, "regions"),    # the tenancy path's shape
@@ -295,22 +310,115 @@ def phase_kernel(torch) -> dict:
                  cases=len(per_row_cases), max_abs_err=max(errs),
                  tolerance=SCORE_TOL[dtype])
             worst[name] = max(worst[name], max(errs))
+    worst["ivf_topk"] = _ivf_kernel_cases(torch)
+    return worst
+
+
+def _ivf_serve_candidates(torch, b=128):
+    """The IVF serve path's operands at its defaults: the warm f32 slab
+    after the first refit, the first ``b`` served queries (normalized) and
+    their (B, M) candidate matrix."""
+    from repro_torch.core import store
+    from repro_torch.core.similarity import l2_normalize
+    from repro_torch.launch import serve
+    eng, reqs = serve.build(device="cuda", index="ivf", log=lambda *a: None)
+    eng._maybe_refit()
+    q = l2_normalize(eng._embed([r.query for r in reqs[:b]]))
+    alive = store.alive_mask(eng.state, eng._now)
+    cand = eng.cache.index.candidates(eng.runtime.index_state, q, alive)
+    return eng, q, eng.state.keys, cand
+
+
+def _ivf_case(torch, dtype, q, keys, cand, k, where, tie_rows=None):
+    """The IVF kernel against its plain version on f32 ``keys`` cast to
+    ``dtype``; returns the max abs score error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ivf_topk import ivf_topk_cuda
+    if dtype == "bf16":
+        keys = keys.to(torch.bfloat16)
+    elif dtype == "int8":
+        keys = torch.clamp(torch.round(keys * 127.0), -127, 127).to(
+            torch.int8)
+    ks, ki = ivf_topk_cuda(q, keys, cand, k)
+    rs1, ri1 = ref.ivf_topk_ref(q, keys, cand, k + 1)
+    return _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype],
+                    f"ivf_topk {dtype} {where}", tie_rows or {})
+
+
+def _ivf_kernel_cases(torch) -> float:
+    """Every IVF kernel case for f32, bf16 and int8 keys; returns the worst
+    score error."""
+    _, q, keys, cand = _ivf_serve_candidates(torch)
+    keys = keys.float()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    n, d = keys.shape
+    every = torch.randint(0, n, cand.shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
+    # B > 64, M past one 2,048-position block and not a multiple of it,
+    # ids a tenth visible, rows 0-9 with fewer visible ids than k
+    rk = _make_keys(torch, gen, 5000, d, "f32")
+    rq = torch.randn((200, d), generator=gen, device="cuda")
+    rq = rq / rq.norm(dim=1, keepdim=True)
+    ragged = torch.randint(0, 5000, (200, 3001), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    ragged[torch.rand((200, 3001), generator=gen, device="cuda") < 0.9] = -1
+    for r in range(10):
+        ragged[r, r:] = -1
+        ragged[r, 3001 - r:] = 7
+    # planted equal scores: slots u2 and u1 hold one key row, at positions
+    # 100 and 900 of row 0 (its query); slot t at positions 5 and 700 of
+    # row 1. Ties go to the lower position, and no dedup happens here.
+    tk = _make_keys(torch, gen, 4096, d, "f32")
+    tq = torch.randn((128, d), generator=gen, device="cuda")
+    u1, u2, t = 1000, 3000, 2000
+    tk[u2] = tk[u1]
+    tq[0], tq[1] = tk[u1], tk[t]
+    tq = tq / tq.norm(dim=1, keepdim=True)
+    tc = torch.randint(0, 4096, (128, 1024), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    tc[torch.isin(tc, torch.tensor([u1, u2, t], device="cuda"))] = -1
+    tc[0, 100], tc[0, 900], tc[1, 5], tc[1, 700] = u2, u1, t, t
+    worst = 0.0
+    for dtype in ("f32", "bf16", "int8"):
+        errs = [
+            _ivf_case(torch, dtype, q, keys, cand, 4, "serve shape"),
+            _ivf_case(torch, dtype, q, keys, every, 4, "all visible"),
+            _ivf_case(torch, dtype, q, keys, torch.full_like(cand, -1), 4,
+                      "all -1"),
+            _ivf_case(torch, dtype, rq, rk, ragged, 8, "B=200 M=3001 k=8"),
+            _ivf_case(torch, dtype, tq, tk, tc, 4, "planted ties",
+                      {0: [u2, u1], 1: [t, t]}),
+            _ivf_case(torch, dtype, q, keys, cand, 32, "serve shape k=32"),
+        ]
+        emit("kernel", kernel="ivf_topk", dtype=dtype, cases=len(errs),
+             max_abs_err=max(errs), tolerance=SCORE_TOL[dtype])
+        worst = max(worst, max(errs))
     return worst
 
 
 # --------------------------------------------------------------------- #
+def _reset_launches() -> None:
+    from repro_torch.kernels import cosine_topk, ivf_topk
+    cosine_topk.reset_launches()
+    ivf_topk.reset_launches()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import cosine_topk, ivf_topk
+    return {**cosine_topk.launches, **ivf_topk.launches}
+
+
 def _serve(torch, **kw):
     """One ``launch.serve.run``; returns the engine, requests, responses,
     each kernel's launches during the run, and its wall time."""
-    from repro_torch.kernels import cosine_topk as kmod
     from repro_torch.launch import serve
-    kmod.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     engine, requests, responses = serve.run(log=lambda *a: None, **kw)
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return engine, requests, responses, dict(kmod.launches), wall
+    return engine, requests, responses, _launches(), wall
 
 
 def _expect_launches(launches: dict, want: dict, where: str) -> None:
@@ -503,6 +611,152 @@ def phase_tenancy(torch) -> dict:
 
 
 # --------------------------------------------------------------------- #
+def _table_diff(a, b) -> int:
+    """Entries in which two IVF states' bucket tables differ."""
+    return int((a.buckets.cpu() != b.buckets.cpu()).sum()
+               + (a.bucket_valid.cpu() != b.bucket_valid.cpu()).sum())
+
+
+def _ivf_run(torch, device, snapshot=None, on_warm_slab=None, **kw):
+    """``launch.serve --index ivf`` on ``device``, with the first batch's
+    refit run up front, as ``serve_batch`` would run it. After the refit it
+    saves a snapshot when ``snapshot`` is given and calls
+    ``on_warm_slab(engine, requests)``, outside the counted and timed run.
+    Returns the engine, requests, responses, the post-refit index state,
+    the launches while serving, the wall time of build + serve and what
+    ``on_warm_slab`` returned."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    eng, reqs = serve.build(device=device, index="ivf", log=lambda *a: None,
+                            **kw)
+    eng._maybe_refit()
+    refit_state = eng.runtime.index_state
+    wall = time.perf_counter() - t0
+    if snapshot is not None:
+        eng.save_cache(snapshot)
+    extra = None if on_warm_slab is None else on_warm_slab(eng, reqs)
+    _reset_launches()
+    t0 = time.perf_counter()
+    resp = eng.process(reqs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    return eng, reqs, resp, refit_state, _launches(), wall, extra
+
+
+def _decisions(eng) -> dict:
+    return {c: {f: m[f] for f in DECISION_FIELDS}
+            for c, m in eng.metrics.summary()["categories"].items()}
+
+
+def _n_differing(a, b) -> int:
+    return sum(x.cached != y.cached or x.answer != y.answer
+               or not abs(x.score - y.score) <= 1e-5 for x, y in zip(a, b))
+
+
+def _warm_slab_stats(eng, reqs) -> dict:
+    """On the warm slab after the refit: bucket fill, the visible candidates
+    per row of the first batch, and recall@1 of the IVF search against
+    ExactIndex over every request: the IVF top-1 scores what the exact
+    top-1 scores, within 1e-6 (the same slot, or an equal key, as the
+    copies of the corpus in every tenant region are)."""
+    from repro_torch.core import store
+    from repro_torch.core.index import ExactIndex
+    from repro_torch.core.similarity import l2_normalize
+    st, keys = eng.runtime.index_state, eng.state.keys
+    alive = store.alive_mask(eng.state, eng._now)
+    fill = st.bucket_valid.sum(1).float()
+    same, visible = 0, None
+    for i in range(0, len(reqs), 128):
+        q = l2_normalize(eng._embed([r.query for r in reqs[i:i + 128]]))
+        if visible is None:
+            cand = eng.cache.index.candidates(st, q, alive)
+            visible = (cand >= 0).sum(1).float()
+        iv, _ = eng.cache.index.search(st, q, keys, alive)
+        ex, _ = ExactIndex(topk=1).search(None, q, keys, alive)
+        same += int(((iv[:, 0] - ex[:, 0]).abs() <= 1e-6).sum())
+    return {"bucket_fill": {"min": int(fill.min()),
+                            "mean": float(fill.mean()),
+                            "max": int(fill.max())},
+            "visible_candidates_first_batch": {
+                "min": int(visible.min()), "mean": float(visible.mean()),
+                "max": int(visible.max()), "of": cand.shape[1]},
+            "recall_at_1_vs_exact": same / len(reqs)}
+
+
+def phase_ivf(torch, scratch: Path) -> dict:
+    """The IVF serve path on the card against the CPU. Returns the
+    launches of the f32 run."""
+    from repro_torch.launch import serve
+    out = {}
+    for i, kw in enumerate((dict(key_dtype="f32"), dict(key_dtype="int8"),
+                            dict(key_dtype="f32", tenants=TENANTS))):
+        where = "ivf " + " ".join(f"{k}={v}" for k, v in kw.items())
+        snap = str(scratch / f"ivf-{i}")
+        eng, reqs, resp, refit_st, launches, wall, warm = _ivf_run(
+            torch, "cuda", snapshot=snap, on_warm_slab=_warm_slab_stats, **kw)
+        _expect_launches(launches, {"cosine_topk": MAIN_BATCHES,
+                                    "ivf_topk": MAIN_BATCHES}, where)
+        scores = [r.score for r in resp]
+        if len(resp) != len(reqs) or not all(math.isfinite(x)
+                                             for x in scores):
+            fail(f"{where}: missing or non-finite scores")
+        cpu, _, cpu_resp, cpu_refit_st, cpu_launches, cpu_wall, _ = \
+            _ivf_run(torch, "cpu", **kw)
+        _expect_launches(cpu_launches, {}, f"{where}, CPU run")
+        refit_diff = _table_diff(refit_st, cpu_refit_st)
+        centroid_diff = float((refit_st.centroids.cpu()
+                               - cpu_refit_st.centroids).abs().max())
+        final_diff = _table_diff(eng.runtime.index_state,
+                                 cpu.runtime.index_state)
+        restored = None
+        if refit_diff == 0 and final_diff == 0:
+            _same_decisions(resp, cpu_resp, f"{where} cuda vs cpu", 1e-5)
+            ref_eng = cpu
+        else:
+            # the two k-means runs or absorbs placed a key differently (an
+            # f32 near-tie of two centroids): hold the card's decisions
+            # against a CPU engine restored from the card's own post-refit
+            # snapshot, which serves from the card's bucket tables
+            ref_eng, rreqs = serve.build(device="cpu", index="ivf",
+                                         log=lambda *a: None, **kw)
+            ref_eng.load_cache(snap)
+            rresp = ref_eng.process(rreqs)
+            _same_decisions(resp, rresp, f"{where} cuda vs restored cpu",
+                            1e-5)
+            restored = {"requests": len(rresp), "table_entries_differing":
+                        _table_diff(eng.runtime.index_state,
+                                    ref_eng.runtime.index_state)}
+        if _decisions(eng) != _decisions(ref_eng):
+            fail(f"{where}: per-category hits differ from the CPU")
+        if kw.get("tenants") and eng.tenant_stats() != ref_eng.tenant_stats():
+            fail(f"{where}: tenant_stats differ from the CPU")
+        cats = eng.metrics.summary()["categories"]
+        emit("ivf", device="cuda", **kw, capacity=eng.cache.config.capacity,
+             requests=len(resp), batches=MAIN_BATCHES,
+             kernel_launches=launches, refits=eng.refits, wall_s=wall,
+             wall_per_batch_s=wall / MAIN_BATCHES,
+             serve_path_s=eng.metrics.cache_path_time_s, cpu_wall_s=cpu_wall,
+             closest_score_to_threshold=min(abs(x - THRESHOLD)
+                                            for x in scores),
+             **warm,
+             table_entries_differing_after_refit=refit_diff,
+             centroid_max_abs_diff_after_refit=centroid_diff,
+             table_entries_differing_after_serving=final_diff,
+             requests_differing_from_cpu_run=_n_differing(resp, cpu_resp),
+             restored_cpu_check=restored,
+             table1={c: {"hits": m["cache_hits"], "lookups": m["lookups"],
+                         "hit_rate": m["hit_rate"],
+                         "positive_hits": m["positive_hits"]}
+                     for c, m in cats.items()},
+             cpu_hits={c: m["cache_hits"] for c, m in
+                       cpu.metrics.summary()["categories"].items()})
+        if i == 0:
+            out = launches
+    return out
+
+
+# --------------------------------------------------------------------- #
 def _time(torch, fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -512,6 +766,32 @@ def _time(torch, fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_graph(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between CUDA events, so no host work (argument
+    checks, allocation, the ctypes call) sits between the launches. For
+    kernels shorter than the wrapper's host time, where ``_time`` reads the
+    host's launch rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -645,6 +925,85 @@ def phase_timing(torch, card: str) -> dict:
             out[(name, n, dtype)] = row
             emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
                  regions=TENANTS, card=card, **row)
+
+    # the IVF probe: the cosine kernel over the 128 centroids at k=16
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cents = _make_keys(torch, gen, 128, d, "f32")
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    always = torch.ones(128, dtype=torch.bool, device="cuda")
+    def probe():
+        return kmod.cosine_topk_cuda(q, cents, always, 16)
+    ms, times = _time_turns(torch, {
+        "kernel": probe,
+        "plain": lambda: ref.cosine_topk_ref(q, cents, always, 16),
+        "library": lambda: torch.topk(q @ cents.T, 16)}, 200)
+    bound = _bound(2.0 * b * 128 * d,
+                   b * d * 4 + 128 * d * 4 + 128 + b * 16 * 8)
+    graph_ms = _time_graph(torch, probe, 200)
+    row = {"kernel_ms": ms["kernel"], "graph_ms": graph_ms,
+           "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "runs_ms": times, **bound,
+           "share_of_bound": bound["bound_ms"] / graph_ms}
+    out[("cosine_topk_probe", 128, "f32")] = row
+    emit("timing", kernel="cosine_topk", role="IVF probe", B=b, N=128, d=d,
+         k=16, key_dtype="f32", card=card, **row)
+    out.update(_ivf_timing(torch, card))
+    return out
+
+
+def _ivf_timing(torch, card: str) -> dict:
+    """The IVF kernel at the serve shape (the real candidate matrix of the
+    first served batch) and with every one of the 16,384 ids visible."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ivf_topk import ivf_topk_cuda
+    _, q, slab, cand = _ivf_serve_candidates(torch)
+    slab = slab.float()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    every = torch.randint(0, slab.shape[0], cand.shape, generator=gen,
+                          device="cuda", dtype=torch.int32)
+    b, d = q.shape
+    k = 4
+    neg = torch.tensor(float("-inf"), device="cuda")
+    out = {}
+    for shape, ids in (("serve", cand), ("all_visible", every)):
+        for dtype in ("f32", "int8"):
+            keys = slab if dtype == "f32" else torch.clamp(
+                torch.round(slab * 127.0), -127, 127).to(torch.int8)
+
+            def kernel():
+                return ivf_topk_cuda(q, keys, ids, k)
+
+            def plain():
+                return ref.ivf_topk_ref(q, keys, ids, k)
+
+            def library():
+                return torch.topk(torch.where(
+                    ids >= 0, torch.einsum(
+                        "bd,bmd->bm", q,
+                        _as_f32(torch, keys)[ids.clamp(min=0).long()]),
+                    neg), k)
+            reps = 100 if shape == "serve" else 10
+            ms, times = _time_turns(torch, {"kernel": kernel, "plain": plain,
+                                            "library": library}, reps)
+            # the work this candidate matrix needs: each visible pair
+            # scored once, each distinct visible slab row read once
+            vis = ids >= 0
+            pairs = int(vis.sum())
+            rows = int(torch.unique(ids[vis]).numel())
+            bound = _bound(2.0 * d * pairs,
+                           ids.numel() * 4 + b * d * 4
+                           + rows * d * keys.element_size() + b * k * 8)
+            graph_ms = _time_graph(torch, kernel, reps)
+            row = {"kernel_ms": ms["kernel"], "graph_ms": graph_ms,
+                   "plain_ms": ms["plain"], "library_ms": ms["library"],
+                   "runs_ms": times, **bound,
+                   "share_of_bound": bound["bound_ms"] / graph_ms,
+                   "visible_pairs": pairs, "distinct_rows": rows}
+            out[("ivf_topk", shape, dtype)] = row
+            emit("timing", kernel="ivf_topk", shape=shape, B=b,
+                 M=ids.shape[1], N=slab.shape[0], d=d, k=k, key_dtype=dtype,
+                 card=card, **row)
     return out
 
 
@@ -662,25 +1021,35 @@ def main() -> None:
     phase_build()
     max_err = phase_kernel(torch)
     launches = {"cosine_topk": phase_main(torch), **phase_tenancy(torch)}
+    with tempfile.TemporaryDirectory() as scratch:
+        launches["ivf_topk"] = phase_ivf(torch, Path(scratch))["ivf_topk"]
     timing = phase_timing(torch, card)
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
 
     # each kernel at the shape of the path that launches it, f32 slab
-    rows = {"cosine_topk": (16384, "src/repro/kernels/cosine_topk.py:218"),
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = {"cosine_topk": ((16384, "f32"), "cosine_topk.cu",
+                            "src/repro/kernels/cosine_topk.py:218"),
             "cosine_topk_interval":
-            (65536, "src/repro/kernels/cosine_topk.py:251"),
+            ((65536, "f32"), "cosine_topk.cu",
+             "src/repro/kernels/cosine_topk.py:251"),
             "cosine_topk_masked":
-            (65536, "src/repro/kernels/cosine_topk.py:286")}
+            ((65536, "f32"), "cosine_topk.cu",
+             "src/repro/kernels/cosine_topk.py:286"),
+            "ivf_topk": (("serve", "f32"), "ivf_topk.cu",
+                         "src/repro/kernels/ivf_topk.py:133")}
     kernels = []
-    for name, (n, replaces) in rows.items():
-        row = timing[(name, n, "f32")]
+    for name, (shape, source, replaces) in rows.items():
+        row = timing[(name, *shape)]
+        # a kernel shorter than its wrapper's host time is timed from a
+        # CUDA graph of its launches (graph_ms)
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/cosine_topk.cu",
+            "name": name, "route": "cuda", "source": csrc + source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": row["kernel_ms"],
+            "max_abs_err": max_err[name],
+            "ms": row.get("graph_ms", row["kernel_ms"]),
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     summary = {"kernels": kernels}

@@ -1,7 +1,7 @@
-"""Semantic-cache core: slab types, store, exact index, policies and the
-``SemanticCache`` orchestrator (PyTorch port of ``repro.core``)."""
+"""Semantic-cache core: slab types, store, exact and IVF indexes, policies
+and the ``SemanticCache`` orchestrator (PyTorch port of ``repro.core``)."""
 from repro_torch.core.cache import SemanticCache
-from repro_torch.core.index import ExactIndex, ExactState
+from repro_torch.core.index import ExactIndex, ExactState, IVFIndex, IVFState
 from repro_torch.core.policy import (AdaptiveThreshold, FixedThreshold,
                                      PerCategoryThreshold, make_policy)
 from repro_torch.core.runtime import CacheRuntime, Index, Policy
@@ -12,6 +12,7 @@ from repro_torch.core.types import (CacheConfig, CacheState, CacheStats,
 __all__ = [
     "CacheConfig", "CacheState", "CacheStats", "LookupResult",
     "init_cache_state", "resolve_device", "CacheRuntime", "Index", "Policy",
-    "SemanticCache", "ExactIndex", "ExactState", "AdaptiveThreshold",
-    "FixedThreshold", "PerCategoryThreshold", "make_policy",
+    "SemanticCache", "ExactIndex", "ExactState", "IVFIndex", "IVFState",
+    "AdaptiveThreshold", "FixedThreshold", "PerCategoryThreshold",
+    "make_policy",
 ]

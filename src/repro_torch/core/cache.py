@@ -125,7 +125,7 @@ class SemanticCache:
             state=init_cache_state(self.config, dev),
             stats=CacheStats.zeros(dev),
             policy_state=self.policy.init_state(dev),
-            index_state=self.index.init(self.config),
+            index_state=self.index.init(self.config, dev),
             tenancy=None if self.partition is None
             else TenancyState.zeros(len(self.partition), dev),
         )

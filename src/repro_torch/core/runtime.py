@@ -5,7 +5,8 @@ the typed plugin seams (PyTorch port of ``repro.core.runtime``).
 index state, so a serve step is a function ``runtime -> runtime`` and a
 checkpoint is ``save(runtime)``. Index and policy implementations are
 interchangeable behind the ``Index`` / ``Policy`` protocols; a stateless
-index (``ExactIndex``) carries an empty state.
+index (``ExactIndex``) carries an empty state, ``IVFIndex`` an ``IVFState``
+(centroids and bucket tables).
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ class Index(Protocol):
     """ANN index plugin seam. An index is a frozen strategy object; its
     mutable state lives in the runtime's ``index_state``."""
 
-    def init(self, config: CacheConfig) -> Any:
-        """Fresh index state with static shapes derived from ``config``."""
+    def init(self, config: CacheConfig, device=None) -> Any:
+        """Fresh index state on ``device``, with static shapes derived from
+        ``config``."""
         ...
 
     def search(self, istate: Any, queries: torch.Tensor, keys: torch.Tensor,
@@ -70,7 +72,8 @@ class CacheRuntime:
     """Everything a semantic cache mutates.
 
     Leaves: ``state`` (the slab), ``stats`` (counters), ``policy_state``
-    (threshold-policy state), ``index_state`` (empty for ExactIndex) and
+    (threshold-policy state), ``index_state`` (empty for ExactIndex, an
+    ``IVFState`` for IVFIndex) and
     ``tenancy`` (per-tenant ring pointers and counters, a
     ``TenancyState``; ``None`` for a single-tenant cache). The JAX
     runtime's ``fusion`` group arrives with the sessions slice."""

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Sources build in
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Sources build in
 parallel: one ``nvcc`` each, all started together.
 
 Nothing here runs at import time; this machine-independent module is
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = {"cosine_topk": "cosine_topk.cu"}
+SOURCES = {"cosine_topk": "cosine_topk.cu", "ivf_topk": "ivf_topk.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -53,6 +54,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -11,9 +11,11 @@
 
 Contract (that of ``repro_torch.kernels.ref``): queries (B, d) float32,
 L2-normalized; keys (N, d) float32, bfloat16 or int8 (int8 scaled by 1/127
-in the kernel); k <= 8. Returns (scores (B, k) f32 sorted descending, slot
-ids (B, k) int32), ties to the lowest visible slot id, (-inf, -1) where
-fewer than k slots are visible.
+in the kernel); k <= 32 (``MAX_K``: a top-k list keeps one entry per lane
+of a warp, so the IVF probe's k=16 runs the same code as the main path's
+k=4). Returns (scores (B, k) f32 sorted descending, slot ids (B, k)
+int32), ties to the lowest visible slot id, (-inf, -1) where fewer than k
+slots are visible.
 
 Each wrapper checks its arguments, allocates the outputs and the pass-1
 scratch with ``torch.empty``, launches both passes on the current stream
@@ -36,11 +38,11 @@ from repro_torch.kernels import build
 launches = {"cosine_topk": 0, "cosine_topk_interval": 0,
             "cosine_topk_masked": 0}
 
-MAX_K = 8
+MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
 BLOCK_Q = 64    # query rows per block of pass 1 (BQ in the source)
 BLOCK_N = 128   # keys per tile of pass 1 (BN in the source)
 BLOCKS_PER_SM = 4
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_launches() -> None:
@@ -54,7 +56,7 @@ def _check_common(queries: torch.Tensor, keys: torch.Tensor, k: int) -> None:
                          f"{tuple(queries.shape)} and {tuple(keys.shape)}")
     if queries.dtype != torch.float32:
         raise ValueError(f"queries must be float32, got {queries.dtype}")
-    if keys.dtype not in _DTYPE_CODE:
+    if keys.dtype not in DTYPE_CODE:
         raise ValueError(f"keys must be float32, bfloat16 or int8, got "
                          f"{keys.dtype}")
     b, d = queries.shape
@@ -169,7 +171,7 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     entry = getattr(lib, f"{name}_launch")
     with torch.cuda.device(dev):
         err = entry(
-            queries.data_ptr(), keys.data_ptr(), _DTYPE_CODE[keys.dtype],
+            queries.data_ptr(), keys.data_ptr(), DTYPE_CODE[keys.dtype],
             *(m.data_ptr() for m in masks), b, n, d, k, per_chunk, chunks,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -8,8 +8,8 @@
 //                                tenancy path (cosine_topk_interval_pallas)
 //   cosine_topk_masked_launch    dense (B, N) bool mask, aliveness folded in
 //                                by the caller (cosine_topk_masked_pallas)
-// scores = queries (B, d) x keys (N, d)^T, then the k <= 8 best visible slots
-// of each row, ordered by (score desc, slot id asc), with (-inf, -1) where
+// scores = queries (B, d) x keys (N, d)^T, then the k <= 32 best visible
+// slots of each row, ordered by (score desc, slot id asc), with (-inf, -1) where
 // fewer than k slots are visible. Keys are f32, bf16 or int8; int8 keys are
 // loaded as one byte each and scaled by 1/127 in registers. The mask source
 // is a template parameter of pass 1; it decides which scores are offered to
@@ -32,7 +32,10 @@
 //     across tiles), so two equal key rows get bitwise-equal scores and ties
 //     resolve by slot id alone. Each 64 x 128
 //     score tile is masked by `valid` and offered to one warp-held top-k list
-//     per query row. The block writes its lists to partial (B, chunks, k).
+//     per query row; a list keeps one entry per lane (warp_topk.cuh), so
+//     the IVF probe's k=16 runs the same code, in the same registers, as
+//     the main path's k=4. The block writes its lists to partial
+//     (B, chunks, k).
 //   Pass 2 merges each row's chunks x k candidates, one warp per row.
 // The split gives B=128, N=16384 a grid of 128 chunks x 2 tiles = 256 blocks,
 // about two per SM, all resident at once. Left for later work: 12 shared-
@@ -49,12 +52,13 @@
 // 64-row tile there mixes tenants, so the skip rarely fires and the kernel
 // scores all N, four times the visible operations. Dense form: one byte of
 // the (B, N) mask per score, read where the score tile is stored.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "warp_topk.cuh"
 
 namespace {
+
+using namespace warp_topk;
 
 constexpr int BQ = 64;                        // query rows per block
 constexpr int BN = 128;                       // keys per tile
@@ -63,53 +67,9 @@ constexpr int NT = 256;                       // threads per block, 16 x 16
 constexpr int TQ = BQ / 16;                   // query rows per thread
 constexpr int TN = BN / 16;                   // keys per thread
 constexpr int ROWS_PER_WARP = BQ / (NT / 32); // top-k lists per warp
-constexpr int MAX_K = 8;
-constexpr unsigned FULL = 0xffffffffu;
 
 // where a score's visibility comes from (template parameter of pass 1)
 enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v) * (1.0f / 127.0f); }
-
-// (as, ai) ranks before (bs, bi): the higher score, then the lower slot id.
-__device__ __forceinline__ bool ranks_before(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-// Offers each lane's candidate (s, id), where ok, to a top-k list held by the
-// warp: lane j < k holds entry j in (ls, li), sorted by ranks_before, with
-// (-inf, -1) for an empty entry. Every lane of the warp must call it.
-__device__ __forceinline__ void warp_offer(float s, int id, bool ok, int k, int lane,
-                                           float& ls, int& li) {
-  float ts = __shfl_sync(FULL, ls, k - 1);
-  int ti = __shfl_sync(FULL, li, k - 1);
-  bool pass = ok && ranks_before(s, id, ts, ti);
-  unsigned mask = __ballot_sync(FULL, pass);
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    const float cs = __shfl_sync(FULL, s, src);
-    const int ci = __shfl_sync(FULL, id, src);
-    // the candidate beats entry k-1, so it goes before some entry; the list
-    // is sorted, so the entries it beats are a suffix starting at `pos`
-    const unsigned beaten = __ballot_sync(FULL, lane < k && ranks_before(cs, ci, ls, li));
-    const int pos = __ffs(beaten) - 1;
-    const float us = __shfl_up_sync(FULL, ls, 1);
-    const int ui = __shfl_up_sync(FULL, li, 1);
-    if (lane == pos) {
-      ls = cs;
-      li = ci;
-    } else if (lane > pos && lane < k) {
-      ls = us;
-      li = ui;
-    }
-    ts = __shfl_sync(FULL, ls, k - 1);
-    ti = __shfl_sync(FULL, li, k - 1);
-    pass = pass && lane != src && ranks_before(s, id, ts, ti);
-    mask = __ballot_sync(FULL, pass);
-  }
-}
 
 // valid: (N,) bytes (SHARED_MASK, INTERVAL_MASK); starts/sizes: (B,) int32
 // (INTERVAL_MASK); mask: (B, N) bytes (DENSE_MASK). Unused pointers may be

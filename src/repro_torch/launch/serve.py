@@ -7,6 +7,12 @@ print the paper's metrics as JSON. The defaults are those of
 category, a 16,384-slot slab, d=384, batch 128, threshold 0.8, the fused
 step. ``--device`` defaults to ``cuda`` and fails without it.
 
+``--index ivf`` serves through ``IVFIndex(ncentroids=128, nprobe=16,
+bucket_cap=1024)``, as ``repro.launch.serve --index ivf`` does: per batch
+the cosine kernel probes the 16 best of 128 centroids and the IVF kernel
+scores the probed buckets' members. It composes with ``--tenants``,
+``--key-dtype`` and ``--no-fused``.
+
 ``--tenants N`` runs the multi-tenant path of ``repro.launch.serve
 --tenants N`` (sync scheduler): N uniform tenants, a slab of
 ``max(16384, 8 * corpus) * N`` slots split into N regions, each warmed
@@ -21,6 +27,7 @@ import json
 
 import torch
 
+from repro_torch.core.index import IVFIndex
 from repro_torch.core.policy import AdaptiveThreshold
 from repro_torch.core.types import CacheConfig
 from repro_torch.data.qa_dataset import build_corpus, build_test_queries
@@ -32,15 +39,23 @@ from repro_torch.tenancy import TenantRegistry
 KEY_DTYPES = {"f32": torch.float32, "int8": torch.int8}
 
 
-def run(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
-        ttl: float | None = None, batch: int = 128, policy: str = "fixed",
-        fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
-        tenants: int = 0, tenant_skew: float = 1.0,
-        log=print) -> tuple[CachedEngine, list[Request], list[Response]]:
-    """Build the engine, warm it, serve the workload. Returns the engine,
-    the requests and their responses. ``tenants > 0`` partitions the slab
-    into that many uniform tenant regions and serves a multi-tenant
-    stream."""
+def run(*, log=print, **kw
+        ) -> tuple[CachedEngine, list[Request], list[Response]]:
+    """Build and warm the engine (``build(**kw)``), then serve the workload.
+    Returns the engine, the requests and their responses."""
+    engine, requests = build(log=log, **kw)
+    log(f"serving {len(requests)} queries (sync batches) ...")
+    return engine, requests, engine.process(requests)
+
+
+def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
+          ttl: float | None = None, batch: int = 128, policy: str = "fixed",
+          fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
+          tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
+          log=print) -> tuple[CachedEngine, list[Request]]:
+    """The warmed engine and the requests to serve. ``tenants > 0``
+    partitions the slab into that many uniform tenant regions and builds a
+    multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -62,7 +77,9 @@ def run(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         cfg, SimulatedLLMBackend(pairs), judge=judge, batch_size=batch,
         policy=AdaptiveThreshold(init=threshold) if policy == "adaptive"
         else None,
-        use_fused_step=fused, registry=registry, device=device)
+        use_fused_step=fused, registry=registry, device=device,
+        index=IVFIndex(ncentroids=128, nprobe=16, bucket_cap=1024)
+        if index == "ivf" else None)
     if registry is None:
         log(f"warming cache with {len(pairs)} QA pairs ...")
         engine.warm(pairs)
@@ -77,8 +94,7 @@ def run(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         requests = build_multi_tenant_workload(
             pairs, len(tests), tenants=list(registry.names),
             skew=tenant_skew, seed=1)
-    log(f"serving {len(requests)} queries (sync batches) ...")
-    return engine, requests, engine.process(requests)
+    return engine, requests
 
 
 def main(argv=None):
@@ -90,6 +106,8 @@ def main(argv=None):
     ap.add_argument("--threshold", type=float, default=0.8)
     ap.add_argument("--ttl", type=float, default=None)
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--index", choices=("exact", "ivf"), default="exact",
+                    help="ANN index plugin behind the cache")
     ap.add_argument("--policy", choices=("fixed", "adaptive"),
                     default="fixed", help="threshold policy plugin")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
@@ -112,7 +130,8 @@ def main(argv=None):
                        threshold=args.threshold, ttl=args.ttl,
                        batch=args.batch, policy=args.policy, fused=args.fused,
                        device=args.device, key_dtype=args.key_dtype,
-                       tenants=args.tenants, tenant_skew=args.tenant_skew)
+                       tenants=args.tenants, tenant_skew=args.tenant_skew,
+                       index=args.index)
     print(json.dumps(engine.metrics.summary(), indent=1))
     if args.tenants > 0:
         print("device-side per-tenant counters:")

@@ -18,6 +18,11 @@ A ground-truth judge callback replaces the paper's GPT-4o-mini validation:
 judge(request, matched_source_id) -> bool; with it, judged hit outcomes feed
 the threshold policy (the adaptive controller of paper §2.10).
 
+Index: ``ExactIndex`` by default, or ``IVFIndex`` (k-means buckets, the
+repo's analogue of the paper's HNSW), whose state is refit from the slab
+with a CPU generator seeded 17 before the first batch and every
+``rebuild_every`` inserts after.
+
 Multi-tenancy: constructing the engine with a ``TenantRegistry`` partitions
 the slab into per-tenant regions and routes each request's ``tenant``
 through the same peek and step: lookups see only their tenant's region,
@@ -125,8 +130,10 @@ class CachedEngine:
                  device: str | torch.device = "cuda"):
         # ``policy``: optional threshold policy (e.g. AdaptiveThreshold);
         # with a judge, judged hit outcomes are fed back after every batch.
-        # ``index``: optional index, refit every ``rebuild_every`` inserts
-        # (a no-op for the exact index). ``registry``: optional
+        # ``index``: optional index (e.g. IVFIndex), refit every
+        # ``rebuild_every`` inserts (a no-op for the exact index): warm
+        # inserts are absorbed into the init centroids, and the first
+        # served batch refits, as in the JAX engine. ``registry``: optional
         # TenantRegistry partitioning the slab into per-tenant regions.
         # ``device``: where the slab lives and the search runs; "cuda"
         # raises when CUDA is absent.
@@ -168,6 +175,7 @@ class CachedEngine:
         self._inserts_since_rebuild = 0
         self._needs_refit = True
         self._rebuild_rng = torch.Generator().manual_seed(17)
+        self.refits = 0          # index refits run by this engine
         self.backend = backend
         self.embedder = embedder or HashEmbedder(dim=cache_config.dim)
         self.tokenizer = tokenizer or HashTokenizer()
@@ -254,7 +262,8 @@ class CachedEngine:
                 "registry the snapshot was taken under")
         restored = checkpoint.runtime_from_numpy(
             flat, self.cache.config, self.device,
-            num_tenants=None if part is None else len(part))
+            num_tenants=None if part is None else len(part),
+            index=self.cache.index)
         want = tuple(self.runtime.policy_state.shape)
         if tuple(restored.policy_state.shape) != want:
             raise ValueError(
@@ -271,6 +280,7 @@ class CachedEngine:
                 self._inserts_since_rebuild >= self.rebuild_every:
             self.runtime = self.cache.refit(self.runtime, self._now,
                                             self._rebuild_rng)
+            self.refits += 1
             self._needs_refit = False
             self._inserts_since_rebuild = 0
 

@@ -1,7 +1,9 @@
 """Cache-runtime checkpoints in the format of ``repro.training.checkpoint``.
 
 A runtime is flattened to '/'-joined key paths (``runtime/state/keys`` …
-``runtime/stats/inserts``, ``runtime/policy_state`` and, on a partitioned
+``runtime/stats/inserts``, ``runtime/policy_state``, the index state's
+leaves under ``runtime/index_state/`` (none for the exact index;
+``centroids``, ``buckets``, ``bucket_valid`` for IVF) and, on a partitioned
 cache, ``runtime/tenancy/ptr`` … ``runtime/tenancy/evictions``), saved as
 one compressed npz plus a JSON manifest. The keys and dtypes are exactly those
 the JAX package writes, so a snapshot taken by either package loads into
@@ -15,6 +17,7 @@ a truncated or corrupt file into one ``CheckpointCorruptError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import zipfile
@@ -22,7 +25,7 @@ import zipfile
 import numpy as np
 import torch
 
-from repro_torch.core.index import ExactState
+from repro_torch.core.index import ExactIndex
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, CacheState, CacheStats
 from repro_torch.tenancy.partition import TenancyState
@@ -46,13 +49,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def runtime_to_numpy(runtime: CacheRuntime, prefix: str = "runtime"
                      ) -> dict[str, np.ndarray]:
     """Flatten a runtime to the JAX package's npz key paths."""
-    if not isinstance(runtime.index_state, ExactState):
-        raise NotImplementedError("only the exact index is ported")
     flat = {f"{prefix}/state/{n}": _to_numpy(getattr(runtime.state, n))
             for n in _STATE}
     flat.update({f"{prefix}/stats/{n}": _to_numpy(getattr(runtime.stats, n))
                  for n in _STATS})
     flat[f"{prefix}/policy_state"] = _to_numpy(runtime.policy_state)
+    flat.update({f"{prefix}/index_state/{f.name}":
+                 _to_numpy(getattr(runtime.index_state, f.name))
+                 for f in dataclasses.fields(runtime.index_state)})
     if runtime.tenancy is not None:
         flat.update({f"{prefix}/tenancy/{n}":
                      _to_numpy(getattr(runtime.tenancy, n))
@@ -62,17 +66,21 @@ def runtime_to_numpy(runtime: CacheRuntime, prefix: str = "runtime"
 
 def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
                        device: torch.device, prefix: str = "runtime", *,
-                       num_tenants: int | None = None) -> CacheRuntime:
+                       num_tenants: int | None = None,
+                       index=None) -> CacheRuntime:
     """Rebuild a runtime of ``config`` on ``device`` from flattened arrays;
     ``num_tenants`` is the tenant count of a partitioned cache (None for a
-    single-tenant one). Raises ValueError on a missing key, a shape that
-    ``config`` does not give or tenancy state that does not fit
-    ``num_tenants``, and NotImplementedError on state of a slice not ported
-    yet."""
+    single-tenant one), ``index`` the cache's index (None: the exact one),
+    whose ``init`` gives the index state's leaves, shapes and dtypes. Raises
+    ValueError on a missing key, a shape that ``config`` does not give, index
+    state of another index type or tenancy state that does not fit
+    ``num_tenants``, and NotImplementedError on state of the sessions
+    slice, which is not ported yet."""
     groups = set()
     for k in flat:
         group = k[len(prefix) + 1:].split("/", 1)[0]
-        if group not in ("state", "stats", "policy_state", "tenancy"):
+        if group not in ("state", "stats", "policy_state", "index_state",
+                         "tenancy"):
             raise NotImplementedError(
                 f"checkpoint key {k!r} belongs to a slice not ported yet")
         groups.add(group)
@@ -112,13 +120,26 @@ def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
     if pkey not in flat:
         raise ValueError(f"checkpoint is missing key {pkey!r}")
     policy_state = get(pkey, tuple(np.shape(flat[pkey])), torch.float32)
+    template = (index or ExactIndex()).init(config, device)
+    names = {f.name for f in dataclasses.fields(template)}
+    saved = {k[len(f"{prefix}/index_state/"):] for k in flat
+             if k.startswith(f"{prefix}/index_state/")}
+    if saved != names:
+        raise ValueError(
+            f"checkpoint index state {sorted(saved)} does not match this "
+            f"cache's {type(template).__name__} {sorted(names)}; build the "
+            "cache with the index the snapshot was taken with")
+    index_state = type(template)(**{
+        name: get(f"{prefix}/index_state/{name}",
+                  tuple(getattr(template, name).shape),
+                  getattr(template, name).dtype) for name in names})
     tenancy = None
     if num_tenants is not None:
         tenancy = TenancyState(**{
             name: get(f"{prefix}/tenancy/{name}", (num_tenants,),
                       torch.int32) for name in _TENANCY})
     return CacheRuntime(state=state, stats=stats, policy_state=policy_state,
-                        index_state=ExactState(), tenancy=tenancy)
+                        index_state=index_state, tenancy=tenancy)
 
 
 def save_checkpoint(path: str, flat: dict[str, np.ndarray],

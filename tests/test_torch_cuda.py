@@ -1,7 +1,8 @@
 """The port on the card: the CUDA cosine top-k kernels (shared mask, per-row
-interval, dense per-row mask) against their plain PyTorch versions, and the
-serve loop, single- and multi-tenant, on CUDA against the same loop on the
-CPU. Every test here needs a CUDA device and skips without one. The file imports
+interval, dense per-row mask; k up to the IVF probe's 16 and past it) and
+the IVF candidate top-k against their plain PyTorch versions, and the serve
+loop, single- and multi-tenant and through the IVF index, on CUDA against
+the same loop on the CPU. Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.index import IVFIndex
+from repro_torch.core.types import CacheConfig
 from repro_torch.kernels import cosine_topk as kmod
+from repro_torch.kernels import ivf_topk as kivf
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve
 
@@ -96,6 +100,75 @@ def make_interval_inputs(b, n, d, key_dtype, k, seed):
     if key_dtype == "int8":
         keys = np.clip(np.round(keys * 127.0), -127, 127).astype(np.int8)
     return q, keys, valid, starts, sizes, mask, ties
+
+
+IVF_CASES = [  # (B, N, M, d, k)
+    (4, 100, 37, 32, 4),
+    (6, 300, 300, 64, 8),
+    (9, 517, 130, 48, 16),
+    (3, 64, 20, 20, 4),      # 16-byte loads only for f32: d*2, d % 16 != 0
+    (70, 200, 2100, 32, 4),  # B > 64, M past one 2,048-position block
+]
+
+
+def make_ivf_inputs(b, n, m, d, k, key_dtype, seed):
+    """Unit queries and keys and a (B, M) candidate matrix, half of it -1,
+    each row's ids drawn from 48 slots of its own. Row 1 sees nothing, row
+    2 fewer than k ids. Planted ties: slots u1 < u2 hold one key row, and
+    row 0 (that row as its query) has u2 at a lower position than u1, so it
+    must return u2 first; row 3 has slot t at two positions (no dedup here),
+    so it must return t twice. The seed is advanced until the scores of each
+    row's distinct key rows lie more than 1e-6 apart (in float64, keys as
+    stored), so no decision hinges on the summation order. Returns
+    (q, keys, cand, ties), ``ties[r]`` the ids row r must start with."""
+    for attempt in range(100):
+        out = _ivf_inputs(b, n, m, d, k, key_dtype, seed + 1000 * attempt)
+        if _scores_apart(*out[:3], key_dtype):
+            return out
+    raise AssertionError("no seed gave scores 1e-6 apart")
+
+
+def _ivf_inputs(b, n, m, d, k, key_dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    pool = np.stack([rng.permutation(n)[:min(n, 48)] for _ in range(b)])
+    cand = np.take_along_axis(pool, rng.integers(0, pool.shape[1], (b, m)),
+                              axis=1).astype(np.int32)
+    cand[rng.random((b, m)) < 0.5] = -1
+    u1, u2, t = n // 3, n // 2, n // 5
+    keys[u2] = keys[u1]
+    cand[np.isin(cand, (u1, u2, t))] = -1
+    ties = {}
+    if b > 1:
+        cand[1] = -1
+    if b > 2:
+        keep = np.flatnonzero(cand[2] >= 0)[:k - 1]
+        cand[2, np.setdiff1d(np.arange(m), keep)] = -1
+    q[0] = keys[u1]
+    cand[0, m - 1], cand[0, m // 2] = u1, u2
+    ties[0] = [u2, u1]
+    if b > 3:
+        q[3] = keys[t]
+        cand[3, 3], cand[3, m - 2] = t, t
+        ties[3] = [t, t]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if key_dtype == "int8":
+        keys = np.clip(np.round(keys * 127.0), -127, 127).astype(np.int8)
+    return q, keys, cand, ties
+
+
+def _scores_apart(q, keys, cand, key_dtype):
+    k64 = keys_to_torch(keys, key_dtype).to(torch.float64).numpy()
+    if key_dtype == "int8":
+        k64 = k64 / 127.0
+    for qr, row in zip(q.astype(np.float64), cand):
+        ids = np.unique(row[(row >= 0) & (row < len(keys))])
+        scores = np.sort(np.unique(k64[ids], axis=0) @ qr)
+        if scores.size > 1 and np.min(np.diff(scores)) <= 1e-6:
+            return False
+    return True
 
 
 def keys_to_torch(keys, key_dtype):
@@ -198,3 +271,92 @@ def test_tenant_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype, fused):
                                [r.score for r in on_cpu], rtol=0, atol=1e-5)
     assert eng.tenant_stats() == cpu.tenant_stats()
     assert any(r.cached for r in on_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,n,m,d,k", IVF_CASES)
+def test_cuda_ivf_kernel_matches_plain_version(cuda_device, b, n, m, d, k,
+                                               key_dtype):
+    q, keys, cand, ties = make_ivf_inputs(b, n, m, d, k, key_dtype,
+                                          seed=b + n + m)
+    args = (torch.from_numpy(q).to(cuda_device),
+            keys_to_torch(keys, key_dtype).to(cuda_device),
+            torch.from_numpy(cand).to(cuda_device))
+    before = kivf.launches["ivf_topk"]
+    ks, ki = kivf.ivf_topk_cuda(*args, k)
+    assert kivf.launches["ivf_topk"] == before + 1
+    rs, ri = tref.ivf_topk_ref(*[a.cpu() for a in args], k)
+    tol = 1e-2 if key_dtype == "bf16" else 1e-5
+    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=tol)
+    assert torch.equal(ki.cpu(), ri)
+    for r, want in ties.items():
+        assert ki[r, :len(want)].cpu().tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(128, 16), (16384, 16), (1000, 32)])
+def test_cuda_cosine_kernel_takes_the_probe_k(cuda_device, n, k):
+    q, keys, valid, _ = make_inputs(128, n, 384, "f32", "random", k, seed=n)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (q, keys, valid)]
+    ks, ki = kmod.cosine_topk_cuda(*args, k)
+    rs, ri = tref.cosine_topk_ref(*[a.cpu() for a in args], k)
+    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=1e-5)
+    assert torch.equal(ki.cpu(), ri)
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_probe_over_the_limit_raises(cuda_device):
+    idx = IVFIndex(ncentroids=64, nprobe=kmod.MAX_K + 1, bucket_cap=4)
+    st = idx.init(CacheConfig(dim=16, capacity=64), cuda_device)
+    q = torch.ones((2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match=f"MAX_K={kmod.MAX_K}"):
+        idx.candidates(st, q, torch.ones(64, dtype=torch.bool,
+                                         device=cuda_device))
+
+
+def _ivf_engine(device, tmp_path=None, **kw):
+    """The warmed IVF serve engine after the refit its first batch would
+    run (saved to ``tmp_path`` when given), and its requests."""
+    eng, requests = serve.build(device=device, index="ivf",
+                                log=lambda *a: None, **kw)
+    eng._maybe_refit()
+    if tmp_path is not None:
+        eng.save_cache(str(tmp_path / "refit"))
+    return eng, requests
+
+
+def _served(responses):
+    return ([(r.answer, r.cached) for r in responses],
+            np.array([r.score for r in responses]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+def test_ivf_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype,
+                                            tmp_path):
+    """One probe and one IVF launch a batch. The card's decisions equal
+    those of a CPU engine serving from the card's own post-refit snapshot,
+    and those of an independent CPU run whenever the two k-means runs give
+    equal bucket tables (an f32 near-tie of two centroids may place a key
+    differently on the two devices)."""
+    kw = dict(corpus=30, queries=15, batch=16, key_dtype=key_dtype)
+    eng, requests = _ivf_engine(str(cuda_device), tmp_path, **kw)
+    card_tables = eng.runtime.index_state.buckets.cpu()
+    kmod.reset_launches()
+    kivf.reset_launches()
+    on_card = _served(eng.process(requests))
+    batches = -(-len(requests) // 16)
+    assert kmod.launches == {"cosine_topk": batches,
+                             "cosine_topk_interval": 0,
+                             "cosine_topk_masked": 0}
+    assert kivf.launches == {"ivf_topk": batches}
+    assert any(cached for _, cached in on_card[0])
+    restored, _ = _ivf_engine("cpu", **kw)
+    restored.load_cache(str(tmp_path / "refit"))
+    cpu, _ = _ivf_engine("cpu", **kw)
+    same_tables = torch.equal(card_tables, cpu.runtime.index_state.buckets)
+    for other in (restored, cpu) if same_tables else (restored,):
+        decisions, scores = _served(other.process(requests))
+        assert on_card[0] == decisions
+        np.testing.assert_allclose(on_card[1], scores, rtol=0, atol=1e-5)

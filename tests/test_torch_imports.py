@@ -40,6 +40,12 @@ def test_tenancy_slice_files_are_checked():
             "tenancy/__init__.py", "serving/loadgen.py"} <= names
 
 
+def test_ivf_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"kernels/ivf_topk.py", "core/index.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -49,6 +55,8 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.training.checkpoint, repro_torch.launch.serve\n"
         "import repro_torch.tenancy, repro_torch.serving.loadgen\n"
+        "import repro_torch.kernels.ivf_topk\n"
+        "from repro_torch.core import IVFIndex, IVFState\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -93,7 +93,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "k0":
         k = 0
     elif bad == "k9":
-        k = 9
+        # one past the kernel's limit
+        k = kmod.MAX_K + 1
     else:
         keys = torch.zeros((8, 16)).T
     with pytest.raises(ValueError):
