@@ -30,6 +30,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
             from the card's post-refit snapshot
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events
+  model     the model-backed miss path (``launch.serve --backend model``):
+            the flash-attention and decode-attention kernels against their
+            plain versions (causal and windowed, GQA 1-8, D 64/128, ragged
+            lengths, Lk > Lq; f32, bf16 and int8 KV, window with sinks,
+            rings with empty slots, rows that see nothing); the main
+            configuration served with full-width yi-6b (launches per batch
+            with misses, finite logits, Table 1 hits equal to the main
+            phase's, backend wall split into prefill and decode, one
+            generate under torch.profiler); the first miss batch again
+            through the plain attention; the reduced yi-6b card vs CPU; and
+            both kernels timed at the serve shape
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the per-kernel summary, and ``{"ok": true, "device": ...}``.
 """
@@ -55,7 +66,7 @@ SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-2}
 MAIN_BATCHES = 16          # 2,000 test queries in batches of 128
 TENANTS = 4                # launch.serve --tenants 4: 4 x 16,384 slots
 KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked",
-           "ivf_topk")
+           "ivf_topk", "flash_attention", "decode_attention")
 DECISION_FIELDS = ("lookups", "cache_hits", "hit_rate", "api_call_fraction")
 THRESHOLD = 0.8
 
@@ -397,15 +408,22 @@ def _ivf_kernel_cases(torch) -> float:
 
 
 # --------------------------------------------------------------------- #
+def _kernel_modules():
+    from repro_torch.kernels import (cosine_topk, decode_attention,
+                                     flash_attention, ivf_topk)
+    return cosine_topk, ivf_topk, flash_attention, decode_attention
+
+
 def _reset_launches() -> None:
-    from repro_torch.kernels import cosine_topk, ivf_topk
-    cosine_topk.reset_launches()
-    ivf_topk.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import cosine_topk, ivf_topk
-    return {**cosine_topk.launches, **ivf_topk.launches}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.launches)
+    return out
 
 
 def _serve(torch, **kw):
@@ -437,8 +455,10 @@ def _same_decisions(a, b, where: str, tol: float) -> None:
             fail(f"{where}: request {i} score {x.score} vs {y.score}")
 
 
-def phase_main(torch) -> int:
-    main_launches = None
+def phase_main(torch) -> tuple[int, dict]:
+    """The paper's serve loop on the card against the CPU. Returns the
+    cosine kernel's launches and the Table 1 hits of the f32 run."""
+    main_launches, hits = None, None
     for key_dtype in ("f32", "int8"):
         eng, reqs, resp, launches, wall = _serve(torch, device="cuda",
                                                  key_dtype=key_dtype)
@@ -446,6 +466,8 @@ def phase_main(torch) -> int:
                          f"main path ({key_dtype})")
         if key_dtype == "f32":
             main_launches = launches["cosine_topk"]
+            hits = {c: m["cache_hits"] for c, m in
+                    eng.metrics.summary()["categories"].items()}
         scores = [r.score for r in resp]
         if len(resp) != len(reqs) or not all(
                 math.isfinite(s) for s in scores):
@@ -480,7 +502,7 @@ def phase_main(torch) -> int:
     _expect_launches(sl, {"cosine_topk": 4}, "quick config, separate")
     emit("main", check="separate path equals fused", requests=len(fused),
          launches_fused=fl["cosine_topk"], launches_separate=sl["cosine_topk"])
-    return main_launches
+    return main_launches, hits
 
 
 # --------------------------------------------------------------------- #
@@ -806,8 +828,9 @@ def _time_turns(torch, fns: dict, reps: int) -> tuple[dict, dict]:
     return {name: sorted(v)[0] for name, v in times.items()}, times
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS
+           ) -> dict:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -1008,6 +1031,509 @@ def _ivf_timing(torch, card: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# the model-backed miss path (``launch.serve --backend model``)
+# --------------------------------------------------------------------- #
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+# kernel and plain version both take f32 products and sums, in other
+# orders: f32 outputs agree to 2e-5; a bf16 output may round the other way
+# once, one bf16 ulp (at most 2**-7 of the value)
+ATTN_TOL = {"f32": (2e-5, 2e-5), "bf16": (2.0 ** -7, 1e-5)}   # (rtol, atol)
+# full-width yi-6b, kernels against the plain attention on the same bf16
+# weights and tokens: only the attention outputs' bf16 rounding differs
+# (one ulp in some elements), and 32 layers of bf16 GEMMs carry the flips
+# on (measured on an H100 with these weights: the prefill logits differ by
+# 1.6% on average, 1.7% at most); a broken kernel moves the logits by their
+# whole range
+MODEL_LOGIT_REL = 0.1       # max |diff| / max |plain logit|
+MODEL_LOGIT_MEAN_REL = 0.05  # mean |diff| / mean |plain logit|
+TIE_TOL = 1e-4              # f32 top-two gap under which a token may flip
+PROMPT, NEW_TOKENS = 64, 24  # ModelBackend's defaults
+DECODE_PER_STEP_LAYERS = NEW_TOKENS - 1
+
+
+def _attn_inputs(torch, gen, shapes, dtype):
+    """Normal tensors on the card: the first scaled by 0.3 (q, k), the
+    rest unscaled (v)."""
+    out = []
+    for i, shape in enumerate(shapes):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        out.append((x * 0.3 if i < 2 else x).to(dtype))
+    return out
+
+
+def _attn_err(torch, out, want, dtype, where) -> float:
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[dtype]
+    a, b = out.float(), want.float()
+    if out.dtype != want.dtype or out.shape != want.shape:
+        fail(f"{where}: output {out.dtype} {tuple(out.shape)}, plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    if not bool(torch.all((a - b).abs() <= atol + rtol * b.abs())):
+        fail(f"{where}: kernel and plain version differ by up to "
+             f"{float((a - b).abs().max())} (rtol {rtol}, atol {atol})")
+    return float((a - b).abs().max())
+
+
+def _flash_cases(torch) -> float:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    cases = [  # (B, Lq, Lk, H, HKV, D, window)
+        (40, 64, 64, 32, 4, 128, None),    # the serve path, G=8
+        (4, 64, 64, 4, 2, 64, None),       # the reduced yi-6b, G=2
+        (2, 100, 100, 8, 8, 64, None),     # ragged, G=1
+        (2, 256, 256, 8, 2, 128, 100),     # window, G=4
+        (1, 256, 256, 16, 2, 64, 64),      # window, G=8
+        (2, 64, 256, 8, 2, 128, None),     # Lk > Lq
+        (2, 100, 256, 8, 1, 64, 80),       # Lk > Lq, ragged, window
+    ]
+    worst = 0.0
+    torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for dtype in ("f32", "bf16"):
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        errs = []
+        for b, lq, lk, h, hkv, d, window in cases:
+            q, k, v = _attn_inputs(torch, gen, ((b, lq, h, d), (b, lk, hkv, d),
+                                                (b, lk, hkv, d)),
+                                   torch_dtype[dtype])
+            errs.append(_attn_err(
+                torch, flash_attention_cuda(q, k, v, window=window),
+                ref.flash_attention_ref(q, k, v, window=window), dtype,
+                f"flash {dtype} B={b} Lq={lq} Lk={lk} H={h} HKV={hkv} "
+                f"D={d} window={window}"))
+        emit("model", kernel="flash_attention", dtype=dtype, cases=len(cases),
+             max_abs_err=max(errs), rtol_atol=ATTN_TOL[dtype])
+        worst = max(worst, max(errs))
+    return worst
+
+
+def _decode_slots(torch, s, layout):
+    """(slot_pos (S,) int32 on the card, pos). ``prefix``: the serve path
+    at its 12th decode step (76 of 96 slots written); ``ring``: a wrapped
+    ring, a quarter newest, a quarter older, half empty; ``full``: every
+    slot; ``none``: every stored position past pos."""
+    sp = torch.full((s,), -1, dtype=torch.int32)
+    if layout == "prefix":
+        pos = PROMPT + 11
+        sp[:pos + 1] = torch.arange(pos + 1, dtype=torch.int32)
+    elif layout == "ring":
+        pos = s + s // 4 - 1
+        sp[:s // 4] = torch.arange(s // 4, dtype=torch.int32) + s
+        sp[s // 4:s // 2] = torch.arange(s // 4, s // 2, dtype=torch.int32)
+    else:
+        pos = s - 1
+        sp = torch.arange(s, dtype=torch.int32)
+        if layout == "none":
+            sp += s
+    return sp.to("cuda"), pos
+
+
+def _decode_operands(torch, gen, b, s, h, hkv, d, kv):
+    from repro_torch.models.attention import quantize_kv
+    dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+    q, k, v = _attn_inputs(torch, gen, ((b, 1, h, d), (b, s, hkv, d),
+                                        (b, s, hkv, d)), dtype)
+    if kv != "int8":
+        return q, k, v, None, None
+    k, ks = quantize_kv(k)
+    v, vs = quantize_kv(v)
+    return q, k, v, ks, vs
+
+
+def _decode_cases(torch) -> float:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    cases = [  # (B, S, H, HKV, D, window, n_sink, slot layout)
+        (40, 96, 32, 4, 128, None, 0, "prefix"),   # the serve path
+        (4, 96, 4, 2, 64, None, 0, "prefix"),      # the reduced yi-6b
+        (3, 512, 8, 2, 64, None, 0, "ring"),
+        (3, 96, 6, 2, 64, 32, 8, "full"),          # window with sinks
+        (2, 512, 32, 4, 128, 100, 4, "ring"),
+        (2, 512, 16, 1, 256, None, 0, "full"),     # G=16, D=256
+        (3, 96, 32, 4, 128, None, 0, "none"),      # nothing visible: 0
+    ]
+    worst = 0.0
+    for kv in ("f32", "bf16", "int8"):
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        errs = []
+        for b, s, h, hkv, d, window, sink, layout in cases:
+            q, k, v, ks, vs = _decode_operands(torch, gen, b, s, h, hkv, d,
+                                               kv)
+            sp, pos = _decode_slots(torch, s, layout)
+            kw = dict(window=window, n_sink=sink, k_scale=ks, v_scale=vs)
+            out = decode_attention_cuda(q, k, v, sp, pos, **kw)
+            where = (f"decode {kv} B={b} S={s} H={h} HKV={hkv} D={d} "
+                     f"window={window} sink={sink} {layout}")
+            errs.append(_attn_err(
+                torch, out, ref.decode_attention_ref(q, k, v, sp, pos, **kw),
+                "bf16" if kv == "bf16" else "f32", where))
+            if layout == "none" and not bool(torch.all(out == 0)):
+                fail(f"{where}: a row with nothing visible is not 0")
+        emit("model", kernel="decode_attention", kv_dtype=kv,
+             cases=len(cases), max_abs_err=max(errs),
+             rtol_atol=ATTN_TOL["bf16" if kv == "bf16" else "f32"])
+        worst = max(worst, max(errs))
+    return worst
+
+
+class _Recorder:
+    """Wraps a ``ModelBackend``'s model: times ``forward`` (prefill) and
+    ``decode_step`` (decode) per ``generate`` call with a card sync at both
+    ends, keeps a device-side all-finite flag of every logit tensor, and the
+    queries of each call. The sync points wait for work the next step
+    would wait for anyway."""
+
+    def __init__(self, torch, backend):
+        self.torch, self.backend = torch, backend
+        self.model = backend.model
+        self.calls = []
+        self.finite = []
+        self._fwd, self._dec = self.model.forward, self.model.decode_step
+        self._gen = backend.generate
+        self.model.forward = self._timed("prefill_s", self._fwd)
+        self.model.decode_step = self._timed("decode_s", self._dec)
+        backend.generate = self._generate
+
+    def _timed(self, key, fn):
+        torch = self.torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            logits = out[0] if isinstance(out, tuple) else out
+            self.finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            self.calls[-1][key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def _generate(self, queries, semantic_keys=None):
+        self.calls.append({"misses": len(queries), "prefill_s": 0.0,
+                           "decode_s": 0.0, "queries": list(queries)})
+        t0 = time.perf_counter()
+        res = self._gen(queries, semantic_keys)
+        self.calls[-1]["generate_s"] = time.perf_counter() - t0
+        return res
+
+    def all_finite(self) -> bool:
+        return bool(self.torch.stack(self.finite).all())
+
+    def restore(self):
+        # the wrapped methods were the classes' own: drop the instance ones
+        del self.model.forward, self.model.decode_step
+        del self.backend.generate
+
+
+def _greedy(torch, model, tokens, forced=None):
+    """``ModelBackend.generate``'s prefill and decode on token ids: returns
+    the logits of the second forward, of the first decode step, and the
+    (B, 24) greedy tokens. With ``forced`` (B, 24) tokens, each step is fed
+    ``forced``'s token instead of its own (teacher forcing), so two runs'
+    logits stay comparable after a near-tie flips one token."""
+    with torch.inference_mode():
+        _, caches = model(tokens, collect_cache=True,
+                          cache_size=PROMPT + NEW_TOKENS + 8)
+        logits = model(tokens)
+        out = [torch.argmax(logits[:, -1:], dim=-1)]
+        first = None
+        for i in range(NEW_TOKENS - 1):
+            feed = out[-1] if forced is None else forced[:, i:i + 1]
+            dl, caches = model.decode_step(caches, feed)
+            first = dl if first is None else first
+            out.append(torch.argmax(dl, dim=-1))
+    return logits, first, torch.cat(out, dim=1)
+
+
+def _plain_attention():
+    """Point ``ops``' attention at the plain versions (the card's path
+    otherwise has no way to them); returns the undo."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention = ref.flash_attention_ref
+    ops.decode_attention = ref.decode_attention_ref
+
+    def undo():
+        ops.flash_attention, ops.decode_attention = saved
+    return undo
+
+
+def _logit_gap(a, b) -> dict:
+    d = (a.float() - b.float()).abs()
+    ref = b.float().abs()
+    return {"max_abs": float(d.max()), "max_rel": float(d.max() / ref.max()),
+            "mean_rel": float(d.mean() / ref.mean())}
+
+
+def _full_width(torch, hits: dict) -> dict:
+    """Full-width yi-6b behind the paper's serve loop on the card."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    eng, reqs = serve.build(device="cuda", backend="model", arch="yi-6b",
+                            reduced=False, log=lambda *a: None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = eng.backend.model
+    cfg = model.config
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    rec = _Recorder(torch, eng.backend)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resp = eng.process(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    rec.restore()
+    with_misses = len(rec.calls)
+    per_batch = 2 * cfg.n_layers
+    _expect_launches(launches, {
+        "cosine_topk": MAIN_BATCHES,
+        "flash_attention": per_batch * with_misses,
+        "decode_attention": DECODE_PER_STEP_LAYERS * cfg.n_layers
+        * with_misses}, "full-width yi-6b serving")
+    if len(resp) != len(reqs) or not rec.all_finite():
+        fail("full-width yi-6b: missing responses or a non-finite logit")
+    got = {c: m["cache_hits"] for c, m in
+           eng.metrics.summary()["categories"].items()}
+    if got != hits:
+        fail(f"full-width yi-6b: Table 1 hits {got}, sim backend {hits}")
+    misses = [c["misses"] for c in rec.calls]
+    emit("model", check="full-width yi-6b serving", arch=cfg.name,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, dtype=cfg.dtype, param_count=cfg.param_count(),
+         param_bytes=param_bytes,
+         card_memory_allocated=torch.cuda.memory_allocated(),
+         card_memory_peak=torch.cuda.max_memory_allocated(),
+         build_s=build_s, requests=len(resp), batches=MAIN_BATCHES,
+         batches_with_misses=with_misses, misses_per_batch=misses,
+         kernel_launches=launches, all_logits_finite=True, table1_hits=got,
+         wall_s=wall, wall_per_batch_s=wall / MAIN_BATCHES,
+         generate_s_per_batch=[c["generate_s"] for c in rec.calls],
+         prefill_s_per_batch=[c["prefill_s"] for c in rec.calls],
+         decode_s_per_batch=[c["decode_s"] for c in rec.calls],
+         serve_path_s=eng.metrics.cache_path_time_s)
+    emit("model", check="device time of one generate (first miss batch)",
+         **_profile_generate(torch, eng.backend, rec.calls[0]))
+    # the first miss batch again, kernels against the plain attention
+    toks, _ = eng.backend.tokenizer.encode_batch(rec.calls[0]["queries"],
+                                                 PROMPT)
+    tokens = torch.as_tensor(toks, dtype=torch.long, device="cuda")
+    k_logits, k_first, k_tokens = _greedy(torch, model, tokens)
+    undo = _plain_attention()
+    try:
+        p_logits, p_first, p_tokens = _greedy(torch, model, tokens,
+                                              forced=k_tokens)
+    finally:
+        undo()
+    prefill, first = _logit_gap(k_logits, p_logits), \
+        _logit_gap(k_first, p_first)
+    emit("model", check="full-width kernels vs plain attention, first miss "
+         "batch, plain run fed the kernel run's tokens", rows=len(toks),
+         prefill_logits=prefill, first_decode_logits=first,
+         greedy_tokens_equal_share=float((k_tokens == p_tokens).float()
+                                         .mean()),
+         tolerance={"max_rel": MODEL_LOGIT_REL,
+                    "mean_rel": MODEL_LOGIT_MEAN_REL})
+    for name, gap in (("prefill", prefill), ("first decode step", first)):
+        if not (gap["max_rel"] <= MODEL_LOGIT_REL
+                and gap["mean_rel"] <= MODEL_LOGIT_MEAN_REL):
+            fail(f"full-width yi-6b {name} logits: kernels vs plain "
+                 f"attention {gap}")
+    return {"launches": launches, "misses": misses}
+
+
+def _profile_generate(torch, backend, call: dict) -> dict:
+    """One ``generate`` of ``call``'s queries under ``torch.profiler``: the
+    card's kernel time in total and for the names that take the most,
+    beside the same call's unprofiled wall time from the serve run (the
+    profiler's own host work slows the profiled call). The idle share is
+    1 - kernel time / unprofiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backend.generate(call["queries"])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        return {"device_time": "not measured: the profiler saw no kernel"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"rows": call["misses"], "kernel_s": busy_us / 1e6,
+            "wall_unprofiled_s": call["generate_s"],
+            "idle_share": 1.0 - busy_us / 1e6 / call["generate_s"],
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "s": e.self_device_time_total / 1e6}
+                            for e in top]}
+
+
+class _GapRecorder:
+    """Records, per ``generate`` call of a backend, each row's smallest
+    top-two logit gap over its greedy steps (the logits of the second
+    forward's last position and of every decode step)."""
+
+    def __init__(self, torch, backend):
+        self.torch, self.backend, self.model = torch, backend, backend.model
+        self.calls = []
+        self._fwd, self._dec = self.model.forward, self.model.decode_step
+        self._gen = backend.generate
+        self.model.forward = self._wrap(self._fwd)
+        self.model.decode_step = self._wrap(self._dec)
+        backend.generate = self._generate
+
+    def _wrap(self, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            if isinstance(out, tuple) and not kw.get("collect_cache"):
+                logits = out[0]       # decode_step
+            elif isinstance(out, tuple):
+                return out            # the prefill that builds the caches
+            else:
+                logits = out
+            top2 = self.torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu()
+            rows = self.calls[-1]["gap"]
+            self.calls[-1]["gap"] = gap if rows is None else \
+                self.torch.minimum(rows, gap)
+            return out
+        return run
+
+    def _generate(self, queries, semantic_keys=None):
+        self.calls.append({"queries": list(queries), "gap": None})
+        return self._gen(queries, semantic_keys)
+
+    def near_ties(self) -> set:
+        return {q for c in self.calls for q, g in zip(c["queries"], c["gap"])
+                if float(g) < TIE_TOL}
+
+
+def _reduced_card_vs_cpu(torch) -> dict:
+    """``--backend model`` (reduced yi-6b, f32) on the card and on the CPU
+    with the same weights: every request's decision and answer."""
+    from repro_torch.launch import serve
+    kw = dict(corpus=50, queries=25, backend="model", log=lambda *a: None)
+    card, reqs = serve.build(device="cuda", **kw)
+    cpu, cpu_reqs = serve.build(device="cpu", **kw)
+    cpu.backend.model.load_state_dict(
+        {n: t.cpu() for n, t in card.backend.model.state_dict().items()})
+    gaps = _GapRecorder(torch, cpu.backend)
+    _reset_launches()
+    resp = card.process(reqs)
+    torch.cuda.synchronize()
+    launches = _launches()
+    cpu_resp = cpu.process(cpu_reqs)
+    size = card.batcher.batch_size
+    batches = range(0, len(reqs), size)
+    with_misses = sum(any(not r.cached for r in resp[i:i + size])
+                      for i in batches)
+    layers = card.backend.model.config.n_layers
+    _expect_launches(launches, {
+        "cosine_topk": len(batches),
+        "flash_attention": 2 * layers * with_misses,
+        "decode_attention": DECODE_PER_STEP_LAYERS * layers * with_misses},
+        "reduced yi-6b serving")
+    ties = gaps.near_ties()
+    differing = 0
+    for i, (a, b) in enumerate(zip(resp, cpu_resp)):
+        if a.cached != b.cached or abs(a.score - b.score) > 1e-5:
+            fail(f"reduced yi-6b: request {i} decision differs card vs cpu")
+        if a.answer != b.answer:
+            if reqs[i].query not in ties:
+                fail(f"reduced yi-6b: request {i} answer differs card vs "
+                     f"cpu with no near-tie: {a.answer!r} vs {b.answer!r}")
+            differing += 1
+    out = {"requests": len(resp), "misses": sum(not r.cached for r in resp),
+           "kernel_launches": launches, "near_tie_queries": len(ties),
+           "answers_differing_at_near_ties": differing}
+    emit("model", check="reduced yi-6b f32, card vs cpu", **out)
+    return out
+
+
+def _model_timing(torch, card: str, b: int) -> dict:
+    """Both attention kernels at the serve path's shape (B = mean misses a
+    batch), against the plain versions and one SDPA call each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    h, hkv, d = 32, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    out = {}
+    q, k, v = _attn_inputs(torch, gen, ((b, PROMPT, h, d),
+                                        (b, PROMPT, hkv, d),
+                                        (b, PROMPT, hkv, d)), torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def flash():
+        return flash_attention_cuda(q, k, v)
+
+    fns = {"kernel": flash,
+           "plain": lambda: ref.flash_attention_ref(q, k, v),
+           "library": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True)}
+    ms, times = _time_turns(torch, fns, 100)
+    graph_ms = _time_graph(torch, flash, 100)
+    pairs = PROMPT * (PROMPT + 1) // 2
+    bound = _bound(4.0 * d * h * b * pairs,
+                   2 * q.numel() * 2 + 2 * k.numel() * 2, PEAK_BF16_FLOPS)
+    out["flash_attention"] = {
+        "kernel_ms": ms["kernel"], "graph_ms": graph_ms,
+        "plain_ms": ms["plain"], "library_ms": ms["library"],
+        "runs_ms": times, **bound,
+        "share_of_bound": bound["bound_ms"] / graph_ms}
+    emit("timing", kernel="flash_attention", B=b, L=PROMPT, H=h, HKV=hkv,
+         D=d, dtype="bf16", causal=True, card=card,
+         **out["flash_attention"])
+
+    s = PROMPT + NEW_TOKENS + 8
+    q, k, v = _attn_inputs(torch, gen, ((b, 1, h, d), (b, s, hkv, d),
+                                        (b, s, hkv, d)), torch.bfloat16)
+    sp, pos = _decode_slots(torch, s, "prefix")
+    visible = (sp >= 0) & (sp <= pos)
+    vis = int(visible.sum())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = visible[None, None, None, :]
+
+    def decode():
+        return decode_attention_cuda(q, k, v, sp, pos)
+
+    fns = {"kernel": decode,
+           "plain": lambda: ref.decode_attention_ref(q, k, v, sp, pos),
+           "library": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)}
+    ms, times = _time_turns(torch, fns, 200)
+    graph_ms = _time_graph(torch, decode, 200)
+    bound = _bound(4.0 * d * h * b * vis,
+                   2 * q.numel() * 2 + 2 * b * vis * hkv * d * 2 + s * 4,
+                   PEAK_BF16_FLOPS)
+    out["decode_attention"] = {
+        "kernel_ms": ms["kernel"], "graph_ms": graph_ms,
+        "plain_ms": ms["plain"], "library_ms": ms["library"],
+        "runs_ms": times, **bound, "visible_slots": vis,
+        "share_of_bound": bound["bound_ms"] / graph_ms}
+    emit("timing", kernel="decode_attention", B=b, S=s, H=h, HKV=hkv, D=d,
+         pos=pos, dtype="bf16", card=card, **out["decode_attention"])
+    return out
+
+
+def phase_model(torch, card: str, hits: dict) -> dict:
+    """The model-backed miss path: both attention kernels against their
+    plain versions, full-width yi-6b serving, the reduced model card vs
+    CPU, and the kernels' times at the serve shape."""
+    max_err = {"flash_attention": _flash_cases(torch),
+               "decode_attention": _decode_cases(torch)}
+    full = _full_width(torch, hits)
+    _reduced_card_vs_cpu(torch)
+    b = max(1, round(sum(full["misses"]) / len(full["misses"])))
+    return {"max_err": max_err, "launches": full["launches"],
+            "timing": _model_timing(torch, card, b)}
+
+
+# --------------------------------------------------------------------- #
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1020,10 +1546,12 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     max_err = phase_kernel(torch)
-    launches = {"cosine_topk": phase_main(torch), **phase_tenancy(torch)}
+    main_launches, hits = phase_main(torch)
+    launches = {"cosine_topk": main_launches, **phase_tenancy(torch)}
     with tempfile.TemporaryDirectory() as scratch:
         launches["ivf_topk"] = phase_ivf(torch, Path(scratch))["ivf_topk"]
     timing = phase_timing(torch, card)
+    model = phase_model(torch, card, hits)
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -1050,6 +1578,18 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name],
             "ms": row.get("graph_ms", row["kernel_ms"]),
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for name, source, replaces in (
+            ("decode_attention", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:85"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:105")):
+        row = model["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": replaces, "launches": model["launches"][name],
+            "max_abs_err": model["max_err"][name], "ms": row["graph_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     summary = {"kernels": kernels}

@@ -2,8 +2,10 @@
 
 The PyTorch counterpart of ``repro`` (the JAX package, which stays the
 reference). The layout mirrors ``repro``: ``core`` (slab, index, policy,
-cache), ``kernels`` (the hand-written CUDA cosine top-k and its plain
-PyTorch version), ``serving`` (engine, simulated backend, metrics),
+cache), ``kernels`` (the hand-written CUDA kernels and their plain PyTorch
+versions), ``serving`` (engine, simulated and model backends, metrics),
+``configs``/``models`` (the architectures and the dense decoder behind
+the model-backed miss path),
 ``data``/``embedding`` (numpy-only corpus, tokenizer and embedder),
 ``training`` (checkpoint format) and ``launch`` (the serve driver).
 

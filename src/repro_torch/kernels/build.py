@@ -27,7 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = {"cosine_topk": "cosine_topk.cu", "ivf_topk": "ivf_topk.cu"}
+SOURCES = {"cosine_topk": "cosine_topk.cu", "ivf_topk": "ivf_topk.cu",
+           "flash_attention": "flash_attention.cu",
+           "decode_attention": "decode_attention.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

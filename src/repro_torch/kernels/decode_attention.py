@@ -1,0 +1,142 @@
+"""Launch wrapper of the hand-written CUDA decode attention
+(``csrc/decode_attention.cu``), the Hopper replacement of the TPU kernel
+``repro/kernels/decode_attention.py::decode_attention_pallas``.
+
+Contract (that of ``repro_torch.kernels.ref.decode_attention_ref``): q
+(B, 1, H, D) float32 or bfloat16; one layer's k and v caches (B, S, HKV,
+D), both float32, bfloat16 or int8, int8 with f32 scales (B, S, HKV);
+slot_pos (S,) int32 (-1 empty); ``pos`` the current position. Slot s is
+visible when ``0 <= slot_pos[s] <= pos`` and, with a window,
+``slot_pos[s] > pos - window`` or ``slot_pos[s] < n_sink``. H/HKV <= 16,
+D a multiple of 32 up to 256. Returns (B, 1, H, D) in q's dtype; a row
+with no visible slot is 0.
+
+The wrapper checks its arguments, allocates the output with
+``torch.empty``, launches on the current stream without synchronizing,
+raises if the launch was refused, and counts its launches in
+``launches["decode_attention"]``. It takes CUDA tensors only: ``ops``
+sends CPU tensors to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+#: kernel launches in this process; a run sets it to 0 (``reset_launches``)
+#: and reads it back to show which path went through the kernel
+launches = {"decode_attention": 0}
+
+MAX_G = 16       # query heads per KV head (MAX_G in the source)
+MAX_D = 256      # head dim, a multiple of 32
+Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def reset_launches() -> None:
+    launches["decode_attention"] = 0
+
+
+def check_args(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               slot_pos: torch.Tensor, *, window: int | None = None,
+               n_sink: int = 0, k_scale: torch.Tensor | None = None,
+               v_scale: torch.Tensor | None = None) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
+    if q.dtype not in Q_CODE:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_cache.dtype not in KV_CODE or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"k and v caches must share a dtype of float32, "
+                         f"bfloat16 or int8, got {k_cache.dtype} and "
+                         f"{v_cache.dtype}")
+    b, _, h, d = q.shape
+    if k_cache.dim() != 4 or tuple(v_cache.shape) != tuple(k_cache.shape) \
+            or k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if not (1 <= b <= 65535 and s >= 1 and 1 <= hkv <= h and h % hkv == 0
+            and h // hkv <= MAX_G):
+        raise ValueError(f"need 1 <= B <= 65535, S >= 1 and H a multiple of "
+                         f"HKV with H/HKV <= {MAX_G}: B={b} S={s} H={h} "
+                         f"HKV={hkv}")
+    if d % 32 != 0 or not 32 <= d <= MAX_D:
+        raise ValueError(f"head dim must be a multiple of 32 up to {MAX_D}, "
+                         f"got {d}")
+    if slot_pos.dtype != torch.int32 or tuple(slot_pos.shape) != (s,):
+        raise ValueError(f"slot_pos must be ({s},) int32, got "
+                         f"{tuple(slot_pos.shape)} {slot_pos.dtype}")
+    scales = (k_scale, v_scale)
+    if k_cache.dtype == torch.int8:
+        if any(x is None or x.dtype != torch.float32
+               or tuple(x.shape) != (b, s, hkv) for x in scales):
+            raise ValueError(f"int8 caches need k_scale and v_scale "
+                             f"({b}, {s}, {hkv}) float32")
+    elif any(x is not None and x.numel() for x in scales):
+        raise ValueError("scales go with int8 caches only")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if n_sink < 0:
+        raise ValueError(f"n_sink must be >= 0, got {n_sink}")
+    tensors = [q, k_cache, v_cache, slot_pos]
+    if k_cache.dtype == torch.int8:
+        tensors += [k_scale, v_scale]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("every operand must be contiguous")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("every operand must be on one device")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    if lib.decode_attention_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q k v k_scale v_scale slot_pos out q_dtype kv_dtype B S H HKV D
+        # pos window n_sink scale stream
+        lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                                i, i, i, i, i, i, i,
+                                                ctypes.c_float, p]
+        lib.decode_attention_launch.restype = ctypes.c_int
+        lib.decode_attention_error_string.argtypes = [i]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                          pos: int, *, window: int | None = None,
+                          n_sink: int = 0, scale: float | None = None,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """One query token per sequence over the visible slots of its cache."""
+    check_args(q, k_cache, v_cache, slot_pos, window=window, n_sink=n_sink,
+               k_scale=k_scale, v_scale=v_scale)
+    dev = q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"the CUDA decode attention takes CUDA tensors, "
+                           f"got {dev}; ops routes CPU tensors to the plain "
+                           "version")
+    lib = _lib()
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    quant = k_cache.dtype == torch.int8
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, slot_pos.data_ptr(),
+            out.data_ptr(), Q_CODE[q.dtype], KV_CODE[k_cache.dtype], b, s, h,
+            hkv, d, int(pos), -1 if window is None else window, n_sink, scale,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: "
+                           f"{lib.decode_attention_error_string(err).decode()}")
+    launches["decode_attention"] += 1
+    return out

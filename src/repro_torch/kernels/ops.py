@@ -10,13 +10,17 @@ Per-row visibility dispatches as in the JAX package:
   * ``valid`` (B, N)  -> the dense-mask kernel (general per-row masks).
 
 ``ivf_topk`` dispatches the IVF candidate kernel the same way, with the
-``backend`` override of ``IVFIndex``.
+``backend`` override of ``IVFIndex``; ``flash_attention`` (prefill) and
+``decode_attention`` (one token over a KV cache) dispatch the attention
+kernels of the model-backed miss path.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention as kdecode
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.cosine_topk import (check_args, check_interval_args,
                                              check_masked_args,
                                              cosine_topk_cuda,
@@ -74,3 +78,39 @@ def ivf_topk(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
         return ivf_topk_cuda(queries, keys, cand, k)
     check_ivf_args(queries, keys, cand, k)
     return ref.ivf_topk_ref(queries, keys, cand, k)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    n_sink: int = 0, scale: float | None = None
+                    ) -> torch.Tensor:
+    """Prefill attention: q (B, Lq, H, D), k/v (B, Lk, HKV, D), query
+    offset ``Lk - Lq``. ``n_sink > 0`` (hymba's meta-token sinks) runs on
+    the CPU only until the hybrid slice brings it to the kernel."""
+    if q.device.type == "cuda":
+        if n_sink > 0:
+            raise NotImplementedError(
+                "attention sinks (n_sink > 0) in prefill arrive on CUDA with "
+                "the hybrid slice of the port")
+        return kflash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+    kflash.check_args(q, k, v, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   n_sink=n_sink, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor, pos: int,
+                     *, window: int | None = None, n_sink: int = 0,
+                     scale: float | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode attention: q (B, 1, H, D) over one layer's (B, S, HKV, D)
+    cache, int8 with (B, S, HKV) scales."""
+    kw = dict(window=window, n_sink=n_sink, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cuda":
+        return kdecode.decode_attention_cuda(q, k_cache, v_cache, slot_pos,
+                                             pos, scale=scale, **kw)
+    kdecode.check_args(q, k_cache, v_cache, slot_pos, **kw)
+    return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
+                                    scale=scale, **kw)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (PyTorch port of
-``repro.kernels.ref``): the cosine top-k in its three mask forms and the IVF
-candidate top-k.
+``repro.kernels.ref``): the cosine top-k in its three mask forms, the IVF
+candidate top-k, and the two attention kernels of the model-backed miss
+path (prefill flash attention and single-token decode attention).
 
 They define the numerical contract. The kernel wrappers take them for CPU
 tensors, and ``chip_smoke.py`` holds each CUDA kernel against them on the
@@ -99,3 +100,102 @@ def ivf_topk_ref(queries: torch.Tensor, keys: torch.Tensor,
     ids = torch.gather(cand, 1, order)
     ids = torch.where(vals > NEG_INF, ids, torch.full_like(ids, -1))
     return vals, ids.to(torch.int32)
+
+
+def _softmax_visible(s: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis of f32 scores ``s`` where ``visible``,
+    with the kernels' conventions: an invisible entry weighs exactly 0,
+    and a row with nothing visible gets all-zero weights (the kernels'
+    ``l = max(l, 1e-30)``), hence a zero output."""
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        n_sink: int = 0, scale: float | None = None
+                        ) -> torch.Tensor:
+    """Plain version of the prefill flash-attention kernel.
+
+    Args:
+      q: (B, Lq, H, D) float32 or bfloat16, RoPE applied.
+      k, v: (B, Lk, HKV, D), the layout of the Pallas kernel
+        (``flash_attention_pallas``): query head h reads KV head
+        ``h // (H // HKV)``. (``repro.kernels.ref.flash_attention_ref``
+        takes K/V already expanded to H heads.)
+      causal: key position j is visible to query row i when ``j <= i +
+        Lk - Lq`` (the ends of the two sequences are aligned).
+      window: also ``j > i + Lk - Lq - window``; ``None`` is no window.
+      n_sink: with a window, keys ``j < n_sink`` stay visible.
+      scale: default ``1 / sqrt(D)``.
+    Returns:
+      (B, Lq, H, D) in q's dtype. Products and sums in f32; a row with
+      nothing visible is 0.
+    """
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)[None, :]
+    visible = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        visible &= kpos <= qpos
+    if window is not None:
+        wmask = kpos > qpos - window
+        if n_sink > 0:
+            wmask |= kpos < n_sink
+        visible &= wmask
+    p = _softmax_visible(s, visible)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                         pos: int, *, window: int | None = None,
+                         n_sink: int = 0, scale: float | None = None,
+                         k_scale: torch.Tensor | None = None,
+                         v_scale: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Plain version of the decode-attention kernel: one query token per
+    sequence over every visible slot of a (ring) KV cache.
+
+    Args:
+      q: (B, 1, H, D) float32 or bfloat16, RoPE applied at ``pos``.
+      k_cache, v_cache: (B, S, HKV, D) float32, bfloat16 or int8 (one
+        layer); int8 entries are multiplied by ``k_scale``/``v_scale``
+        (B, S, HKV) f32 in f32, as the Pallas kernel dequantizes after load.
+      slot_pos: (S,) int32 absolute position held by each slot, -1 empty.
+      pos: the current position. Slot s is visible when ``0 <= slot_pos[s]
+        <= pos`` and, with a window, ``slot_pos[s] > pos - window`` or
+        ``slot_pos[s] < n_sink``.
+    Returns:
+      (B, 1, H, D) in q's dtype; a row with no visible slot is 0.
+    """
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    if k_cache.dtype == torch.int8:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    qg = q.to(torch.float32).reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kf) * scale
+    visible = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        wmask = slot_pos > pos - window
+        if n_sink > 0:
+            wmask |= slot_pos < n_sink
+        visible &= wmask
+    p = _softmax_visible(s, visible)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vf)
+    return o.reshape(b, 1, h, d).to(q.dtype)

@@ -19,6 +19,12 @@ scores the probed buckets' members. It composes with ``--tenants``,
 with the whole corpus, then a Zipf-skewed stream of ``4 * queries``
 requests (``--tenant-skew``); the device-side per-tenant counters are
 printed after the metrics.
+
+``--backend model`` answers the misses with a real decoder instead of the
+simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
+(default ``yi-6b``, dense family only) at its reduced width, weights drawn
+from a seeded generator on the device (nothing is downloaded). ``build``
+takes ``reduced=False`` for the full published width.
 """
 from __future__ import annotations
 
@@ -27,12 +33,15 @@ import json
 
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core.index import IVFIndex
 from repro_torch.core.policy import AdaptiveThreshold
 from repro_torch.core.types import CacheConfig
 from repro_torch.data.qa_dataset import build_corpus, build_test_queries
+from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.models.model import Model
 from repro_torch.serving.engine import CachedEngine, Request, Response
-from repro_torch.serving.llm_backend import SimulatedLLMBackend
+from repro_torch.serving.llm_backend import ModelBackend, SimulatedLLMBackend
 from repro_torch.serving.loadgen import build_multi_tenant_workload
 from repro_torch.tenancy import TenantRegistry
 
@@ -52,10 +61,14 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
           ttl: float | None = None, batch: int = 128, policy: str = "fixed",
           fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
           tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
+          backend: str = "sim", arch: str = "yi-6b", reduced: bool = True,
           log=print) -> tuple[CachedEngine, list[Request]]:
     """The warmed engine and the requests to serve. ``tenants > 0``
     partitions the slab into that many uniform tenant regions and builds a
-    multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``."""
+    multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``.
+    ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``)
+    behind the cache, its weights drawn from a generator on ``device``
+    seeded with 0 (``repro.launch.serve`` draws them from ``PRNGKey(0)``)."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -73,8 +86,19 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
     cfg = CacheConfig(dim=384, capacity=capacity, value_len=48,
                       ttl=ttl, threshold=threshold,
                       key_dtype=KEY_DTYPES[key_dtype])
+    if backend == "sim":
+        llm = SimulatedLLMBackend(pairs)
+    elif backend == "model":
+        config = get_arch(arch)
+        if reduced:
+            config = config.reduced()
+        model = Model(config, device=device)
+        model.init_params(torch.Generator(device=model.device).manual_seed(0))
+        llm = ModelBackend(model, HashTokenizer(vocab_size=config.vocab))
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
     engine = CachedEngine(
-        cfg, SimulatedLLMBackend(pairs), judge=judge, batch_size=batch,
+        cfg, llm, judge=judge, batch_size=batch,
         policy=AdaptiveThreshold(init=threshold) if policy == "adaptive"
         else None,
         use_fused_step=fused, registry=registry, device=device,
@@ -99,6 +123,9 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", choices=("sim", "model"), default="sim")
+    ap.add_argument("--arch", default="yi-6b",
+                    help="arch for --backend model (reduced variant)")
     ap.add_argument("--corpus", type=int, default=2000,
                     help="QA pairs per category")
     ap.add_argument("--queries", type=int, default=500,
@@ -131,7 +158,7 @@ def main(argv=None):
                        batch=args.batch, policy=args.policy, fused=args.fused,
                        device=args.device, key_dtype=args.key_dtype,
                        tenants=args.tenants, tenant_skew=args.tenant_skew,
-                       index=args.index)
+                       index=args.index, backend=args.backend, arch=args.arch)
     print(json.dumps(engine.metrics.summary(), indent=1))
     if args.tenants > 0:
         print("device-side per-tenant counters:")

@@ -4,9 +4,11 @@ from repro_torch.serving.engine import (PAD_REQUEST, Batcher, CachedEngine,
 from repro_torch.serving.llm_backend import (BackendError, BackendResult,
                                              BackendTimeout,
                                              BackendUnavailable,
+                                             ModelBackend,
                                              SimulatedLLMBackend)
 from repro_torch.serving.metrics import ServingMetrics
 
 __all__ = ["PAD_REQUEST", "Batcher", "CachedEngine", "Request", "Response",
            "BackendError", "BackendResult", "BackendTimeout",
-           "BackendUnavailable", "SimulatedLLMBackend", "ServingMetrics"]
+           "BackendUnavailable", "ModelBackend", "SimulatedLLMBackend",
+           "ServingMetrics"]

@@ -4,15 +4,23 @@
 ``SimulatedLLMBackend`` — the offline stand-in for the OpenAI API the paper
 calls on cache misses: returns the corpus's gold answer for known/paraphrased
 queries (keyed by the query's semantic source) and a templated answer
-otherwise, charging a configurable latency + dollar cost per call. The
-model-backed backend arrives with the miss-path slice.
+otherwise, charging a configurable latency + dollar cost per call.
+
+``ModelBackend`` — a real decoder (``repro_torch.models.Model``, dense
+family, any width) behind the same interface: tokenize, prefill, greedy
+decode, on the model's device; on CUDA its attention runs through the
+hand-written flash-attention (prefill) and decode-attention kernels.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
+import torch
+
 from repro_torch.data.qa_dataset import QAPair
+from repro_torch.data.tokenizer import HashTokenizer
 
 
 class BackendError(RuntimeError):
@@ -67,3 +75,47 @@ class SimulatedLLMBackend:
             answers=answers,
             latency_s=self.latency_per_call_s * len(queries),
             cost_usd=self.cost_per_call_usd * len(queries))
+
+
+class ModelBackend:
+    """Greedy decoding with a real (usually reduced) architecture, call for
+    call as the JAX package's ``ModelBackend``: the prompts padded to
+    ``max_prompt_len`` (PAD tokens stay part of the prompt), one prefill
+    that builds the KV caches, a second full forward for the first token's
+    logits (the JAX backend's double prefill, kept as its cost), then
+    ``max_new_tokens - 1`` decode steps. Runs under
+    ``torch.inference_mode()`` on the model's device; ``latency_s`` reads
+    the clock after the generated tokens reach the host."""
+
+    def __init__(self, model, tokenizer: HashTokenizer, *,
+                 max_prompt_len: int = 64, max_new_tokens: int = 24):
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_prompt_len = max_prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.calls = 0
+
+    def generate(self, queries: Sequence[str],
+                 semantic_keys: Sequence[str] | None = None) -> BackendResult:
+        t0 = time.perf_counter()
+        toks, _ = self.tokenizer.encode_batch(queries, self.max_prompt_len)
+        b = toks.shape[0]
+        cache_size = self.max_prompt_len + self.max_new_tokens + 8
+        dev = self.model.device
+        with torch.inference_mode():
+            tokens = torch.as_tensor(toks, dtype=torch.long, device=dev)
+            _, caches = self.model(tokens, collect_cache=True,
+                                   cache_size=cache_size)
+            logits = self.model(tokens)
+            nt = torch.argmax(logits[:, -1:], dim=-1)
+            out = [nt]
+            for _ in range(self.max_new_tokens - 1):
+                dl, caches = self.model.decode_step(caches, nt)
+                nt = torch.argmax(dl, dim=-1)
+                out.append(nt)
+            gen = torch.cat(out, dim=1).cpu().numpy()   # waits for the card
+        answers = [self.tokenizer.decode(gen[i]) for i in range(b)]
+        self.calls += b
+        return BackendResult(answers=answers,
+                             latency_s=time.perf_counter() - t0,
+                             cost_usd=0.0)

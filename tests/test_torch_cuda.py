@@ -2,7 +2,9 @@
 interval, dense per-row mask; k up to the IVF probe's 16 and past it) and
 the IVF candidate top-k against their plain PyTorch versions, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
-the same loop on the CPU. Every test here needs a CUDA device and skips without one. The file imports
+the same loop on the CPU; the prefill flash-attention and decode-attention
+kernels against their plain versions, their wrappers' refusals, and the
+model-backed miss path's launches and answers on CUDA against the CPU. Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,12 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core.index import IVFIndex
 from repro_torch.core.types import CacheConfig
+from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.kernels import cosine_topk as kmod
+from repro_torch.kernels import decode_attention as kdec
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ivf_topk as kivf
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve
+from repro_torch.models.model import Model
+from repro_torch.serving import ModelBackend
 
 CASES = [  # (B, N, d, k, mask)
     (4, 100, 32, 1, "random"),
@@ -360,3 +369,161 @@ def test_ivf_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype,
         decisions, scores = _served(other.process(requests))
         assert on_card[0] == decisions
         np.testing.assert_allclose(on_card[1], scores, rtol=0, atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# attention kernels of the model-backed miss path
+# --------------------------------------------------------------------- #
+# kernel and plain version both take f32 products and sums, in other
+# orders: f32 outputs agree to 2e-5; a bf16 output may round the other way
+# once, one bf16 ulp (at most 2**-7 of the value)
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+FLASH_CUDA_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window)
+    (3, 64, 64, 32, 4, 128, True, None),    # the serve path's heads
+    (2, 100, 100, 8, 8, 64, True, None),    # ragged tail, G=1
+    (1, 256, 256, 8, 2, 64, True, 70),      # window, G=4
+    (2, 64, 200, 4, 2, 128, True, None),    # Lk > Lq
+    (1, 130, 130, 4, 1, 64, False, None),   # bidirectional, ragged
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,window", FLASH_CUDA_CASES)
+def test_cuda_flash_attention_matches_plain_version(cuda_device, b, lq, lk,
+                                                    h, hkv, d, causal,
+                                                    window, dtype):
+    rng = np.random.default_rng(lq + lk + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32) * sc).to(dtype).to(cuda_device) for shape, sc in (
+        ((b, lq, h, d), 0.3), ((b, lk, hkv, d), 0.3), ((b, lk, hkv, d), 1.0)))
+    before = kflash.launches["flash_attention"]
+    out = kflash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert kflash.launches["flash_attention"] == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(),
+                               **ATTN_TOL[dtype])
+
+
+DECODE_CUDA_CASES = [  # (B, S, H, HKV, D, window, n_sink, ring)
+    (5, 96, 32, 4, 128, None, 0, False),    # the serve path's heads
+    (2, 512, 8, 2, 64, None, 0, True),      # a ring with empty slots
+    (3, 96, 6, 2, 64, 32, 8, False),        # window with sinks
+    (2, 128, 16, 1, 256, None, 0, False),   # G=16, D=256
+]
+
+
+def _decode_case(b, s, h, hkv, d, ring, kv, dev, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy((rng.standard_normal((b, 1, h, d)) * 0.3).astype(
+        np.float32))
+    k = torch.from_numpy((rng.standard_normal((b, s, hkv, d)) * 0.3).astype(
+        np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(
+        np.float32))
+    slot_pos = np.arange(s, dtype=np.int32)
+    pos = s - 1
+    if ring:   # slots [0, s/4) hold the newest positions, [s/2, s) empty
+        slot_pos = np.full(s, -1, np.int32)
+        slot_pos[:s // 4] = np.arange(s // 4) + s
+        slot_pos[s // 4:s // 2] = np.arange(s // 4, s // 2)
+        pos = s + s // 4 - 1
+    ks = vs = None
+    if kv == "int8":
+        from repro_torch.models.attention import quantize_kv
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        ks, vs = ks.to(dev), vs.to(dev)
+    elif kv == "bf16":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    return (q.to(dev), k.to(dev), v.to(dev),
+            torch.from_numpy(slot_pos).to(dev), pos, ks, vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,s,h,hkv,d,window,sink,ring", DECODE_CUDA_CASES)
+def test_cuda_decode_attention_matches_plain_version(cuda_device, b, s, h,
+                                                     hkv, d, window, sink,
+                                                     ring, kv):
+    q, k, v, sp, pos, ks, vs = _decode_case(b, s, h, hkv, d, ring, kv,
+                                            cuda_device, seed=b * s + h)
+    kw = dict(window=window, n_sink=sink, k_scale=ks, v_scale=vs)
+    before = kdec.launches["decode_attention"]
+    out = kdec.decode_attention_cuda(q, k, v, sp, pos, **kw)
+    assert kdec.launches["decode_attention"] == before + 1
+    want = tref.decode_attention_ref(q, k, v, sp, pos, **kw)
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(),
+                               **ATTN_TOL[q.dtype])
+    # nothing visible: every stored position past pos gives exactly 0
+    none = kdec.decode_attention_cuda(q, k, v, sp + 10 ** 6, pos, **kw)
+    assert bool(torch.all(none == 0))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_wrappers_refuse(cuda_device):
+    dev = cuda_device
+    q = torch.zeros((1, 8, 4, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        kflash.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    kv = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        kflash.flash_attention_cuda(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kflash.flash_attention_cuda(q.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), kv, kv)
+    with pytest.raises(NotImplementedError, match="hybrid slice"):
+        ops.flash_attention(q, kv, kv, n_sink=4)
+    q1 = torch.zeros((1, 1, 34, 64), device=dev)
+    c = torch.zeros((1, 8, 2, 64), device=dev)
+    sp = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="H/HKV"):
+        kdec.decode_attention_cuda(q1, c, c, sp, 7)
+    q1 = torch.zeros((1, 1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="int8 caches need"):
+        kdec.decode_attention_cuda(q1, c.to(torch.int8), c.to(torch.int8),
+                                   sp, 7)
+    with pytest.raises(ValueError, match="one device"):
+        kdec.decode_attention_cuda(q1, c, c, sp.cpu(), 7)
+
+
+def _yi_reduced(device, state=None):
+    m = Model(get_arch("yi-6b").reduced(), device=device)
+    if state is None:
+        return m.init_params(torch.Generator(device=device).manual_seed(0))
+    m.load_state_dict(state)
+    return m
+
+
+@pytest.mark.cuda
+def test_model_backend_launches_and_answers_on_cuda(cuda_device):
+    """One generate of the reduced yi-6b: two prefills of 2 layers (4 flash
+    launches) and 23 decode steps of 2 layers (46 decode launches); its
+    logits and answers equal those of the same weights on the CPU."""
+    card = _yi_reduced(cuda_device)
+    cpu = _yi_reduced("cpu", {n: t.cpu() for n, t in
+                              card.state_dict().items()})
+    queries = ["how do I reset my router", "what is a python list",
+               "where is my order"]
+    kflash.reset_launches()
+    kdec.reset_launches()
+    res = ModelBackend(card, HashTokenizer(vocab_size=1024)).generate(queries)
+    assert kflash.launches["flash_attention"] == 2 * 2
+    assert kdec.launches["decode_attention"] == 23 * 2
+    want = ModelBackend(cpu, HashTokenizer(vocab_size=1024)).generate(queries)
+    assert res.answers == want.answers
+    toks = torch.randint(0, 1024, (3, 64), generator=torch.Generator()
+                         .manual_seed(1))
+    with torch.inference_mode():
+        lg, caches = card(toks.to(cuda_device), collect_cache=True,
+                          cache_size=96)
+        lc, cc = cpu(toks, collect_cache=True, cache_size=96)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        nt = lc[:, -1:].argmax(-1)
+        dg, _ = card.decode_step(caches, nt.to(cuda_device))
+        dc, _ = cpu.decode_step(cc, nt)
+        torch.testing.assert_close(dg.cpu(), dc, rtol=0, atol=1e-4)

@@ -46,6 +46,17 @@ def test_ivf_slice_files_are_checked():
     assert {"kernels/ivf_topk.py", "core/index.py"} <= names
 
 
+def test_model_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"configs/__init__.py", "configs/base.py", "configs/yi_6b.py",
+            "models/__init__.py", "models/layers.py", "models/attention.py",
+            "models/model.py", "models/convert.py",
+            "kernels/flash_attention.py",
+            "kernels/decode_attention.py"} <= names
+    assert len([n for n in names if n.startswith("configs/")]) == 12
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -57,6 +68,11 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.tenancy, repro_torch.serving.loadgen\n"
         "import repro_torch.kernels.ivf_topk\n"
         "from repro_torch.core import IVFIndex, IVFState\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.models.convert\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "from repro_torch.serving import ModelBackend\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
