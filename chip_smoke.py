@@ -10,10 +10,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
   card      the card's name and power limit; f32 products must not use TF32
   build     nvcc of every kernel source for sm_90a, with -Xptxas -v
   kernel    each CUDA kernel (shared-mask, per-row interval and dense-mask
-            cosine top-k, k up to the IVF probe's 16 and past it; the IVF
-            candidate top-k on a real candidate matrix, all-visible,
-            all-empty, ragged and planted-tie cases) against its plain
-            PyTorch version on the card
+            cosine top-k, k up to the IVF probe's 16 and past it, each also
+            over an int8 slab with per-row scales; the IVF candidate top-k on
+            a real candidate matrix, all-visible, all-empty, ragged and
+            planted-tie cases) against its plain PyTorch version on the card;
+            ``quantize_keys`` on the card against the CPU, bitwise
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
             counted, held request by request against the same run on the CPU;
@@ -28,6 +29,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
             same decisions, and any bucket-table difference of the two
             k-means runs printed and checked against a CPU engine restored
             from the card's post-refit snapshot
+  quant     per-row-scale int8 lookups (``quantize_keys``, then
+            ``ops.quant_cosine_topk`` and the interval wrapper) over the
+            slabs the main and tenancy phases served: each served batch
+            through the shared, dense-mask and interval forms, held against
+            the plain versions, with the hit decisions that differ from the
+            f32 search of the same slab counted
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events
   model     the model-backed miss path (``launch.serve --backend model``):
@@ -62,11 +69,13 @@ SRC = ROOT / "src"
 # cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-2}
+SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-2, "quant": 1e-5}
 MAIN_BATCHES = 16          # 2,000 test queries in batches of 128
 TENANTS = 4                # launch.serve --tenants 4: 4 x 16,384 slots
 KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked",
-           "ivf_topk", "flash_attention", "decode_attention")
+           "ivf_topk", "flash_attention", "decode_attention",
+           "quant_cosine_topk", "quant_cosine_topk_interval",
+           "quant_cosine_topk_masked")
 DECISION_FIELDS = ("lookups", "cache_hits", "hit_rate", "api_call_fraction")
 THRESHOLD = 0.8
 
@@ -128,7 +137,11 @@ def _make_keys(torch, gen, n, d, dtype):
     return keys
 
 
-def _as_f32(torch, keys):
+def _as_f32(torch, keys, scales=None):
+    """f32 keys for a library yardstick: int8 keys times their per-row
+    ``scales``, else divided by 127 (the uniform slab quantization)."""
+    if scales is not None:
+        return keys.float() * scales[:, None]
     return keys.float() / 127.0 if keys.dtype == torch.int8 else keys.float()
 
 
@@ -172,12 +185,15 @@ def _compare(torch, ks, ki, rs1, ri1, k, tol, where, tie_rows):
 
 
 def _kernel_case(torch, dtype, b, n, d, k, mask, seed):
-    """One comparison of the shared-mask kernel with its plain version.
+    """One comparison of the shared-mask kernel with its plain version
+    (``dtype="quant"``: the per-row-scale kernel, on f32 keys quantized after
+    the ties are planted, so the tie rows are equal in int8 and scale).
     Returns the max abs score error over the finite entries."""
+    from repro_torch.kernels import cosine_topk as kmod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.cosine_topk import cosine_topk_cuda
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    keys = _make_keys(torch, gen, n, d, dtype)
+    quant = dtype == "quant"
+    keys = _make_keys(torch, gen, n, d, "f32" if quant else dtype)
     # planted exact ties: three equal copies of one key row, at slots
     # t0 < t1 < t2, and the first query rows are that row itself
     t0, t1, t2 = n // 5, n // 2, n - 1
@@ -201,8 +217,12 @@ def _kernel_case(torch, dtype, b, n, d, k, mask, seed):
         valid = torch.rand(n, generator=gen, device="cuda") < 0.7
     if mask != "none":
         valid[ties] = True
-    ks, ki = cosine_topk_cuda(q, keys, valid, k)
-    rs1, ri1 = ref.cosine_topk_ref(q, keys, valid, k + 1)
+    # the slab operands: (keys,) or (int8 keys, per-row scales)
+    slab = kmod.quantize_keys(keys) if quant else (keys,)
+    prefix = "quant_" if quant else ""
+    ks, ki = getattr(kmod, f"{prefix}cosine_topk_cuda")(q, *slab, valid, k)
+    rs1, ri1 = getattr(ref, f"{prefix}cosine_topk_ref")(q, *slab, valid,
+                                                       k + 1)
     tie_rows = {} if mask == "none" else \
         {r: [t0, t1, t2] for r in range(n_tie_rows)}
     return _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype],
@@ -237,14 +257,15 @@ def _per_row_case(torch, variant, dtype, b, n, d, k, layout, seed):
     (``"masked"``) kernel with its plain version. Planted ties across a
     region edge e: slots e-1, e and e+1 hold one key row; query rows 0, 1, 2
     are that row and see [0, e), [e, n) and [e+1, n), so each must find only
-    the copies inside its own interval, lowest slot first. Returns the max
-    abs score error."""
+    the copies inside its own interval, lowest slot first
+    (``dtype="quant"``: the per-row-scale kernels, keys quantized after the
+    ties are planted). Returns the max abs score error."""
     from repro_torch.core.similarity import interval_visibility
+    from repro_torch.kernels import cosine_topk as kmod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.cosine_topk import (cosine_topk_interval_cuda,
-                                                 cosine_topk_masked_cuda)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    keys = _make_keys(torch, gen, n, d, dtype)
+    quant = dtype == "quant"
+    keys = _make_keys(torch, gen, n, d, "f32" if quant else dtype)
     q = torch.randn((b, d), generator=gen, device="cuda")
     valid = torch.rand(n, generator=gen, device="cuda") < 0.7
     starts, sizes = _intervals(torch, gen, b, n, layout)
@@ -259,10 +280,14 @@ def _per_row_case(torch, variant, dtype, b, n, d, k, layout, seed):
         sizes[:3] = torch.tensor([e, n - e, n - e - 1], dtype=torch.int32)
         tie_rows = {0: [e - 1], 1: [e, e + 1], 2: [e + 1]}
     q = q / q.norm(dim=1, keepdim=True)
+    # the slab operands: (keys,) or (int8 keys, per-row scales)
+    slab = kmod.quantize_keys(keys) if quant else (keys,)
+    prefix = "quant_" if quant else ""
     if variant == "interval":
-        ks, ki = cosine_topk_interval_cuda(q, keys, valid, starts, sizes, k)
-        rs1, ri1 = ref.cosine_topk_interval_ref(q, keys, valid, starts, sizes,
-                                                k + 1)
+        ks, ki = getattr(kmod, f"{prefix}cosine_topk_interval_cuda")(
+            q, *slab, valid, starts, sizes, k)
+        rs1, ri1 = getattr(ref, f"{prefix}cosine_topk_interval_ref")(
+            q, *slab, valid, starts, sizes, k + 1)
     else:
         # a non-contiguous per-row mask: the row's interval and valid slots,
         # a fifth of them knocked out (never the planted ties)
@@ -271,8 +296,10 @@ def _per_row_case(torch, variant, dtype, b, n, d, k, layout, seed):
         for r in tie_rows:
             mask[r] = interval_visibility(valid, starts[r:r + 1],
                                           sizes[r:r + 1])[0]
-        ks, ki = cosine_topk_masked_cuda(q, keys, mask, k)
-        rs1, ri1 = ref.cosine_topk_ref(q, keys, mask, k + 1)
+        ks, ki = getattr(kmod, f"{prefix}cosine_topk_masked_cuda")(
+            q, *slab, mask, k)
+        rs1, ri1 = getattr(ref, f"{prefix}cosine_topk_ref")(q, *slab, mask,
+                                                           k + 1)
     where = f"{variant} {dtype} B={b} N={n} d={d} k={k} layout={layout}"
     err = _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype], where,
                    tie_rows)
@@ -304,25 +331,48 @@ def phase_kernel(torch) -> dict:
         (7, 1000, 384, 4, "regions"),
         (128, 1000, 384, 4, "empty"),
         (200, 1048576, 384, 4, "regions"),
+        (7, 1000, 384, 1, "regions"),
+        (70, 16383, 1536, 16, "random"),
+        (9, 1000, 384, 32, "random"),
     ]
     worst = dict.fromkeys(KERNELS, 0.0)
-    for dtype in ("f32", "bf16", "int8"):
+    # "quant": int8 keys with per-row scales, the quant_* kernels
+    for dtype in ("f32", "bf16", "int8", "quant"):
+        prefix = "quant_" if dtype == "quant" else ""
+        name = f"{prefix}cosine_topk"
         errs = [_kernel_case(torch, dtype, b, n, d, k, mask, seed=1000 + i)
                 for i, (b, n, d, k, mask) in enumerate(cases)]
-        emit("kernel", kernel="cosine_topk", dtype=dtype, cases=len(cases),
+        emit("kernel", kernel=name, dtype=dtype, cases=len(cases),
              max_abs_err=max(errs), tolerance=SCORE_TOL[dtype])
-        worst["cosine_topk"] = max(worst["cosine_topk"], max(errs))
+        worst[name] = max(worst[name], max(errs))
         for variant in ("interval", "masked"):
             errs = [_per_row_case(torch, variant, dtype, b, n, d, k, layout,
                                   seed=2000 + i)
                     for i, (b, n, d, k, layout) in enumerate(per_row_cases)]
-            name = f"cosine_topk_{variant}"
+            name = f"{prefix}cosine_topk_{variant}"
             emit("kernel", kernel=name, dtype=dtype,
                  cases=len(per_row_cases), max_abs_err=max(errs),
                  tolerance=SCORE_TOL[dtype])
             worst[name] = max(worst[name], max(errs))
     worst["ivf_topk"] = _ivf_kernel_cases(torch)
+    _quantize_keys_check(torch)
     return worst
+
+
+def _quantize_keys_check(torch) -> None:
+    """``quantize_keys`` on the card is bitwise the CPU's, zero rows too."""
+    from repro_torch.kernels.cosine_topk import quantize_keys
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for n, d in ((16384, 384), (16383, 1536)):
+        keys = _make_keys(torch, gen, n, d, "f32")
+        keys[7] = 0.0
+        cq, cs = quantize_keys(keys)
+        hq, hs = quantize_keys(keys.cpu())
+        if not (torch.equal(cq.cpu(), hq) and torch.equal(
+                cs.cpu().view(torch.int32), hs.view(torch.int32))):
+            fail(f"quantize_keys on the card differs from the CPU at "
+                 f"N={n} d={d}")
+        emit("kernel", check="quantize_keys card == cpu, bitwise", N=n, d=d)
 
 
 def _ivf_serve_candidates(torch, b=128):
@@ -455,10 +505,11 @@ def _same_decisions(a, b, where: str, tol: float) -> None:
             fail(f"{where}: request {i} score {x.score} vs {y.score}")
 
 
-def phase_main(torch) -> tuple[int, dict]:
+def phase_main(torch) -> tuple[int, dict, tuple]:
     """The paper's serve loop on the card against the CPU. Returns the
-    cosine kernel's launches and the Table 1 hits of the f32 run."""
-    main_launches, hits = None, None
+    cosine kernel's launches, the Table 1 hits of the f32 run and its
+    (engine, requests)."""
+    main_launches, hits, served = None, None, None
     for key_dtype in ("f32", "int8"):
         eng, reqs, resp, launches, wall = _serve(torch, device="cuda",
                                                  key_dtype=key_dtype)
@@ -466,6 +517,7 @@ def phase_main(torch) -> tuple[int, dict]:
                          f"main path ({key_dtype})")
         if key_dtype == "f32":
             main_launches = launches["cosine_topk"]
+            served = (eng, reqs)
             hits = {c: m["cache_hits"] for c, m in
                     eng.metrics.summary()["categories"].items()}
         scores = [r.score for r in resp]
@@ -502,7 +554,7 @@ def phase_main(torch) -> tuple[int, dict]:
     _expect_launches(sl, {"cosine_topk": 4}, "quick config, separate")
     emit("main", check="separate path equals fused", requests=len(fused),
          launches_fused=fl["cosine_topk"], launches_separate=sl["cosine_topk"])
-    return main_launches, hits
+    return main_launches, hits, served
 
 
 # --------------------------------------------------------------------- #
@@ -551,10 +603,11 @@ def _per_row_search(torch, eng, reqs):
     return masked_launches, batches
 
 
-def phase_tenancy(torch) -> dict:
+def phase_tenancy(torch) -> tuple[dict, tuple]:
     """The multi-tenant serve path on the card, against the CPU. Returns
-    the interval and dense-mask kernels' launches on their paths."""
-    out = {}
+    the interval and dense-mask kernels' launches on their paths and the
+    f32 run's (engine, requests)."""
+    out, served = {}, None
     for key_dtype in ("f32", "int8"):
         kw = dict(tenants=TENANTS, key_dtype=key_dtype)
         eng, reqs, resp, launches, wall = _serve(torch, device="cuda", **kw)
@@ -610,6 +663,7 @@ def phase_tenancy(torch) -> dict:
                                 "region_slots": r["region_slots"]}
                          for name, r in dev.items()})
         if key_dtype == "f32":
+            served = (eng, reqs)
             out["cosine_topk_interval"] = launches["cosine_topk_interval"]
             masked, batches = _per_row_search(torch, eng, reqs)
             _expect_launches(masked, {"cosine_topk_masked": batches},
@@ -629,7 +683,7 @@ def phase_tenancy(torch) -> dict:
                      "tenancy quick, separate")
     emit("tenancy", check="separate path equals fused", requests=len(fused),
          launches_fused=fl, launches_separate=sl)
-    return out
+    return out, served
 
 
 # --------------------------------------------------------------------- #
@@ -779,6 +833,118 @@ def phase_ivf(torch, scratch: Path) -> dict:
 
 
 # --------------------------------------------------------------------- #
+def _quant_batches(torch, eng, reqs, slab: str) -> list:
+    """Each served batch's normalized queries with the visibility operands
+    of its per-row-scale kernels: on the main slab the shared alive mask
+    (``quant_cosine_topk``) and a (B, N) mask of four contiguous regions,
+    row r seeing region r % 4, and alive (``quant_cosine_topk_masked``); on
+    the tenant slab the registry's per-row intervals
+    (``quant_cosine_topk_interval``)."""
+    from repro_torch.core import store
+    from repro_torch.core.similarity import interval_visibility, l2_normalize
+    alive = store.alive_mask(eng.state, eng._now)
+    n = alive.shape[0]
+    batches = []
+    for i in range(0, len(reqs), eng.batcher.batch_size):
+        chunk = reqs[i:i + eng.batcher.batch_size]
+        q = l2_normalize(eng._embed([r.query for r in chunk]))
+        if slab == "main":
+            region = n // TENANTS
+            rows = torch.arange(q.shape[0], device=q.device) % TENANTS
+            starts = (rows * region).to(torch.int32)
+            operands = {"quant_cosine_topk": alive,
+                        "quant_cosine_topk_masked": interval_visibility(
+                            alive, starts, torch.full_like(starts, region))}
+        else:
+            operands = {"quant_cosine_topk_interval": (
+                alive, *eng.cache._tenant_interval(eng._tenant_ids(chunk)))}
+        batches.append((q, operands))
+    return batches
+
+
+def _quant_search(torch, name, q, slab, op, k, plain=False):
+    """One search of the per-row-scale form ``name`` (its CUDA path, or
+    with ``plain`` its plain version) over ``slab`` = (int8 keys, scales);
+    ``op`` is the mask or the (alive, starts, sizes) operands. With ``slab``
+    a 1-tuple of f32 keys, the f32 search of the same visibility."""
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.kernels import ops, ref
+    if len(slab) == 1:
+        if name.endswith("interval"):
+            return ops.cosine_topk_interval(q, *slab, *op, k=k)
+        return ops.cosine_topk(q, *slab, op, k=k)
+    if name.endswith("interval"):
+        fn = (ref.quant_cosine_topk_interval_ref if plain
+              else kmod.quant_cosine_topk_interval_cuda)
+        return fn(q, *slab, *op, k)
+    if plain:
+        return ref.quant_cosine_topk_ref(q, *slab, op, k)
+    return ops.quant_cosine_topk(q, *slab, op, k=k)
+
+
+def phase_quant(torch, served=None) -> tuple[dict, dict]:
+    """Per-row-scale int8 lookups on the slabs of the paper configuration:
+    the f32 slab the main phase served (16,384 slots) and the one of
+    ``--tenants 4`` (65,536), each quantized with ``quantize_keys``, every
+    served batch through its kernels (``_quant_batches``), 16 launches of
+    each. Each result is held against its plain version (ids equal apart
+    from near-ties, which are counted, scores within 1e-5), and the rows
+    whose hit decision at THRESHOLD differs from the f32 search of the same
+    slab are counted, not limited: a per-row-scale slab is another slab.
+    ``served`` maps "main" and "tenancy" to an (engine, requests) pair that
+    served on the card; without it both are served here. Returns each
+    kernel's launches and its worst score error against the plain
+    version."""
+    from repro_torch.kernels.cosine_topk import quantize_keys
+    if served is None:
+        served = {"main": _serve(torch, device="cuda")[:2],
+                  "tenancy": _serve(torch, device="cuda",
+                                    tenants=TENANTS)[:2]}
+    tol = SCORE_TOL["quant"]
+    launches, max_err = {}, {}
+    for slab_name, (eng, reqs) in served.items():
+        keys = eng.state.keys
+        kq, sc = quantize_keys(keys)
+        k = eng.cache.index.topk
+        batches = _quant_batches(torch, eng, reqs, slab_name)
+        _reset_launches()
+        outs = [{name: _quant_search(torch, name, q, (kq, sc), op, k)
+                 for name, op in operands.items()}
+                for q, operands in batches]
+        torch.cuda.synchronize()
+        want = dict.fromkeys(batches[0][1], MAIN_BATCHES)
+        _expect_launches(_launches(), want, f"quant phase, {slab_name} slab")
+        launches.update(want)
+        for name in want:
+            err, near, flips, gap = 0.0, 0, 0, 0.0
+            for (q, operands), out in zip(batches, outs):
+                ks, ki = out[name]
+                op = operands[name]
+                rs1, ri1 = _quant_search(torch, name, q, (kq, sc), op, k + 1,
+                                         plain=True)
+                err = max(err, _compare(torch, ks, ki, rs1, ri1, k, tol,
+                                        f"quant {name} {slab_name} slab",
+                                        {}))
+                near += int((ki.cpu() != ri1[:, :k].cpu()).sum())
+                fs, _ = _quant_search(torch, name, q, (keys,), op, k)
+                flips += int(((ks[:, 0] >= THRESHOLD)
+                              != (fs[:, 0] >= THRESHOLD)).sum())
+                both = torch.isfinite(ks[:, 0]) & torch.isfinite(fs[:, 0])
+                gap = max(gap, float((ks[both, 0] - fs[both, 0]).abs().max())
+                          if both.any() else 0.0)
+            emit("quant", kernel=name, slab=slab_name, slots=keys.shape[0],
+                 d=keys.shape[1], requests=len(reqs), batches=len(batches),
+                 launches=want[name], max_abs_err=err, tolerance=tol,
+                 ids_differing_at_near_ties=near,
+                 hit_decisions_differing_from_f32=flips,
+                 max_top1_diff_from_f32=gap,
+                 slab_mb_f32=keys.numel() * 4 / 1e6,
+                 slab_mb_int8_and_scales=(kq.numel() + sc.numel() * 4) / 1e6)
+            max_err[name] = err
+    return launches, max_err
+
+
+# --------------------------------------------------------------------- #
 def _time(torch, fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -836,6 +1002,18 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS
             "flops": flops, "bytes": nbytes}
 
 
+def _timing_slab(torch, gen, n, d, dtype):
+    """(slab operands, the kernels' name prefix, bytes read per visible
+    slot): ``dtype="quant"`` gives int8 keys and per-row scales from
+    ``quantize_keys``, 4 more bytes a slot."""
+    from repro_torch.kernels.cosine_topk import quantize_keys
+    if dtype == "quant":
+        return quantize_keys(_make_keys(torch, gen, n, d, "f32")), \
+            "quant_", d + 4
+    keys = _make_keys(torch, gen, n, d, dtype)
+    return (keys,), "", d * keys.element_size()
+
+
 def phase_timing(torch, card: str) -> dict:
     from repro_torch.core.similarity import interval_visibility
     from repro_torch.kernels import cosine_topk as kmod
@@ -843,43 +1021,48 @@ def phase_timing(torch, card: str) -> dict:
     out = {}
     b, d, k = 128, 384, 4
     neg = torch.tensor(float("-inf"), device="cuda")
-    for n, dtype in ((16384, "f32"), (16384, "int8"),
-                     (1048576, "f32"), (1048576, "int8")):
+    # "quant": int8 keys with per-row scales through the quant_* kernels
+    for n, dtype in ((16384, "f32"), (16384, "int8"), (16384, "quant"),
+                     (1048576, "f32"), (1048576, "int8"),
+                     (1048576, "quant")):
         gen = torch.Generator(device="cuda").manual_seed(7)
-        keys = _make_keys(torch, gen, n, d, dtype)
+        slab, prefix, slot_bytes = _timing_slab(torch, gen, n, d, dtype)
+        name = f"{prefix}cosine_topk"
         q = torch.randn((b, d), generator=gen, device="cuda")
         q = q / q.norm(dim=1, keepdim=True)
         valid = torch.rand(n, generator=gen, device="cuda") < 0.9
 
         def kernel():
-            return kmod.cosine_topk_cuda(q, keys, valid, k)
+            return getattr(kmod, f"{name}_cuda")(q, *slab, valid, k)
 
         def plain():
-            return ref.cosine_topk_ref(q, keys, valid, k)
+            return getattr(ref, f"{name}_ref")(q, *slab, valid, k)
 
         def library():
-            return torch.topk(torch.where(valid, q @ _as_f32(torch, keys).T,
+            return torch.topk(torch.where(valid, q @ _as_f32(torch, *slab).T,
                                           neg), k)
 
         reps = 200 if n <= 16384 else 10
         ms, times = _time_turns(torch, {"kernel": kernel, "plain": plain,
                                         "library": library}, reps)
         bound = _bound(2.0 * b * n * d,
-                       b * d * 4 + n * d * keys.element_size() + n + b * k * 8)
+                       b * d * 4 + n * slot_bytes + n + b * k * 8)
         row = {"kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
                "library_ms": ms["library"], "runs_ms": times, **bound,
                "share_of_bound": bound["bound_ms"] / ms["kernel"],
-               "l2_warm": n * d * keys.element_size() < 50e6}
-        out[("cosine_topk", n, dtype)] = row
-        emit("timing", kernel="cosine_topk", B=b, N=n, d=d, k=k,
+               "l2_warm": n * slot_bytes < 50e6}
+        out[(name, n, dtype)] = row
+        emit("timing", kernel=name, B=b, N=n, d=d, k=k,
              key_dtype=dtype, card=card, **row)
 
     # the per-row kernels at the tenancy path's shape (4 regions of 16,384)
     # and at N = 1,048,576 (4 regions of 262,144): each row sees one region
-    for n, dtype in ((65536, "f32"), (65536, "int8"),
-                     (1048576, "f32"), (1048576, "int8")):
+    for n, dtype in ((65536, "f32"), (65536, "int8"), (65536, "quant"),
+                     (1048576, "f32"), (1048576, "int8"),
+                     (1048576, "quant")):
         gen = torch.Generator(device="cuda").manual_seed(11)
-        keys = _make_keys(torch, gen, n, d, dtype)
+        slab, prefix, slot_bytes = _timing_slab(torch, gen, n, d, dtype)
+        keys, scales = slab[0], (slab[1] if len(slab) == 2 else None)
         q = torch.randn((b, d), generator=gen, device="cuda")
         q = q / q.norm(dim=1, keepdim=True)
         valid = torch.rand(n, generator=gen, device="cuda") < 0.9
@@ -888,7 +1071,6 @@ def phase_timing(torch, card: str) -> dict:
                   * size).to(torch.int32)
         sizes = torch.full((b,), size, dtype=torch.int32, device="cuda")
         mask = interval_visibility(valid, starts, sizes)
-        el = keys.element_size()
         reps = 100 if n <= 65536 else 10
         # visible work only: each row scores its own region; the slab
         # bytes are those of the union of the intervals (here all of N)
@@ -897,44 +1079,45 @@ def phase_timing(torch, card: str) -> dict:
             sizes).any(0).sum())
         visible = int(sizes.long().sum())
         for variant in ("interval", "masked"):
-            name = f"cosine_topk_{variant}"
+            name = f"{prefix}cosine_topk_{variant}"
             if variant == "interval":
                 operands = (valid, starts, sizes)
 
                 def kernel():
-                    return kmod._launch(name, q, keys, operands, k)
+                    return kmod._launch(name, q, keys, operands, k, scales)
 
                 def wrapper():
-                    return kmod.cosine_topk_interval_cuda(
-                        q, keys, valid, starts, sizes, k)
+                    return getattr(kmod, f"{name}_cuda")(
+                        q, *slab, valid, starts, sizes, k)
 
                 def plain():
-                    return ref.cosine_topk_interval_ref(q, keys, valid,
-                                                        starts, sizes, k)
+                    return getattr(ref, f"{prefix}cosine_topk_interval_ref")(
+                        q, *slab, valid, starts, sizes, k)
 
                 def library():
                     cols = torch.arange(n, device="cuda")[None, :]
                     inside = (cols >= starts[:, None]) & \
                         (cols < (starts + sizes)[:, None])
                     return torch.topk(torch.where(
-                        valid[None] & inside, q @ _as_f32(torch, keys).T,
+                        valid[None] & inside, q @ _as_f32(torch, *slab).T,
                         neg), k)
-                nbytes = (b * d * 4 + union * (d * el + 1) + 2 * b * 4
+                nbytes = (b * d * 4 + union * (slot_bytes + 1) + 2 * b * 4
                           + b * k * 8)
             else:
                 def kernel():
-                    return kmod._launch(name, q, keys, (mask,), k)
+                    return kmod._launch(name, q, keys, (mask,), k, scales)
 
                 def wrapper():
-                    return kmod.cosine_topk_masked_cuda(q, keys, mask, k)
+                    return getattr(kmod, f"{name}_cuda")(q, *slab, mask, k)
 
                 def plain():
-                    return ref.cosine_topk_ref(q, keys, mask, k)
+                    return getattr(ref, f"{prefix}cosine_topk_ref")(
+                        q, *slab, mask, k)
 
                 def library():
                     return torch.topk(torch.where(
-                        mask, q @ _as_f32(torch, keys).T, neg), k)
-                nbytes = b * d * 4 + union * d * el + b * n + b * k * 8
+                        mask, q @ _as_f32(torch, *slab).T, neg), k)
+                nbytes = b * d * 4 + union * slot_bytes + b * n + b * k * 8
             ms, times = _time_turns(torch, {"kernel": kernel,
                                             "wrapper": wrapper,
                                             "plain": plain,
@@ -944,7 +1127,7 @@ def phase_timing(torch, card: str) -> dict:
                    "plain_ms": ms["plain"], "library_ms": ms["library"],
                    "runs_ms": times, **bound,
                    "share_of_bound": bound["bound_ms"] / ms["kernel"],
-                   "l2_warm": n * d * el < 50e6}
+                   "l2_warm": n * slot_bytes < 50e6}
             out[(name, n, dtype)] = row
             emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
                  regions=TENANTS, card=card, **row)
@@ -1546,17 +1729,25 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     max_err = phase_kernel(torch)
-    main_launches, hits = phase_main(torch)
-    launches = {"cosine_topk": main_launches, **phase_tenancy(torch)}
+    main_launches, hits, main_served = phase_main(torch)
+    tenancy_launches, tenancy_served = phase_tenancy(torch)
+    launches = {"cosine_topk": main_launches, **tenancy_launches}
     with tempfile.TemporaryDirectory() as scratch:
         launches["ivf_topk"] = phase_ivf(torch, Path(scratch))["ivf_topk"]
+    quant_launches, quant_err = phase_quant(
+        torch, {"main": main_served, "tenancy": tenancy_served})
+    del main_served, tenancy_served
+    launches.update(quant_launches)
+    for name, err in quant_err.items():
+        max_err[name] = max(max_err[name], err)
     timing = phase_timing(torch, card)
     model = phase_model(torch, card, hits)
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
 
-    # each kernel at the shape of the path that launches it, f32 slab
+    # each kernel at the shape of the path that launches it, f32 slab (the
+    # quant rows: int8 with per-row scales)
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"cosine_topk": ((16384, "f32"), "cosine_topk.cu",
                             "src/repro/kernels/cosine_topk.py:218"),
@@ -1567,7 +1758,15 @@ def main() -> None:
             ((65536, "f32"), "cosine_topk.cu",
              "src/repro/kernels/cosine_topk.py:286"),
             "ivf_topk": (("serve", "f32"), "ivf_topk.cu",
-                         "src/repro/kernels/ivf_topk.py:133")}
+                         "src/repro/kernels/ivf_topk.py:133"),
+            "quant_cosine_topk": ((16384, "quant"), "cosine_topk.cu",
+                                  "src/repro/kernels/cosine_topk.py:234"),
+            "quant_cosine_topk_interval":
+            ((65536, "quant"), "cosine_topk.cu",
+             "src/repro/kernels/cosine_topk.py:270"),
+            "quant_cosine_topk_masked":
+            ((65536, "quant"), "cosine_topk.cu",
+             "src/repro/kernels/cosine_topk.py:300")}
     kernels = []
     for name, (shape, source, replaces) in rows.items():
         row = timing[(name, *shape)]

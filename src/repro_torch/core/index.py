@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.similarity import (NEG_INF, interval_visibility,
                                          l2_normalize, masked_topk)
-from repro_torch.core.types import CacheConfig
+from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.kernels import cosine_topk as kcos
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.cosine_topk import (cosine_topk_cuda,
@@ -176,7 +176,9 @@ class IVFIndex:
         """Empty index: random unit centroids (a CPU generator seeded 0, then
         moved to ``device``) and all-invalid buckets. Random rather than zero
         centroids spread pre-refit ``absorb``s over every bucket; ``refit``
-        replaces them."""
+        replaces them. ``device=None`` means CUDA, as at every entry point
+        (``resolve_device``)."""
+        device = resolve_device(device)
         c, cap = self.ncentroids, self.bucket_cap
         gen = torch.Generator().manual_seed(0)
         centroids = l2_normalize(torch.randn((c, config.dim), generator=gen))

@@ -1,5 +1,5 @@
 """Launch wrappers of the hand-written CUDA cosine top-k
-(``csrc/cosine_topk.cu``), the Hopper replacement of three TPU kernels of
+(``csrc/cosine_topk.cu``), the Hopper replacement of the six TPU kernels of
 ``repro/kernels/cosine_topk.py``:
 
   ``cosine_topk_cuda``           <- ``cosine_topk_pallas``: shared (N,) mask
@@ -8,6 +8,10 @@
                                     tenancy path)
   ``cosine_topk_masked_cuda``    <- ``cosine_topk_masked_pallas``: dense
                                     (B, N) mask
+  ``quant_cosine_topk_cuda``, ``quant_cosine_topk_interval_cuda``,
+  ``quant_cosine_topk_masked_cuda`` <- the ``quant_*_pallas`` three: the same
+                                    over an int8 slab with a per-row (N,) f32
+                                    scale (``quantize_keys``)
 
 Contract (that of ``repro_torch.kernels.ref``): queries (B, d) float32,
 L2-normalized; keys (N, d) float32, bfloat16 or int8 (int8 scaled by 1/127
@@ -36,7 +40,8 @@ from repro_torch.kernels import build
 #: (``reset_launches``) and reads them back to show which path went through
 #: which kernel
 launches = {"cosine_topk": 0, "cosine_topk_interval": 0,
-            "cosine_topk_masked": 0}
+            "cosine_topk_masked": 0, "quant_cosine_topk": 0,
+            "quant_cosine_topk_interval": 0, "quant_cosine_topk_masked": 0}
 
 MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
 BLOCK_Q = 64    # query rows per block of pass 1 (BQ in the source)
@@ -123,6 +128,60 @@ def check_interval_args(queries: torch.Tensor, keys: torch.Tensor,
                          "0 <= starts, 0 <= sizes, starts + sizes <= N")
 
 
+def quantize_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization, ``keys ~ q * scale``: (N, d)
+    float32 -> (int8 (N, d), float32 (N,)). The semantics of the eager
+    ``repro.kernels.cosine_topk.quantize_keys``: ``scale = max(absmax,
+    1e-12) / 127`` divided, not multiplied by a reciprocal (XLA makes that
+    rewrite under ``jit``, 1 ulp off on some rows); ``torch.round`` rounds
+    half to even as ``jnp.round`` does. A zero row gets scale 1e-12/127.
+    The divisor is a device tensor: CUDA computes ``x / 127.0`` with a Python
+    scalar as ``x * (1/127)``."""
+    if keys.dim() != 2 or keys.dtype != torch.float32:
+        raise ValueError(f"keys must be (N, d) float32, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    absmax = keys.abs().amax(dim=1)
+    scale = absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
+    q = torch.round(keys / scale[:, None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _check_scales(keys: torch.Tensor, scales: torch.Tensor) -> None:
+    if keys.dtype != torch.int8:
+        raise ValueError(f"keys with per-row scales must be int8, got "
+                         f"{keys.dtype}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (
+            keys.shape[0],):
+        raise ValueError(f"scales must be ({keys.shape[0]},) float32, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    _check_layout(keys, scales)
+
+
+def check_quant_args(queries: torch.Tensor, keys: torch.Tensor,
+                     scales: torch.Tensor, valid: torch.Tensor, k: int
+                     ) -> None:
+    """``check_args`` for an int8 slab with per-row (N,) f32 scales."""
+    check_args(queries, keys, valid, k)
+    _check_scales(keys, scales)
+
+
+def check_quant_interval_args(queries: torch.Tensor, keys: torch.Tensor,
+                              scales: torch.Tensor, valid: torch.Tensor,
+                              starts: torch.Tensor, sizes: torch.Tensor,
+                              k: int) -> None:
+    """``check_interval_args`` for an int8 slab with per-row scales."""
+    _check_scales(keys, scales)
+    check_interval_args(queries, keys, valid, starts, sizes, k)
+
+
+def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
+                            scales: torch.Tensor, mask: torch.Tensor, k: int
+                            ) -> None:
+    """``check_masked_args`` for an int8 slab with per-row scales."""
+    check_masked_args(queries, keys, mask, k)
+    _check_scales(keys, scales)
+
+
 def split(b: int, n: int, num_sms: int) -> tuple[int, int]:
     """(keys per chunk, chunks) of pass 1: whole 128-key tiles per chunk,
     as few as give about ``BLOCKS_PER_SM`` blocks per SM."""
@@ -141,19 +200,24 @@ def _lib() -> ctypes.CDLL:
         lib.cosine_topk_launch.argtypes = [p, p, i, p] + tail
         lib.cosine_topk_interval_launch.argtypes = [p, p, i, p, p, p] + tail
         lib.cosine_topk_masked_launch.argtypes = [p, p, i, p] + tail
-        for fn in (lib.cosine_topk_launch, lib.cosine_topk_interval_launch,
-                   lib.cosine_topk_masked_launch):
-            fn.restype = ctypes.c_int
+        # q keys scales, then the mask sources
+        lib.quant_cosine_topk_launch.argtypes = [p, p, p, p] + tail
+        lib.quant_cosine_topk_interval_launch.argtypes = [p] * 6 + tail
+        lib.quant_cosine_topk_masked_launch.argtypes = [p, p, p, p] + tail
+        for name in launches:
+            getattr(lib, f"{name}_launch").restype = ctypes.c_int
         lib.cosine_topk_error_string.argtypes = [i]
         lib.cosine_topk_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
-            masks: tuple[torch.Tensor, ...], k: int
+            masks: tuple[torch.Tensor, ...], k: int,
+            scales: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel ``name`` on checked operands; ``masks`` are the
-    mask-source pointers of its entry point, in order."""
+    mask-source pointers of its entry point, in order. ``scales`` goes to
+    the per-row-scale entry points in place of the key type's code."""
     dev = queries.device
     if dev.type != "cuda":
         raise RuntimeError(f"the CUDA cosine top-k takes CUDA tensors, got "
@@ -169,9 +233,11 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     entry = getattr(lib, f"{name}_launch")
+    scale_source = (DTYPE_CODE[keys.dtype] if scales is None
+                    else scales.data_ptr())
     with torch.cuda.device(dev):
         err = entry(
-            queries.data_ptr(), keys.data_ptr(), DTYPE_CODE[keys.dtype],
+            queries.data_ptr(), keys.data_ptr(), scale_source,
             *(m.data_ptr() for m in masks), b, n, d, k, per_chunk, chunks,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -209,3 +275,33 @@ def cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,
     caller."""
     check_masked_args(queries, keys, mask, k)
     return _launch("cosine_topk_masked", queries, keys, (mask,), k)
+
+
+def quant_cosine_topk_cuda(queries: torch.Tensor, keys: torch.Tensor,
+                           scales: torch.Tensor, valid: torch.Tensor, k: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_topk_cuda`` over int8 ``keys`` scaled by ``scales[n]``."""
+    check_quant_args(queries, keys, scales, valid, k)
+    return _launch("quant_cosine_topk", queries, keys, (valid,), k, scales)
+
+
+def quant_cosine_topk_interval_cuda(queries: torch.Tensor, keys: torch.Tensor,
+                                    scales: torch.Tensor, valid: torch.Tensor,
+                                    starts: torch.Tensor, sizes: torch.Tensor,
+                                    k: int
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_topk_interval_cuda`` over int8 ``keys`` scaled by
+    ``scales[n]``."""
+    check_quant_interval_args(queries, keys, scales, valid, starts, sizes, k)
+    return _launch("quant_cosine_topk_interval", queries, keys,
+                   (valid, starts, sizes), k, scales)
+
+
+def quant_cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,
+                                  scales: torch.Tensor, mask: torch.Tensor,
+                                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_topk_masked_cuda`` over int8 ``keys`` scaled by
+    ``scales[n]``."""
+    check_quant_masked_args(queries, keys, scales, mask, k)
+    return _launch("quant_cosine_topk_masked", queries, keys, (mask,), k,
+                   scales)

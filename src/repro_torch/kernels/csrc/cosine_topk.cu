@@ -1,27 +1,40 @@
 // Masked cosine top-k over the cache slab, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/cosine_topk.py::_cosine_topk_kernel
-// in three of its visibility forms, one C entry point each:
+// in its six forms, one C entry point each: three visibility forms
 //   cosine_topk_launch           shared (N,) validity mask (cosine_topk_pallas)
 //   cosine_topk_interval_launch  shared mask and one slot interval per row,
 //                                [starts[b], starts[b] + sizes[b]), the
 //                                tenancy path (cosine_topk_interval_pallas)
 //   cosine_topk_masked_launch    dense (B, N) bool mask, aliveness folded in
 //                                by the caller (cosine_topk_masked_pallas)
+// and the same three over an int8 slab with a per-row (N,) f32 scale
+//   quant_cosine_topk_launch           (quant_cosine_topk_pallas)
+//   quant_cosine_topk_interval_launch  (quant_cosine_topk_interval_pallas)
+//   quant_cosine_topk_masked_launch    (quant_cosine_topk_masked_pallas)
 // scores = queries (B, d) x keys (N, d)^T, then the k <= 32 best visible
 // slots of each row, ordered by (score desc, slot id asc), with (-inf, -1) where
-// fewer than k slots are visible. Keys are f32, bf16 or int8; int8 keys are
-// loaded as one byte each and scaled by 1/127 in registers. The mask source
-// is a template parameter of pass 1; it decides which scores are offered to
-// the top-k lists, so a slot outside a row's interval (or dense mask) never
-// enters that row's list, whatever its score or slot id.
+// fewer than k slots are visible. Keys are f32, bf16 or int8, loaded as they
+// are stored (int8 one byte each). Two template parameters of pass 1 decide
+// the rest. The scale source turns a key into f32 as it is stored in shared
+// memory: by its type (int8 times 1/127, the slab's uniform quantization) or
+// as float(kq) * scales[n], the product the Pallas kernel and the plain
+// version form before their GEMM, so the FMAs see the plain version's operands
+// bit for bit; each tile reads its 128 scales once. The mask source decides
+// which scores are offered to the top-k lists, so a slot outside a row's
+// interval (or dense mask) never enters that row's list, whatever its score
+// or slot id.
 //
 // Bound on an H100 SXM at the main path's shapes (B=128, d=384, N=16384, f32
 // keys): 2*B*d*N = 1.61 GFLOP at the 67 TFLOP/s f32 CUDA-core peak is 24 us,
 // while reading the 25.4 MB slab at 3.35 TB/s is 7.6 us, so it is bound by
 // operations. The products run in plain f32 FMA, not TF32 and not tensor
 // cores: at the paper's configuration the closest score lies 1.85e-5 from the
-// 0.8 threshold, and TF32's ~1e-3 error would flip hit decisions.
+// 0.8 threshold, and TF32's ~1e-3 error would flip hit decisions. A per-row-
+// scale int8 slab moves 6.6 MB instead of 25.4 MB (keys, scales, mask) but
+// does the same 1.61 GFLOP, so it has the same 24 us bound; scaling after the
+// dot, or int8 tensor-core products, would round differently from the plain
+// version and are later work.
 //
 // Design. The TPU kernel carries a running top-k across a sequential grid;
 // CUDA blocks run in no order, so this is two passes.
@@ -70,13 +83,17 @@ constexpr int ROWS_PER_WARP = BQ / (NT / 32); // top-k lists per warp
 
 // where a score's visibility comes from (template parameter of pass 1)
 enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
+// how a key becomes f32: by its type (to_f32: int8 times 1/127), or int8
+// times its row's f32 scale (template parameter of pass 1)
+enum ScaleSource { TYPE_SCALE = 0, ROW_SCALE = 1 };
 
-// valid: (N,) bytes (SHARED_MASK, INTERVAL_MASK); starts/sizes: (B,) int32
-// (INTERVAL_MASK); mask: (B, N) bytes (DENSE_MASK). Unused pointers may be
-// null.
-template <typename KT, int MS>
+// scales: (N,) f32 (ROW_SCALE); valid: (N,) bytes (SHARED_MASK,
+// INTERVAL_MASK); starts/sizes: (B,) int32 (INTERVAL_MASK); mask: (B, N)
+// bytes (DENSE_MASK). Unused pointers may be null.
+template <typename KT, int MS, int SS>
 __global__ void __launch_bounds__(NT)
 cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
+                    const float* __restrict__ scales,
                     const uint8_t* __restrict__ valid, const int* __restrict__ starts,
                     const int* __restrict__ sizes, const uint8_t* __restrict__ mask,
                     int B, int N, int d, int k, int keys_per_chunk,
@@ -87,6 +104,8 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   __shared__ float smem[BQ * (BN + 1)];
   // INTERVAL_MASK: row r of the block sees [row_lo[r], row_hi[r])
   __shared__ int row_lo[BQ], row_hi[BQ];
+  // ROW_SCALE: the scales of the tile's 128 keys
+  __shared__ float row_scale[BN];
   float* qs = smem;
   float* ks = smem + DK * (BQ + 1);
   float* sc = smem;
@@ -131,6 +150,11 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 
   for (int n0 = n_begin; n0 < n_end; n0 += BN) {
     if (n0 + BN <= blk_lo || n0 >= blk_hi) continue;  // uniform over the block
+    if constexpr (SS == ROW_SCALE) {
+      // the previous tile's last reads of row_scale precede its final barrier
+      if (tid < BN) row_scale[tid] = n0 + tid < n_end ? scales[n0 + tid] : 0.0f;
+      __syncthreads();
+    }
     float acc[TQ][TN];
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
@@ -148,7 +172,16 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
       for (int p = 0; p < BN * DK / NT; ++p) {
         const int e = tid + p * NT, r = e / DK, c = e % DK;
         const int gn = n0 + r, gc = c0 + c;
-        ks[c * (BN + 1) + r] = (gn < n_end && gc < d) ? to_f32(keys[(size_t)gn * d + gc]) : 0.0f;
+        float v = 0.0f;
+        if (gn < n_end && gc < d) {
+          if constexpr (SS == ROW_SCALE) {
+            // a rounded product, never contracted into the FMAs below
+            v = __fmul_rn(static_cast<float>(keys[(size_t)gn * d + gc]), row_scale[r]);
+          } else {
+            v = to_f32(keys[(size_t)gn * d + gc]);
+          }
+        }
+        ks[c * (BN + 1) + r] = v;
       }
       __syncthreads();
       // the sum runs in two levels, within a 32-dim tile and then across
@@ -247,6 +280,7 @@ cosine_topk_merge(const float* __restrict__ part_s, const int* __restrict__ part
 struct Args {
   const void* q;
   const void* keys;
+  const void* scales;
   const void* valid;
   const void* starts;
   const void* sizes;
@@ -259,12 +293,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename KT, int MS>
+template <typename KT, int MS, int SS>
 cudaError_t launch(const Args& a) {
   const dim3 grid(a.chunks, (a.B + BQ - 1) / BQ);
-  cosine_topk_partial<KT, MS><<<grid, NT, 0, a.stream>>>(
+  cosine_topk_partial<KT, MS, SS><<<grid, NT, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
-      static_cast<const uint8_t*>(a.valid), static_cast<const int*>(a.starts),
+      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid), static_cast<const int*>(a.starts),
       static_cast<const int*>(a.sizes), static_cast<const uint8_t*>(a.mask), a.B, a.N,
       a.d, a.k, a.keys_per_chunk, static_cast<float*>(a.part_s),
       static_cast<int*>(a.part_i));
@@ -276,23 +310,33 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// key_dtype: 0 = float32, 1 = bfloat16, 2 = int8
+bool bad_split(const Args& a) {
+  return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.keys_per_chunk < 1 ||
+         a.chunks < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
+         (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N;
+}
+
+// key_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (scaled by 1/127)
 template <int MS>
 int dispatch(int key_dtype, const Args& a) {
-  if (a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.keys_per_chunk < 1 ||
-      a.chunks < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
-      (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_split(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (key_dtype) {
     case 0:
-      return launch<float, MS>(a);
+      return launch<float, MS, TYPE_SCALE>(a);
     case 1:
-      return launch<__nv_bfloat16, MS>(a);
+      return launch<__nv_bfloat16, MS, TYPE_SCALE>(a);
     case 2:
-      return launch<int8_t, MS>(a);
+      return launch<int8_t, MS, TYPE_SCALE>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// int8 keys with per-row (N,) f32 scales
+template <int MS>
+int dispatch_quant(const Args& a) {
+  if (bad_split(a) || a.scales == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<int8_t, MS, ROW_SCALE>(a);
 }
 
 }  // namespace
@@ -307,8 +351,9 @@ extern "C" {
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,
                        int B, int N, int d, int k, int keys_per_chunk, int chunks,
                        void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, valid, nullptr, nullptr, nullptr, B, N, d, k, keys_per_chunk,
-               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
   return dispatch<SHARED_MASK>(key_dtype, a);
 }
 
@@ -319,8 +364,9 @@ int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
                                 int B, int N, int d, int k, int keys_per_chunk, int chunks,
                                 void* part_s, void* part_i, void* out_s, void* out_i,
                                 void* stream) {
-  const Args a{q, keys, valid, starts, sizes, nullptr, B, N, d, k, keys_per_chunk,
-               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  const Args a{q, keys, nullptr, valid, starts, sizes, nullptr, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
   return dispatch<INTERVAL_MASK>(key_dtype, a);
 }
 
@@ -329,9 +375,44 @@ int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
                               const void* mask, int B, int N, int d, int k,
                               int keys_per_chunk, int chunks, void* part_s, void* part_i,
                               void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, nullptr, nullptr, nullptr, mask, B, N, d, k, keys_per_chunk,
-               chunks, part_s, part_i, out_s, out_i, static_cast<cudaStream_t>(stream)};
+  const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
   return dispatch<DENSE_MASK>(key_dtype, a);
+}
+
+// The per-row-scale forms: keys (N, d) int8, scales (N,) f32; otherwise as
+// the three above.
+int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales,
+                             const void* valid, int B, int N, int d, int k,
+                             int keys_per_chunk, int chunks, void* part_s, void* part_i,
+                             void* out_s, void* out_i, void* stream) {
+  const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_quant<SHARED_MASK>(a);
+}
+
+int quant_cosine_topk_interval_launch(const void* q, const void* keys, const void* scales,
+                                      const void* valid, const void* starts,
+                                      const void* sizes, int B, int N, int d, int k,
+                                      int keys_per_chunk, int chunks, void* part_s,
+                                      void* part_i, void* out_s, void* out_i,
+                                      void* stream) {
+  const Args a{q, keys, scales, valid, starts, sizes, nullptr, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_quant<INTERVAL_MASK>(a);
+}
+
+int quant_cosine_topk_masked_launch(const void* q, const void* keys, const void* scales,
+                                    const void* mask, int B, int N, int d, int k,
+                                    int keys_per_chunk, int chunks, void* part_s,
+                                    void* part_i, void* out_s, void* out_i, void* stream) {
+  const Args a{q, keys, scales, nullptr, nullptr, nullptr, mask, B, N, d, k,
+               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_quant<DENSE_MASK>(a);
 }
 
 const char* cosine_topk_error_string(int err) {

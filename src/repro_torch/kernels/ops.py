@@ -8,6 +8,10 @@ Per-row visibility dispatches as in the JAX package:
   * ``valid`` (N,)    -> the shared-mask kernel (single-tenant path);
   * interval operands -> the interval kernel, O(B) operands (tenancy);
   * ``valid`` (B, N)  -> the dense-mask kernel (general per-row masks).
+``quant_cosine_topk`` dispatches an int8 slab with per-row scales
+(``cosine_topk.quantize_keys``) by ``valid`` the same way; its interval
+form has no dispatch here, as in the JAX ``ops``, and is called as
+``cosine_topk.quant_cosine_topk_interval_cuda``.
 
 ``ivf_topk`` dispatches the IVF candidate kernel the same way, with the
 ``backend`` override of ``IVFIndex``; ``flash_attention`` (prefill) and
@@ -23,9 +27,13 @@ from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.cosine_topk import (check_args, check_interval_args,
                                              check_masked_args,
+                                             check_quant_args,
+                                             check_quant_masked_args,
                                              cosine_topk_cuda,
                                              cosine_topk_interval_cuda,
-                                             cosine_topk_masked_cuda)
+                                             cosine_topk_masked_cuda,
+                                             quant_cosine_topk_cuda,
+                                             quant_cosine_topk_masked_cuda)
 from repro_torch.kernels.ivf_topk import check_args as check_ivf_args
 from repro_torch.kernels.ivf_topk import ivf_topk_cuda
 
@@ -60,6 +68,24 @@ def cosine_topk_interval(queries: torch.Tensor, keys: torch.Tensor,
     check_interval_args(queries, keys, valid, starts, sizes, k)
     return ref.cosine_topk_interval_ref(queries, keys, valid, starts, sizes,
                                         k)
+
+
+def quant_cosine_topk(queries: torch.Tensor, keys_q: torch.Tensor,
+                      scales: torch.Tensor, valid: torch.Tensor, *, k: int = 4
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked cosine top-k over int8 ``keys_q`` with per-row (N,) f32
+    ``scales``; ``valid`` is (N,) shared or (B, N) per row."""
+    masked = valid.dim() == 2
+    if queries.device.type == "cuda":
+        if masked:
+            return quant_cosine_topk_masked_cuda(queries, keys_q, scales,
+                                                 valid, k)
+        return quant_cosine_topk_cuda(queries, keys_q, scales, valid, k)
+    if masked:
+        check_quant_masked_args(queries, keys_q, scales, valid, k)
+    else:
+        check_quant_args(queries, keys_q, scales, valid, k)
+    return ref.quant_cosine_topk_ref(queries, keys_q, scales, valid, k)
 
 
 def ivf_topk(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (PyTorch port of
-``repro.kernels.ref``): the cosine top-k in its three mask forms, the IVF
+``repro.kernels.ref``): the cosine top-k in its three mask forms, each
+also over an int8 slab with per-row scales, the IVF
 candidate top-k, and the two attention kernels of the model-backed miss
 path (prefill flash attention and single-token decode attention).
 
@@ -37,6 +38,16 @@ def cosine_topk_ref(queries: torch.Tensor, keys: torch.Tensor,
     return vals, idx.to(torch.int32)
 
 
+def quant_cosine_topk_ref(queries: torch.Tensor, keys_q: torch.Tensor,
+                          scales: torch.Tensor, valid: torch.Tensor, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the per-row-scale kernels: int8 ``keys_q`` (N, d)
+    times their (N,) f32 ``scales`` (a product, as the Pallas kernel
+    dequantizes), then ``cosine_topk_ref``; ``valid`` is (N,) or (B, N)."""
+    keys = keys_q.to(torch.float32) * scales[:, None]
+    return cosine_topk_ref(queries, keys, valid, k)
+
+
 def interval_mask(starts: torch.Tensor, sizes: torch.Tensor, n: int
                   ) -> torch.Tensor:
     """(B,) interval operands -> (B, N) bool visibility mask: row ``b`` sees
@@ -55,6 +66,16 @@ def cosine_topk_interval_ref(queries: torch.Tensor, keys: torch.Tensor,
     top-k. Rows with ``sizes[b] == 0`` return (-inf, -1)."""
     mask = valid[None, :] & interval_mask(starts, sizes, keys.shape[0])
     return cosine_topk_ref(queries, keys, mask, k)
+
+
+def quant_cosine_topk_interval_ref(queries: torch.Tensor, keys_q: torch.Tensor,
+                                   scales: torch.Tensor, valid: torch.Tensor,
+                                   starts: torch.Tensor, sizes: torch.Tensor,
+                                   k: int
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_topk_interval_ref`` over a per-row-scale int8 slab."""
+    keys = keys_q.to(torch.float32) * scales[:, None]
+    return cosine_topk_interval_ref(queries, keys, valid, starts, sizes, k)
 
 
 _IVF_ROWS_PER_CHUNK = 1 << 16   # slab rows gathered at a time (100 MB f32)

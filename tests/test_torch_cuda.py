@@ -1,6 +1,7 @@
 """The port on the card: the CUDA cosine top-k kernels (shared mask, per-row
 interval, dense per-row mask; k up to the IVF probe's 16 and past it) and
-the IVF candidate top-k against their plain PyTorch versions, and the serve
+the IVF candidate top-k against their plain PyTorch versions, the three
+per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
 the same loop on the CPU; the prefill flash-attention and decode-attention
 kernels against their plain versions, their wrappers' refusals, and the
@@ -238,6 +239,69 @@ def test_cuda_per_row_kernels_match_plain_versions(cuda_device, b, n, d, k,
         assert torch.equal(ki.cpu(), ri)
     empty = sizes == 0
     assert bool(torch.all(ki.cpu()[torch.from_numpy(empty)] == -1))
+    for r, want in enumerate(ties):
+        assert ki[r, :len(want)].cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16384, 384), (1000, 1536)])
+def test_cuda_quantize_keys_is_bitwise_the_cpu(cuda_device, shape):
+    keys = np.random.default_rng(shape[0]).standard_normal(shape).astype(
+        np.float32)
+    keys[7] = 0.0
+    cq, cs = kmod.quantize_keys(torch.from_numpy(keys).to(cuda_device))
+    hq, hs = kmod.quantize_keys(torch.from_numpy(keys))
+    assert torch.equal(cq.cpu(), hq)
+    assert torch.equal(cs.cpu().view(torch.int32), hs.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k,mask",
+                         CASES + [(70, 16383, 1536, 32, "random")])
+def test_cuda_quant_kernel_matches_plain_version(cuda_device, b, n, d, k,
+                                                 mask):
+    q, keys, valid, ties = make_inputs(b, n, d, "f32", mask, k, seed=n + k)
+    kq, sc = kmod.quantize_keys(torch.from_numpy(keys).to(cuda_device))
+    qt = torch.from_numpy(q).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    before = kmod.launches["quant_cosine_topk"]
+    ks, ki = ops.quant_cosine_topk(qt, kq, sc, vt, k=k)
+    assert kmod.launches["quant_cosine_topk"] == before + 1
+    rs, ri = tref.quant_cosine_topk_ref(qt.cpu(), kq.cpu(), sc.cpu(),
+                                        vt.cpu(), k)
+    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=1e-5)
+    assert torch.equal(ki.cpu(), ri)
+    if mask != "none":
+        m = min(k, 3, int(valid.sum()))
+        assert ki[0, :m].cpu().tolist() == ties[:m].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["interval", "masked"])
+@pytest.mark.parametrize("b,n,d,k", INTERVAL_CASES + [(7, 1000, 1536, 16)])
+def test_cuda_quant_per_row_kernels_match_plain_versions(cuda_device, b, n,
+                                                         d, k, variant):
+    q, keys, valid, starts, sizes, mask, ties = make_interval_inputs(
+        b, n, d, "f32", k, seed=b + n + k)
+    dev = cuda_device
+    qt = torch.from_numpy(q).to(dev)
+    kq, sc = kmod.quantize_keys(torch.from_numpy(keys).to(dev))
+    name = f"quant_cosine_topk_{variant}"
+    before = kmod.launches[name]
+    if variant == "interval":
+        ops_ = [torch.from_numpy(x).to(dev) for x in (valid, starts, sizes)]
+        ks, ki = kmod.quant_cosine_topk_interval_cuda(qt, kq, sc, *ops_, k)
+        rs, ri = tref.quant_cosine_topk_interval_ref(
+            qt.cpu(), kq.cpu(), sc.cpu(), *[x.cpu() for x in ops_], k)
+    else:
+        mt = torch.from_numpy(mask).to(dev)
+        ks, ki = ops.quant_cosine_topk(qt, kq, sc, mt, k=k)
+        rs, ri = tref.quant_cosine_topk_ref(qt.cpu(), kq.cpu(), sc.cpu(),
+                                            mt.cpu(), k)
+    assert kmod.launches[name] == before + 1
+    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=1e-5)
+    assert torch.equal(ki.cpu(), ri)
+    assert bool(torch.all(ki.cpu()[torch.from_numpy(sizes == 0)] == -1))
     for r, want in enumerate(ties):
         assert ki[r, :len(want)].cpu().tolist() == want.tolist()
 

@@ -57,6 +57,13 @@ def test_model_slice_files_are_checked():
     assert len([n for n in names if n.startswith("configs/")]) == 12
 
 
+def test_quant_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"kernels/cosine_topk.py", "kernels/ops.py", "kernels/ref.py",
+            "kernels/build.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -73,6 +80,12 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
         "from repro_torch.serving import ModelBackend\n"
+        "from repro_torch.kernels.cosine_topk import (quantize_keys,\n"
+        "    quant_cosine_topk_cuda, quant_cosine_topk_interval_cuda,\n"
+        "    quant_cosine_topk_masked_cuda)\n"
+        "from repro_torch.kernels.ops import quant_cosine_topk\n"
+        "from repro_torch.kernels.ref import (quant_cosine_topk_ref,\n"
+        "    quant_cosine_topk_interval_ref)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

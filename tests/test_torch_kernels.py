@@ -261,6 +261,8 @@ def test_interval_wrapper_refuses_bad_intervals(bad):
 def test_launch_counters_are_per_kernel():
     kmod.launches["cosine_topk_interval"] += 3
     assert set(kmod.launches) == {"cosine_topk", "cosine_topk_interval",
-                                  "cosine_topk_masked"}
+                                  "cosine_topk_masked", "quant_cosine_topk",
+                                  "quant_cosine_topk_interval",
+                                  "quant_cosine_topk_masked"}
     kmod.reset_launches()
     assert kmod.launches == dict.fromkeys(kmod.launches, 0)
