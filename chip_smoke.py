@@ -10,10 +10,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
   card      the card's name and power limit; f32 products must not use TF32
   build     nvcc of every kernel source for sm_90a, with -Xptxas -v
   kernel    each CUDA kernel (shared-mask, per-row interval and dense-mask
-            cosine top-k, k up to the IVF probe's 16 and past it, each also
-            over an int8 slab with per-row scales; the IVF candidate top-k on
-            a real candidate matrix, all-visible, all-empty, ragged and
-            planted-tie cases) against its plain PyTorch version on the card;
+            cosine top-k, k up to the IVF probe's 16 and past it, small
+            slabs of 1 to 1,000 keys through the 4-row query tiles, k past
+            N, each also over an int8 slab with per-row scales; the IVF
+            candidate top-k on a real candidate matrix, all-visible,
+            all-empty, ragged and planted-tie cases) against its plain
+            PyTorch version on the card;
             ``quantize_keys`` on the card against the CPU, bitwise
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
@@ -36,11 +38,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
             the plain versions, with the hit decisions that differ from the
             f32 search of the same slab counted
   timing    each kernel, its plain version and one PyTorch call computing
-            the same function, timed in turns with CUDA events
+            the same function, timed in turns with CUDA events; the IVF
+            probe's split and its kernel launches per call (one)
   model     the model-backed miss path (``launch.serve --backend model``):
             the flash-attention and decode-attention kernels against their
             plain versions (causal and windowed, GQA 1-8, D 64/128, ragged
-            lengths, Lk > Lq; f32, bf16 and int8 KV, window with sinks,
+            lengths, Lk > Lq, the serve shape, four KV tiles; f32, bf16
+            and int8 KV, window with sinks,
             rings with empty slots, rows that see nothing); the main
             configuration served with full-width yi-6b (launches per batch
             with misses, finite logits, Table 1 hits equal to the main
@@ -149,10 +153,17 @@ def _compare(torch, ks, ki, rs1, ri1, k, tol, where, tie_rows):
     """Hold a kernel's (scores, ids) against its plain version's top-(k+1)
     (one entry more, for the gap past the kernel's last entry). Returns the
     max abs score error over the finite entries. ``tie_rows`` maps a row to
-    the slot ids its planted ties must resolve to, in order."""
+    the slot ids its planted ties must resolve to, in order. The plain
+    version returns min(k+1, N) entries; past N the kernel's must be
+    (-inf, -1)."""
     torch.cuda.synchronize()
     ks, ki, rs1, ri1 = (x.cpu() for x in (ks, ki, rs1, ri1))
     b = ks.shape[0]
+    if rs1.shape[1] < k + 1:
+        pad = k + 1 - rs1.shape[1]
+        rs1 = torch.cat([rs1, torch.full((b, pad), -math.inf)], dim=1)
+        ri1 = torch.cat([ri1, torch.full((b, pad), -1, dtype=ri1.dtype)],
+                        dim=1)
     rs, ri = rs1[:, :k], ri1[:, :k]
     if ks.shape != (b, k) or ki.shape != (b, k):
         fail(f"kernel output shape {tuple(ks.shape)} at {where}")
@@ -194,25 +205,27 @@ def _kernel_case(torch, dtype, b, n, d, k, mask, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     quant = dtype == "quant"
     keys = _make_keys(torch, gen, n, d, "f32" if quant else dtype)
-    # planted exact ties: three equal copies of one key row, at slots
-    # t0 < t1 < t2, and the first query rows are that row itself
-    t0, t1, t2 = n // 5, n // 2, n - 1
-    keys[t1] = keys[t0]
-    keys[t2] = keys[t0]
+    # planted exact ties: equal copies of one key row at slots t0 < t1 < t2
+    # (fewer where N < 3), and the first query rows are that row itself
+    tie_slots = sorted({n // 5, n // 2, n - 1})
+    t0 = tie_slots[0]
+    for t in tie_slots[1:]:
+        keys[t] = keys[t0]
     q = torch.randn((b, d), generator=gen, device="cuda")
     n_tie_rows = min(b, 3)
     q[:n_tie_rows] = _as_f32(torch, keys[t0])
     q = q / q.norm(dim=1, keepdim=True)
-    ties = torch.tensor([t0, t1, t2], device="cuda")
+    ties = torch.tensor(tie_slots, device="cuda")
     if mask == "all":
         valid = torch.ones(n, dtype=torch.bool, device="cuda")
     elif mask == "none":
         valid = torch.zeros(n, dtype=torch.bool, device="cuda")
     elif mask == "few":
-        # k - 1 visible slots: the three ties and k - 4 others
+        # k - 1 visible slots where N allows: the ties and other slots
         valid = torch.zeros(n, dtype=torch.bool, device="cuda")
         others = torch.randperm(n, generator=gen, device="cuda")[:k + 3]
-        valid[others[~torch.isin(others, ties)][:k - 4]] = True
+        valid[others[~torch.isin(others, ties)][:max(k - 1 - len(ties), 0)]
+              ] = True
     else:
         valid = torch.rand(n, generator=gen, device="cuda") < 0.7
     if mask != "none":
@@ -224,7 +237,7 @@ def _kernel_case(torch, dtype, b, n, d, k, mask, seed):
     rs1, ri1 = getattr(ref, f"{prefix}cosine_topk_ref")(q, *slab, valid,
                                                        k + 1)
     tie_rows = {} if mask == "none" else \
-        {r: [t0, t1, t2] for r in range(n_tie_rows)}
+        {r: tie_slots for r in range(n_tie_rows)}
     return _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype],
                     f"{dtype} B={b} N={n} d={d} k={k} mask={mask}", tie_rows)
 
@@ -323,6 +336,20 @@ def phase_kernel(torch) -> dict:
         (128, 128, 384, 16, "all"),        # the IVF serve probe
         (128, 16384, 384, 16, "random"),
         (7, 1000, 384, 32, "few"),
+        # small N, where the split takes 4-row query tiles: one chunk (N <=
+        # 128, no merge) or several; k past N; planted ties wherever N >= 3
+        (1, 1, 384, 1, "random"),
+        (7, 1, 384, 16, "random"),
+        (200, 31, 384, 16, "few"),
+        (7, 31, 384, 32, "random"),
+        (1, 128, 384, 16, "random"),
+        (200, 128, 384, 16, "random"),
+        (128, 128, 384, 16, "few"),
+        (7, 129, 384, 32, "random"),
+        (200, 129, 384, 1, "random"),
+        (1, 1000, 384, 32, "few"),
+        (200, 1000, 384, 16, "random"),
+        (7, 1000, 1536, 1, "random"),
     ]
     per_row_cases = [  # (B, N, d, k, interval layout)
         (128, 65536, 384, 4, "regions"),    # the tenancy path's shape
@@ -1132,30 +1159,63 @@ def phase_timing(torch, card: str) -> dict:
             emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
                  regions=TENANTS, card=card, **row)
 
-    # the IVF probe: the cosine kernel over the 128 centroids at k=16
+    out.update(_probe_timing(torch, card))
+    out.update(_ivf_timing(torch, card))
+    return out
+
+
+def _device_kernels(torch, fn) -> dict:
+    """The card's kernel launches of one call of ``fn``, by name, from
+    ``torch.profiler`` (empty if the profiler saw none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _probe_timing(torch, card: str) -> dict:
+    """The IVF probe: the cosine kernel over the 128 centroids at k=16, its
+    split, and the kernels one call launches on the card (one: pass 1 of
+    4-row tiles, no merge)."""
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.kernels import ref
+    b, d, n, k = 128, 384, 128, 16
     gen = torch.Generator(device="cuda").manual_seed(13)
-    cents = _make_keys(torch, gen, 128, d, "f32")
+    cents = _make_keys(torch, gen, n, d, "f32")
     q = torch.randn((b, d), generator=gen, device="cuda")
     q = q / q.norm(dim=1, keepdim=True)
-    always = torch.ones(128, dtype=torch.bool, device="cuda")
+    always = torch.ones(n, dtype=torch.bool, device="cuda")
+
     def probe():
-        return kmod.cosine_topk_cuda(q, cents, always, 16)
+        return kmod.cosine_topk_cuda(q, cents, always, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_chunk, chunks, block_q = kmod.split(b, n, sms)
+    split = {"keys_per_chunk": per_chunk, "chunks": chunks,
+             "block_q": block_q, "blocks": chunks * -(-b // block_q)}
+    on_card = _device_kernels(torch, probe)
+    if on_card and sum(on_card.values()) != 1:
+        fail(f"the IVF probe launched {on_card} on the card, not one kernel")
     ms, times = _time_turns(torch, {
         "kernel": probe,
-        "plain": lambda: ref.cosine_topk_ref(q, cents, always, 16),
-        "library": lambda: torch.topk(q @ cents.T, 16)}, 200)
-    bound = _bound(2.0 * b * 128 * d,
-                   b * d * 4 + 128 * d * 4 + 128 + b * 16 * 8)
+        "plain": lambda: ref.cosine_topk_ref(q, cents, always, k),
+        "library": lambda: torch.topk(q @ cents.T, k)}, 200)
+    bound = _bound(2.0 * b * n * d, b * d * 4 + n * d * 4 + n + b * k * 8)
     graph_ms = _time_graph(torch, probe, 200)
     row = {"kernel_ms": ms["kernel"], "graph_ms": graph_ms,
            "plain_ms": ms["plain"], "library_ms": ms["library"],
            "runs_ms": times, **bound,
-           "share_of_bound": bound["bound_ms"] / graph_ms}
-    out[("cosine_topk_probe", 128, "f32")] = row
-    emit("timing", kernel="cosine_topk", role="IVF probe", B=b, N=128, d=d,
-         k=16, key_dtype="f32", card=card, **row)
-    out.update(_ivf_timing(torch, card))
-    return out
+           "share_of_bound": bound["bound_ms"] / graph_ms, "split": split,
+           "device_kernels_per_call": on_card or
+           "not measured: the profiler saw no kernel"}
+    emit("timing", kernel="cosine_topk", role="IVF probe", B=b, N=n, d=d,
+         k=k, key_dtype="f32", card=card, **row)
+    return {("cosine_topk_probe", n, "f32"): row}
 
 
 def _ivf_timing(torch, card: str) -> dict:
@@ -1268,6 +1328,8 @@ def _flash_cases(torch) -> float:
         (1, 256, 256, 16, 2, 64, 64),      # window, G=8
         (2, 64, 256, 8, 2, 128, None),     # Lk > Lq
         (2, 100, 256, 8, 1, 64, 80),       # Lk > Lq, ragged, window
+        (39, 64, 64, 32, 4, 128, None),    # the serve shape at B=39
+        (3, 200, 200, 16, 2, 128, None),   # four KV tiles, a ragged tail
     ]
     worst = 0.0
     torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}

@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""A/B of the bf16 flash-attention kernel against variants of itself, on
+one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with an H100 and the CUDA
+toolkit:
+
+    python3 flash_variants.py
+
+Each variant is ``src/repro_torch/kernels/csrc/flash_attention.cu`` with one
+design choice undone by a text edit (the exponential, the normalization,
+the visibility test, the blocks an SM), built with ``nvcc`` into
+``build/flash_variants/``, held against the plain version at the serve
+shape and on four other shapes, and timed from CUDA graphs at the serve
+shape (B=39, L=64 causal, H=32, HKV=4, D=128) in turns with
+``scaled_dot_product_attention``. Prints one JSON line per variant and the
+card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+OUT = ROOT / "build" / "flash_variants"
+
+EXP = ("__expf(m[r] - m_new)", "__expf(x - m_new)")
+NORM = {"o[j][0] * inv0, o[j][1] * inv0":
+        "o[j][0] / fmaxf(l[0], 1e-30f), o[j][1] / fmaxf(l[0], 1e-30f)",
+        "o[j][2] * inv1, o[j][3] * inv1":
+        "o[j][2] / fmaxf(l[1], 1e-30f), o[j][3] / fmaxf(l[1], 1e-30f)"}
+MASK_ROW = """      // key k0 + 2 tig + kr is visible when lo <= kr <= hi
+      const int hi = min(a.Lk - 1, a.causal ? qp : a.Lk) - k0 - 2 * tig;
+      const int lo = a.window > 0 ? qp - a.window + 1 - k0 - 2 * tig : -BK;
+"""
+MASK_ELEM = """          const int kr = 8 * j + e;
+          const bool vis = j < n_live && kr <= hi && kr >= lo;
+"""
+MASK_ELEM_PLAIN = """          const int kp = k0 + 8 * j + 2 * tig + e;
+          bool vis = j < n_live && kp < a.Lk;
+          if (a.causal) vis = vis && kp <= qp;
+          if (a.window > 0) vis = vis && kp > qp - a.window;
+"""
+BLOCKS = "constexpr int TC_MIN_BLOCKS = 3;"
+
+
+def variants(src: str) -> dict[str, str]:
+    """The source and each variant of it: one design choice undone."""
+    for text in EXP + tuple(NORM) + (MASK_ROW, MASK_ELEM, BLOCKS):
+        if text not in src:
+            raise SystemExit(f"flash_attention.cu no longer holds {text!r}")
+    division = src
+    for text, by in NORM.items():
+        division = division.replace(text, by)
+    exact = src
+    for text in EXP:
+        exact = exact.replace(text, text.replace("__expf", "expf"))
+    return {
+        "kernel": src,
+        "exact_expf": exact,
+        "division": division,
+        "per_element_mask": src.replace(MASK_ROW, "").replace(
+            MASK_ELEM, MASK_ELEM_PLAIN),
+        "four_blocks_an_sm": src.replace(BLOCKS,
+                                         "constexpr int TC_MIN_BLOCKS = 4;"),
+        "two_blocks_an_sm": src.replace(BLOCKS,
+                                        "constexpr int TC_MIN_BLOCKS = 2;"),
+    }
+
+
+def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """One nvcc each, all at once; returns each library and the -Xptxas -v
+    lines of its D=128 bf16 kernel."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        cu = OUT / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", "-gencode",
+             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+             "-o", str(OUT / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log[-3000:]}")
+        lines = log.splitlines()
+        at = [i for i, line in enumerate(lines)
+              if "bf16_kernelILi128" in line and "properties" in line]
+        ptxas = " | ".join(x.strip() for x in lines[at[0] + 1:at[0] + 3]) \
+            if at else ""
+        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [
+            ctypes.c_float, p]
+        lib.flash_attention_launch.restype = ctypes.c_int
+        libs[name] = (lib, ptxas)
+    return libs
+
+
+def main() -> None:
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import ref
+
+    card = cs.nvidia_smi()
+    libs = build(variants((CSRC / "flash_attention.cu").read_text()))
+    gen = torch.Generator(device="cuda").manual_seed(47)
+
+    def call(lib, q, k, v, window=None):
+        out = torch.empty_like(q)
+        b, lq, h, d = q.shape
+        lk, hkv = k.shape[1], k.shape[2]
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
+            lq, lk, h, hkv, d, 1, -1 if window is None else window,
+            1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"flash_variants: launch failed ({err})")
+        return out
+
+    shapes = [(39, 64, 64, 32, 4, 128, None), (2, 100, 100, 8, 8, 64, None),
+              (2, 256, 256, 8, 2, 128, 100), (2, 100, 256, 8, 1, 64, 80),
+              (3, 200, 200, 16, 2, 128, None)]
+    operands = []
+    for b, lq, lk, h, hkv, d, window in shapes:
+        q, k, v = cs._attn_inputs(torch, gen, ((b, lq, h, d), (b, lk, hkv, d),
+                                               (b, lk, hkv, d)),
+                                  torch.bfloat16)
+        operands.append((q, k, v, window,
+                         ref.flash_attention_ref(q, k, v, window=window)))
+    errs = {}
+    for name, (lib, _) in libs.items():
+        errs[name] = max(cs._attn_err(torch, call(lib, q, k, v, window), want,
+                                      "bf16", f"{name} {shape}")
+                         for (q, k, v, window, want), shape
+                         in zip(operands, shapes))
+
+    q, k, v, _, _ = operands[0]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {name: (lambda lib=lib: call(lib, q, k, v))
+           for name, (lib, _) in libs.items()}
+    fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    times = {name: [] for name in fns}
+    for turn in range(4):
+        for name in list(fns)[::1 if turn % 2 == 0 else -1]:
+            times[name].append(cs._time_graph(torch, fns[name], 200))
+    for name, runs in times.items():
+        print(json.dumps({"variant": name, "graph_ms": min(runs),
+                          "runs_ms": runs, "max_abs_err": errs.get(name),
+                          "ptxas": libs[name][1] if name in libs else None,
+                          "card": card}), flush=True)
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,10 +21,11 @@ k=4). Returns (scores (B, k) f32 sorted descending, slot ids (B, k)
 int32), ties to the lowest visible slot id, (-inf, -1) where fewer than k
 slots are visible.
 
-Each wrapper checks its arguments, allocates the outputs and the pass-1
-scratch with ``torch.empty``, launches both passes on the current stream
-without synchronizing, raises if a launch was refused, and counts its
-launches in ``launches[name]``. The interval wrapper reads its (B,) operands
+Each wrapper checks its arguments, allocates the outputs and, when pass 1
+runs over more than one chunk, its scratch with ``torch.empty``, launches on
+the current stream without synchronizing (pass 2 only to merge chunks),
+raises if a launch was refused, and counts its launches in
+``launches[name]``. The interval wrapper reads its (B,) operands
 back once to check ``starts + sizes <= N`` (one host sync per call). They
 take CUDA tensors only: ``ops`` sends CPU tensors to the plain versions.
 """
@@ -44,7 +45,8 @@ launches = {"cosine_topk": 0, "cosine_topk_interval": 0,
             "quant_cosine_topk_interval": 0, "quant_cosine_topk_masked": 0}
 
 MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
-BLOCK_Q = 64    # query rows per block of pass 1 (BQ in the source)
+BLOCK_Q = 64    # query rows per wide block of pass 1 (BQ_WIDE in the source)
+BLOCK_Q_NARROW = 4   # one warp per query row (BQ_NARROW in the source)
 BLOCK_N = 128   # keys per tile of pass 1 (BN in the source)
 BLOCKS_PER_SM = 4
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -182,21 +184,26 @@ def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
     _check_scales(keys, scales)
 
 
-def split(b: int, n: int, num_sms: int) -> tuple[int, int]:
-    """(keys per chunk, chunks) of pass 1: whole 128-key tiles per chunk,
-    as few as give about ``BLOCKS_PER_SM`` blocks per SM."""
-    q_tiles = -(-b // BLOCK_Q)
+def split(b: int, n: int, num_sms: int) -> tuple[int, int, int]:
+    """(keys per chunk, chunks, query rows per block) of pass 1: 64-row
+    query tiles, or 4-row ones where 64-row tiles over one 128-key tile each
+    would still give fewer blocks than SMs (the IVF probe: 128 queries over
+    128 centroids); then whole 128-key tiles per chunk, as few as give
+    about ``BLOCKS_PER_SM`` blocks per SM."""
     n_tiles = -(-n // BLOCK_N)
+    block_q = BLOCK_Q if -(-b // BLOCK_Q) * n_tiles >= num_sms \
+        else BLOCK_Q_NARROW
+    q_tiles = -(-b // block_q)
     want = max(1, -(-BLOCKS_PER_SM * num_sms // q_tiles))
     per_chunk = -(-n_tiles // want) * BLOCK_N
-    return per_chunk, -(-n // per_chunk)
+    return per_chunk, -(-n // per_chunk), block_q
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("cosine_topk")
     if lib.cosine_topk_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i, i, i, i, i, i, p, p, p, p, p]   # B N d k kpc chunks ...
+        tail = [i] * 7 + [p] * 5   # B N d k kpc chunks block_q, outputs
         lib.cosine_topk_launch.argtypes = [p, p, i, p] + tail
         lib.cosine_topk_interval_launch.argtypes = [p, p, i, p, p, p] + tail
         lib.cosine_topk_masked_launch.argtypes = [p, p, i, p] + tail
@@ -227,9 +234,12 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     b, d = queries.shape
     n = keys.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_chunk, chunks = split(b, n, sms)
-    part_s = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
+    per_chunk, chunks, block_q = split(b, n, sms)
+    # one chunk: pass 1 writes the output and pass 2 is not launched
+    part_s = part_i = None
+    if chunks > 1:
+        part_s = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     entry = getattr(lib, f"{name}_launch")
@@ -239,7 +249,8 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
         err = entry(
             queries.data_ptr(), keys.data_ptr(), scale_source,
             *(m.data_ptr() for m in masks), b, n, d, k, per_chunk, chunks,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            block_q, None if part_s is None else part_s.data_ptr(),
+            None if part_i is None else part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "

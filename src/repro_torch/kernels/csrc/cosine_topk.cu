@@ -38,24 +38,36 @@
 //
 // Design. The TPU kernel carries a running top-k across a sequential grid;
 // CUDA blocks run in no order, so this is two passes.
-//   Pass 1, grid (N-chunks, query tiles of 64 rows). A block streams its
-//     chunk in tiles of 128 keys x 32 dims through shared memory, converting
-//     the keys to f32 as they are loaded. Each thread accumulates a 4 x 8 tile
-//     of scores with FMAs over d in a fixed order (per 32-dim tile, then
-//     across tiles), so two equal key rows get bitwise-equal scores and ties
-//     resolve by slot id alone. Each 64 x 128
-//     score tile is masked by `valid` and offered to one warp-held top-k list
-//     per query row; a list keeps one entry per lane (warp_topk.cuh), so
-//     the IVF probe's k=16 runs the same code, in the same registers, as
-//     the main path's k=4. The block writes its lists to partial
-//     (B, chunks, k).
-//   Pass 2 merges each row's chunks x k candidates, one warp per row.
-// The split gives B=128, N=16384 a grid of 128 chunks x 2 tiles = 256 blocks,
-// about two per SM, all resident at once. Left for later work: 12 shared-
-// memory loads per 32 FMAs, loads not overlapped with compute, the query tile
-// reloaded for every key tile, and the merge not fused into pass 1.
+//   Pass 1, grid (N-chunks, query tiles). A block streams its chunk in
+//     tiles of 128 keys x 32 dims through shared memory, converting the keys
+//     to f32 as they are loaded. Each thread accumulates a patch of scores
+//     with FMAs over d in a fixed order (per 32-dim tile, then across
+//     tiles), so two equal key rows get bitwise-equal scores and ties
+//     resolve by slot id alone. Each score tile is masked by `valid` and
+//     offered to one warp-held top-k list per query row; a list keeps one
+//     entry per lane (warp_topk.cuh), so the IVF probe's k=16 runs the same
+//     code, in the same registers, as the main path's k=4. The block writes
+//     its lists to partial (B, chunks, k), or straight to the output when
+//     there is one chunk.
+//   Pass 2 merges each row's chunks x k candidates, one warp per row; it is
+//     not launched when there is one chunk.
+// The query-tile height is a template parameter of pass 1, chosen by the
+// wrapper's split (kernels/cosine_topk.py):
+//   wide, 64 rows: 256 threads in 16 x 16, a 4 x 8 patch each, 8 rows a
+//     warp in the top-k. The split gives B=128, N=16384 a grid of 128
+//     chunks x 2 tiles = 256 blocks, about two per SM, all resident at once.
+//   narrow, 4 rows: 128 threads, one warp per query row, each lane 4 keys
+//     (lane + 32 j) of its row, the next 32-dim slice of queries and keys
+//     loaded into registers while this one is multiplied. Taken where 64-row
+//     tiles, even at one chunk per 128-key tile, would leave SMs idle: the
+//     IVF probe (B=128 queries over N=128 centroids) gets 32 blocks and one
+//     launch, where 64-row tiles would give it 2 blocks and a merge of one
+//     chunk. The summation order, hence every score bit, is the wide form's.
+// Left for later work, in the wide form: 12 shared-memory loads per 32 FMAs,
+// loads not overlapped with compute, the query tile reloaded for every key
+// tile, and the merge not fused into pass 1.
 //
-// Interval form. A block loads the 64 intervals of its query rows into
+// Interval form. A block loads the intervals of its query rows into
 // shared memory once and skips every 128-key tile that lies outside all of
 // them (the skip is uniform over the block, so it leaves the barriers
 // intact); rows past B get an empty interval. Counting only the visible work,
@@ -73,13 +85,27 @@ namespace {
 
 using namespace warp_topk;
 
-constexpr int BQ = 64;                        // query rows per block
 constexpr int BN = 128;                       // keys per tile
 constexpr int DK = 32;                        // dims per tile
-constexpr int NT = 256;                       // threads per block, 16 x 16
-constexpr int TQ = BQ / 16;                   // query rows per thread
-constexpr int TN = BN / 16;                   // keys per thread
-constexpr int ROWS_PER_WARP = BQ / (NT / 32); // top-k lists per warp
+constexpr int NT = 256;                       // threads of a merge block
+constexpr int BQ_WIDE = 64, BQ_NARROW = 4;    // query rows per pass-1 block
+
+// The thread layout of a pass-1 block of BQ query rows: TY x TX threads,
+// each TQ rows (ty + TY i) x TN keys (tx + TX j) of a score tile.
+template <int BQ>
+struct Tile {
+  static constexpr int NT = BQ >= 16 ? 256 : 32 * BQ;   // narrow: a warp a row
+  static constexpr int TY = BQ >= 16 ? 16 : BQ;
+  static constexpr int TX = NT / TY;
+  static constexpr int TQ = BQ / TY;                     // query rows per thread
+  static constexpr int TN = BN / TX;                     // keys per thread
+  static constexpr int ROWS_PER_WARP = BQ / (NT / 32);   // top-k lists per warp
+  static constexpr int SMEM = BQ * (BN + 1) > DK * (BQ + 1) + DK * (BN + 1)
+                                  ? BQ * (BN + 1)
+                                  : DK * (BQ + 1) + DK * (BN + 1);
+  static_assert(NT >= BN, "one thread per key of a tile loads its scale");
+  static_assert(BQ * DK % NT == 0 && BN * DK % NT == 0, "whole rounds of loads");
+};
 
 // where a score's visibility comes from (template parameter of pass 1)
 enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
@@ -90,18 +116,21 @@ enum ScaleSource { TYPE_SCALE = 0, ROW_SCALE = 1 };
 // scales: (N,) f32 (ROW_SCALE); valid: (N,) bytes (SHARED_MASK,
 // INTERVAL_MASK); starts/sizes: (B,) int32 (INTERVAL_MASK); mask: (B, N)
 // bytes (DENSE_MASK). Unused pointers may be null.
-template <typename KT, int MS, int SS>
-__global__ void __launch_bounds__(NT)
+template <typename KT, int MS, int SS, int BQ>
+__global__ void __launch_bounds__(Tile<BQ>::NT)
 cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
                     const float* __restrict__ scales,
                     const uint8_t* __restrict__ valid, const int* __restrict__ starts,
                     const int* __restrict__ sizes, const uint8_t* __restrict__ mask,
                     int B, int N, int d, int k, int keys_per_chunk,
                     float* __restrict__ part_s, int* __restrict__ part_i) {
+  using L = Tile<BQ>;
+  constexpr int NT = L::NT, TX = L::TX, TY = L::TY, TQ = L::TQ, TN = L::TN;
+  constexpr int ROWS_PER_WARP = L::ROWS_PER_WARP;
   // The two input tiles of the d loop and the score tile after it share one
   // buffer: qs [DK][BQ + 1] and ks [DK][BN + 1], then sc [BQ][BN + 1]. The +1
   // keeps the transposed stores free of bank conflicts.
-  __shared__ float smem[BQ * (BN + 1)];
+  __shared__ float smem[L::SMEM];
   // INTERVAL_MASK: row r of the block sees [row_lo[r], row_hi[r])
   __shared__ int row_lo[BQ], row_hi[BQ];
   // ROW_SCALE: the scales of the tile's 128 keys
@@ -111,7 +140,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   float* sc = smem;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tx = tid % TX, ty = tid / TX;
   const int lane = tid & 31, warp = tid >> 5;
   const int chunk = blockIdx.x, chunks = gridDim.x;
   const int q0 = blockIdx.y * BQ;
@@ -161,29 +190,75 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
+    // Narrow tiles hold the next 32-dim slice of queries and keys in
+    // registers, in flight while this one is multiplied: such a block is one
+    // of a few dozen, with no other block on its SM to hide the loads'
+    // latency. Wide tiles load and store each slice in one step.
+    constexpr bool PREFETCH = BQ == BQ_NARROW;
+    constexpr int QL = PREFETCH ? BQ * DK / NT : 1, KL = PREFETCH ? BN * DK / NT : 1;
+    float q_next[QL];
+    KT k_next[KL];
+    auto fetch = [&](int c0) {
+#pragma unroll
+      for (int p = 0; p < QL; ++p) {
+        const int e = tid + p * NT, gr = q0 + e / DK, gc = c0 + e % DK;
+        q_next[p] = (gr < B && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
+      }
+#pragma unroll
+      for (int p = 0; p < KL; ++p) {
+        const int e = tid + p * NT, gn = n0 + e / DK, gc = c0 + e % DK;
+        if (gn < n_end && gc < d) k_next[p] = keys[(size_t)gn * d + gc];
+      }
+    };
+    if constexpr (PREFETCH) fetch(0);
+
     for (int c0 = 0; c0 < d; c0 += DK) {
+      if constexpr (PREFETCH) {
 #pragma unroll
-      for (int p = 0; p < BQ * DK / NT; ++p) {
-        const int e = tid + p * NT, r = e / DK, c = e % DK;
-        const int gr = q0 + r, gc = c0 + c;
-        qs[c * (BQ + 1) + r] = (gr < B && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
-      }
-#pragma unroll
-      for (int p = 0; p < BN * DK / NT; ++p) {
-        const int e = tid + p * NT, r = e / DK, c = e % DK;
-        const int gn = n0 + r, gc = c0 + c;
-        float v = 0.0f;
-        if (gn < n_end && gc < d) {
-          if constexpr (SS == ROW_SCALE) {
-            // a rounded product, never contracted into the FMAs below
-            v = __fmul_rn(static_cast<float>(keys[(size_t)gn * d + gc]), row_scale[r]);
-          } else {
-            v = to_f32(keys[(size_t)gn * d + gc]);
-          }
+        for (int p = 0; p < QL; ++p) {
+          const int e = tid + p * NT;
+          qs[(e % DK) * (BQ + 1) + e / DK] = q_next[p];
         }
-        ks[c * (BN + 1) + r] = v;
+#pragma unroll
+        for (int p = 0; p < KL; ++p) {
+          const int e = tid + p * NT, r = e / DK, c = e % DK;
+          float v = 0.0f;
+          if (n0 + r < n_end && c0 + c < d) {
+            if constexpr (SS == ROW_SCALE) {
+              // a rounded product, never contracted into the FMAs below
+              v = __fmul_rn(static_cast<float>(k_next[p]), row_scale[r]);
+            } else {
+              v = to_f32(k_next[p]);
+            }
+          }
+          ks[c * (BN + 1) + r] = v;
+        }
+        __syncthreads();
+        if (c0 + DK < d) fetch(c0 + DK);
+      } else {
+#pragma unroll
+        for (int p = 0; p < BQ * DK / NT; ++p) {
+          const int e = tid + p * NT, r = e / DK, c = e % DK;
+          const int gr = q0 + r, gc = c0 + c;
+          qs[c * (BQ + 1) + r] = (gr < B && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
+        }
+#pragma unroll
+        for (int p = 0; p < BN * DK / NT; ++p) {
+          const int e = tid + p * NT, r = e / DK, c = e % DK;
+          const int gn = n0 + r, gc = c0 + c;
+          float v = 0.0f;
+          if (gn < n_end && gc < d) {
+            if constexpr (SS == ROW_SCALE) {
+              // a rounded product, never contracted into the FMAs below
+              v = __fmul_rn(static_cast<float>(keys[(size_t)gn * d + gc]), row_scale[r]);
+            } else {
+              v = to_f32(keys[(size_t)gn * d + gc]);
+            }
+          }
+          ks[c * (BN + 1) + r] = v;
+        }
+        __syncthreads();
       }
-      __syncthreads();
       // the sum runs in two levels, within a 32-dim tile and then across
       // tiles: one sequential chain over d rounds with a bias that reaches
       // ~1e-5 at d=1536 on int8 keys, the two levels stay near 2e-7
@@ -196,9 +271,9 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
       for (int c = 0; c < DK; ++c) {
         float a[TQ], b[TN];
 #pragma unroll
-        for (int i = 0; i < TQ; ++i) a[i] = qs[c * (BQ + 1) + ty + 16 * i];
+        for (int i = 0; i < TQ; ++i) a[i] = qs[c * (BQ + 1) + ty + TY * i];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ks[c * (BN + 1) + tx + 16 * j];
+        for (int j = 0; j < TN; ++j) b[j] = ks[c * (BN + 1) + tx + TX * j];
 #pragma unroll
         for (int i = 0; i < TQ; ++i)
 #pragma unroll
@@ -213,10 +288,10 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-      const int r = ty + 16 * i, gr = q0 + r;
+      const int r = ty + TY * i, gr = q0 + r;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const int col = tx + 16 * j, gn = n0 + col;
+        const int col = tx + TX * j, gn = n0 + col;
         bool vis = gn < n_end;
         if (MS == SHARED_MASK) {
           vis = vis && valid[gn];
@@ -285,7 +360,7 @@ struct Args {
   const void* starts;
   const void* sizes;
   const void* mask;
-  int B, N, d, k, keys_per_chunk, chunks;
+  int B, N, d, k, keys_per_chunk, chunks, block_q;
   void* part_s;
   void* part_i;
   void* out_s;
@@ -293,27 +368,38 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename KT, int MS, int SS>
-cudaError_t launch(const Args& a) {
+template <typename KT, int MS, int SS, int BQ>
+cudaError_t launch_tiles(const Args& a) {
+  // one chunk: pass 1's lists are the result, (B, 1, k) is (B, k)
+  const bool single = a.chunks == 1;
   const dim3 grid(a.chunks, (a.B + BQ - 1) / BQ);
-  cosine_topk_partial<KT, MS, SS><<<grid, NT, 0, a.stream>>>(
+  cosine_topk_partial<KT, MS, SS, BQ><<<grid, Tile<BQ>::NT, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
-      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid), static_cast<const int*>(a.starts),
-      static_cast<const int*>(a.sizes), static_cast<const uint8_t*>(a.mask), a.B, a.N,
-      a.d, a.k, a.keys_per_chunk, static_cast<float*>(a.part_s),
-      static_cast<int*>(a.part_i));
+      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid),
+      static_cast<const int*>(a.starts), static_cast<const int*>(a.sizes),
+      static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d, a.k, a.keys_per_chunk,
+      static_cast<float*>(single ? a.out_s : a.part_s),
+      static_cast<int*>(single ? a.out_i : a.part_i));
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || single) return err;
   cosine_topk_merge<<<(a.B + NT / 32 - 1) / (NT / 32), NT, 0, a.stream>>>(
       static_cast<const float*>(a.part_s), static_cast<const int*>(a.part_i), a.B,
       a.chunks, a.k, static_cast<float*>(a.out_s), static_cast<int*>(a.out_i));
   return cudaGetLastError();
 }
 
+template <typename KT, int MS, int SS>
+cudaError_t launch(const Args& a) {
+  return a.block_q == BQ_NARROW ? launch_tiles<KT, MS, SS, BQ_NARROW>(a)
+                                : launch_tiles<KT, MS, SS, BQ_WIDE>(a);
+}
+
 bool bad_split(const Args& a) {
   return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.keys_per_chunk < 1 ||
          a.chunks < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
-         (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N;
+         (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N ||
+         (a.block_q != BQ_WIDE && a.block_q != BQ_NARROW) ||
+         (a.chunks > 1 && (a.part_s == nullptr || a.part_i == nullptr));
 }
 
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (scaled by 1/127)
@@ -345,14 +431,17 @@ extern "C" {
 
 // Each entry point returns the cudaError_t of its launches (0 on success).
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8. part_s/part_i hold
-// B * chunks * k entries; chunks * keys_per_chunk must cover N.
+// B * chunks * k entries, or may be null when chunks == 1; chunks *
+// keys_per_chunk must cover N; block_q is the query-tile height of pass 1,
+// 64 or 4.
 
 // shared (N,) mask
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,
                        int B, int N, int d, int k, int keys_per_chunk, int chunks,
-                       void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
+                       int block_q, void* part_s, void* part_i, void* out_s, void* out_i,
+                       void* stream) {
   const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<SHARED_MASK>(key_dtype, a);
 }
@@ -362,10 +451,10 @@ int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const voi
 int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
                                 const void* valid, const void* starts, const void* sizes,
                                 int B, int N, int d, int k, int keys_per_chunk, int chunks,
-                                void* part_s, void* part_i, void* out_s, void* out_i,
+                                int block_q, void* part_s, void* part_i, void* out_s, void* out_i,
                                 void* stream) {
   const Args a{q, keys, nullptr, valid, starts, sizes, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<INTERVAL_MASK>(key_dtype, a);
 }
@@ -373,10 +462,10 @@ int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
 // dense (B, N) bool mask, row-major
 int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
                               const void* mask, int B, int N, int d, int k,
-                              int keys_per_chunk, int chunks, void* part_s, void* part_i,
-                              void* out_s, void* out_i, void* stream) {
+                              int keys_per_chunk, int chunks, int block_q, void* part_s,
+                              void* part_i, void* out_s, void* out_i, void* stream) {
   const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<DENSE_MASK>(key_dtype, a);
 }
@@ -385,10 +474,10 @@ int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
 // the three above.
 int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales,
                              const void* valid, int B, int N, int d, int k,
-                             int keys_per_chunk, int chunks, void* part_s, void* part_i,
-                             void* out_s, void* out_i, void* stream) {
+                             int keys_per_chunk, int chunks, int block_q, void* part_s,
+                             void* part_i, void* out_s, void* out_i, void* stream) {
   const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<SHARED_MASK>(a);
 }
@@ -396,21 +485,21 @@ int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales
 int quant_cosine_topk_interval_launch(const void* q, const void* keys, const void* scales,
                                       const void* valid, const void* starts,
                                       const void* sizes, int B, int N, int d, int k,
-                                      int keys_per_chunk, int chunks, void* part_s,
+                                      int keys_per_chunk, int chunks, int block_q, void* part_s,
                                       void* part_i, void* out_s, void* out_i,
                                       void* stream) {
   const Args a{q, keys, scales, valid, starts, sizes, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<INTERVAL_MASK>(a);
 }
 
 int quant_cosine_topk_masked_launch(const void* q, const void* keys, const void* scales,
                                     const void* mask, int B, int N, int d, int k,
-                                    int keys_per_chunk, int chunks, void* part_s,
+                                    int keys_per_chunk, int chunks, int block_q, void* part_s,
                                     void* part_i, void* out_s, void* out_i, void* stream) {
   const Args a{q, keys, scales, nullptr, nullptr, nullptr, mask, B, N, d, k,
-               keys_per_chunk, chunks, part_s, part_i, out_s, out_i,
+               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<DENSE_MASK>(a);
 }

@@ -19,21 +19,50 @@
 // 40 * 32 * 2,080 * 512 = 1.4 GFLOP, take 1.4 us at the bf16 tensor-core
 // rate. So it is bound by bytes.
 //
-// Design. The TPU kernel's grid walks the KV blocks of a query block in
-// sequence, with the running max, sum and accumulator in VMEM scratch, and
-// skips dead blocks with pl.when. Here one block of 256 threads handles one
-// (query tile of 64 rows, head, batch row) and loops over the KV tiles of 64
-// keys itself, from the window's first live tile (0 without a window) to
-// the causal edge, so dead tiles are never loaded. The Q tile, one K or V
-// tile and the 64 x 64 weights live in shared memory as f32 (83 KB at
-// D = 128: two blocks an SM); scores never reach device memory. The 16 x 16
-// threads each own a 4 x 4 patch of the scores (rows ty*4.., keys tx + 16 j)
-// and a 4 x D/16 patch of the accumulator (rows ty*4.., columns tx + 16 j)
-// with its rows' running max and sum in registers; a row's statistics are
-// reduced over the 16 lanes that share it by shuffles. Plain f32 FMAs,
-// no tensor cores: wgmma with TMA staging is later work. Shared-memory rows
-// are padded to D + 1 floats so the 16 key rows of a score step fall in 16
-// banks. D is 64 or 128.
+// Two kernels, one per dtype, behind one entry point. Both walk the KV tiles
+// of 64 keys of a (query tile of 64 rows, head, batch row) inside one block,
+// from the window's first live tile (0 without a window) to the causal edge,
+// so dead tiles are never loaded, with the running max, sum and accumulator
+// in registers where the TPU kernel keeps them in VMEM scratch across its
+// sequential grid; scores never reach device memory.
+//
+// bf16 (flash_attention_bf16_kernel): tensor cores, mma.sync.m16n8k16 in
+// FlashAttention-2's register layout. Four warps, 16 query rows each. Q, K
+// and V stay bf16 and arrive in shared memory by 16-byte cp.async copies
+// (rows padded by 16 bytes so ldmatrix reads are free of bank conflicts).
+// S sums bf16 products in f32, the rounding points of the Pallas kernel
+// (bf16 operands, f32 preferred_element_type). The online softmax runs in
+// f32 registers on S's accumulator fragments, with a row's visible keys
+// as one interval and exponentials by ex2.approx (__expf: ~2^-21 relative,
+// far inside the 2^-16 of P's split below). P V also runs on the tensor
+// cores, with P split into a bf16 high part and the bf16 rounding of the
+// rest (two MMAs into one f32 accumulator): P keeps about 16 bits, so P V
+// stays within ~2^-16 of the f32 product the Pallas kernel and the plain
+// version form, where P rounded to bf16 alone would move outputs at which
+// sum p * v cancels by more than one bf16 ulp. A warp skips the 8-key
+// score tiles and 16-key P V steps that lie wholly past its rows' causal
+// edge. One block per (query tile, head, batch row), three an SM: 168
+// registers a thread hold the 64 accumulator and 32 score floats without
+// spills (at four an SM, 128 registers spilled and the kernel ran slower).
+// The output goes out through shared memory in 16-byte rows.
+// mma.sync and not wgmma: at this shape the kernel is bound by bytes, 1.4
+// GFLOP (2.6 with P split) take a few us even at mma.sync's share of the
+// peak, and a 64-row wgmma tile per warpgroup would tie four warps to each
+// other's causal edges; TMA is not used either, since a tile is 64 rows of
+// 128 to 256 bytes each, spread over (B, L, heads) strides, which 128
+// threads issue in 8 copies each.
+//
+// f32 (flash_attention_kernel, unchanged since its first version): CUDA
+// cores. One block of 256 threads; the Q tile, one K or V tile and the
+// 64 x 64 weights live in shared memory as f32 (83 KB at D = 128: two
+// blocks an SM). The 16 x 16 threads each own a 4 x 4 patch of the scores
+// (rows ty*4.., keys tx + 16 j) and a 4 x D/16 patch of the accumulator
+// (rows ty*4.., columns tx + 16 j) with its rows' running max and sum in
+// registers; a row's statistics are reduced over the 16 lanes that share it
+// by shuffles. Plain f32 FMAs: TF32 tensor cores would round the operands
+// to 10 bits, past what the f32 models' card-vs-CPU checks allow.
+// Shared-memory rows are padded to D + 1 floats so the 16 key rows of a
+// score step fall in 16 banks. D is 64 or 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -208,6 +237,271 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------
+constexpr int TC_NT = 128;         // 4 warps x 16 query rows
+constexpr int TC_NS = BK / 8;      // 8-key score tiles per KV tile
+constexpr int TC_MIN_BLOCKS = 3;   // an SM's blocks: 168 registers a thread
+static_assert(BQ == BK, "Q, K and V tiles share one shape");
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * 3 * BQ * (D + 8);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) = hi + lo: hi their bf16 rounding, lo the bf16 rounding of the
+// rest (exact in f32), the lower column in the lower half of each
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// rows [r0, r0 + 64) of a (B, L, heads, D) bf16 tensor at (b, head) into a
+// (64, D + 8) tile by cp.async; rows at or past L are zero-filled
+template <int D>
+__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                             int b, int head, int heads, int r0, int L) {
+  constexpr int CPR = D / 8;   // 16-byte chunks per row
+  static_assert(BQ * CPR % TC_NT == 0, "whole rounds of copies");
+#pragma unroll
+  for (int i = 0; i < BQ * CPR / TC_NT; ++i) {
+    const int c = threadIdx.x + i * TC_NT;
+    const int r = c / CPR, col = (c % CPR) * 8, row = r0 + r;
+    const bool ok = row < L;
+    const __nv_bfloat16* from =
+        ok ? src + ((static_cast<size_t>(b) * L + row) * heads + head) * D + col : src;
+    cp_async16(dst + r * (D + 8) + col, from, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_kernel(Args a) {
+  constexpr int RS = D + 8;     // shared-memory row stride, elements
+  constexpr int NDT = D / 8;    // 8-column output tiles of a warp's rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // (BQ, RS)
+  __nv_bfloat16* ks = qs + BQ * RS;                                 // (BK, RS)
+  __nv_bfloat16* vs = ks + BK * RS;                                 // (BK, RS)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;   // fragment row group, thread in group
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.HKV);
+  const int offset = a.Lk - a.Lq;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  // live KV tiles, as in the f32 kernel
+  const int q_lo = offset + q0;
+  const int q_hi = offset + min(q0 + BQ, a.Lq) - 1;
+  const int n_tiles = (a.Lk + BK - 1) / BK;
+  const int t_end = a.causal ? min(n_tiles, (q_hi + BK) / BK) : n_tiles;
+  const int t_begin = a.window > 0 ? max(0, (q_lo - a.window + 1) / BK) : 0;
+
+  // cp.async groups, in order: {Q, K(t_begin)}, {V(t_begin)}, then one
+  // {K(t+1), V(t+1)} after each tile but the last
+  tc_load_tile<D>(qs, q, b, h, a.H, q0, a.Lq);
+  if (t_begin < t_end) tc_load_tile<D>(ks, k, b, kvh, a.HKV, t_begin * BK, a.Lk);
+  cp_async_commit();
+  if (t_begin < t_end) tc_load_tile<D>(vs, v, b, kvh, a.HKV, t_begin * BK, a.Lk);
+  cp_async_commit();
+
+  // this thread's two rows in the fragments: warp * 16 + g and + 8
+  const int qp0 = q_lo + warp * 16 + g, qp1 = qp0 + 8;
+  const int warp_qp_hi = q_lo + warp * 16 + 15;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[NDT][4];
+#pragma unroll
+  for (int j = 0; j < NDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * BK;
+    const bool first = t == t_begin;
+    if (first) {
+      cp_async_wait<1>();   // Q and K(t) have landed, V(t) may be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // 8-key score tiles with a key this warp's rows may see (a uniform
+    // bound per warp: the sequence end, the causal edge of its last row)
+    int n_live = min(TC_NS, (a.Lk - k0 + 7) / 8);
+    if (a.causal) n_live = warp_qp_hi < k0 ? 0 : min(n_live, (warp_qp_hi - k0) / 8 + 1);
+
+    float s[TC_NS][4];
+#pragma unroll
+    for (int j = 0; j < TC_NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (n_live <= 0) break;
+      unsigned qa[4];
+      ldmatrix_x4(qa, qs + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < TC_NS / 2; ++jp) {
+        if (2 * jp >= n_live) continue;
+        unsigned kb[4];
+        ldmatrix_x4(kb, ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // online softmax on the fragments: entries 0, 1 are row qp0, 2, 3 row
+    // qp1, at keys k0 + 8 j + 2 tig + (e & 1); a row's 64 scores lie in the
+    // 4 threads of a quad
+    float c[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = r ? qp1 : qp0;
+      // key k0 + 2 tig + kr is visible when lo <= kr <= hi
+      const int hi = min(a.Lk - 1, a.causal ? qp : a.Lk) - k0 - 2 * tig;
+      const int lo = a.window > 0 ? qp - a.window + 1 - k0 - 2 * tig : -BK;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TC_NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kr = 8 * j + e;
+          const bool vis = j < n_live && kr <= hi && kr >= lo;
+          float& x = s[j][2 * r + e];
+          x = vis ? x * a.scale : -INFINITY;
+          tmax = fmaxf(tmax, x);
+        }
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[r], tmax);
+      // m_new is -inf only while the row has seen nothing: weights 0, no
+      // rescale (the accumulator is still 0)
+      c[r] = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC_NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * r + e];
+          x = x == -INFINITY ? 0.f : __expf(x - m_new);
+          rsum += x;
+        }
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
+      l[r] = l[r] * c[r] + rsum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NDT; ++j) {
+      o[j][0] *= c[0];
+      o[j][1] *= c[0];
+      o[j][2] *= c[1];
+      o[j][3] *= c[1];
+    }
+
+    if (first) {
+      cp_async_wait<0>();   // V(t) has landed
+      __syncthreads();
+    }
+    // O += P V over 16-key steps; the accumulator fragments of S are the A
+    // fragments of P (tiles 2 kk and 2 kk + 1 side by side)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (2 * kk >= n_live) continue;
+      unsigned ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+        mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+      }
+    }
+    if (t + 1 < t_end) {
+      __syncthreads();   // every warp is done with K(t) and V(t)
+      tc_load_tile<D>(ks, k, b, kvh, a.HKV, k0 + BK, a.Lk);
+      tc_load_tile<D>(vs, v, b, kvh, a.HKV, k0 + BK, a.Lk);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+
+  // normalized rows into the Q tile (every warp is past its last read of
+  // it), then out in 16-byte rows; a reciprocal and multiplies, since 64
+  // divisions a thread made the kernel 25% slower on an H100
+  __syncthreads();
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NDT; ++j) {
+    const int col = 8 * j + 2 * tig;
+    *reinterpret_cast<__nv_bfloat162*>(qs + (warp * 16 + g) * RS + col) =
+        __floats2bfloat162_rn(o[j][0] * inv0, o[j][1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(qs + (warp * 16 + g + 8) * RS + col) =
+        __floats2bfloat162_rn(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  __syncthreads();
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  constexpr int CPR = D / 8;
+  for (int c = threadIdx.x; c < BQ * CPR; c += TC_NT) {
+    const int r = c / CPR, col = (c % CPR) * 8, row = q0 + r;
+    if (row >= a.Lq) continue;
+    *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * a.Lq + row) * a.H + h) * D +
+                              col) = *reinterpret_cast<const uint4*>(qs + r * RS + col);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -224,16 +518,29 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const Args& a, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(a, stream);
-    case 128:
-      return launch<T, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool configured = false;   // one opt-in per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
   }
+  const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
+  flash_attention_bf16_kernel<D><<<grid, TC_NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dtype 0: f32 on CUDA cores; 1: bf16 on tensor cores
+cudaError_t launch_d(const Args& a, int dtype, int D, cudaStream_t stream) {
+  if (dtype == 0 && D == 64) return launch<float, 64>(a, stream);
+  if (dtype == 0 && D == 128) return launch<float, 128>(a, stream);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(a, stream);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -251,14 +558,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, B, Lq, Lk, H, HKV, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_d<float>(a, D, st));
-    case 1:
-      return static_cast<int>(launch_d<__nv_bfloat16>(a, D, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(launch_d(a, dtype, D, st));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -6,8 +6,11 @@ Contract (that of ``repro_torch.kernels.ref.flash_attention_ref``): q
 (B, Lq, H, D), k and v (B, Lk, HKV, D), all float32 or all bfloat16, D 64
 or 128, H a multiple of HKV; query row i sits at position ``i + Lk - Lq``
 and sees key j when ``j <= i + Lk - Lq`` (causal) and, with a window,
-``j > i + Lk - Lq - window``. Returns (B, Lq, H, D) in q's dtype, products
-and sums in f32. Attention sinks (``n_sink``) arrive with the hybrid slice.
+``j > i + Lk - Lq - window``. Returns (B, Lq, H, D) in q's dtype, sums in
+f32: f32 inputs on CUDA cores; bf16 inputs on the tensor cores, with P
+carried into P V as two bf16 parts (about 16 bits, within one bf16 ulp of
+the output of the plain version). Attention sinks (``n_sink``) arrive with
+the hybrid slice.
 
 The wrapper checks its arguments, allocates the output with
 ``torch.empty``, launches on the current stream without synchronizing,

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -67,6 +68,9 @@ class KVCache:
 def init_kv_cache(n_layers: int, batch: int, size: int, n_kv: int,
                   head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
                   device=None) -> KVCache:
+    """Empty caches on ``device``: ``None`` means CUDA, as at every entry
+    point (``resolve_device``), and raises without it."""
+    device = resolve_device(device)
     shape = (n_layers, batch, size, n_kv, head_dim)
     slot_pos = torch.full((size,), -1, dtype=torch.int32, device=device)
     if quantized:

@@ -378,6 +378,46 @@ def test_cuda_cosine_kernel_takes_the_probe_k(cuda_device, n, k):
     assert torch.equal(ki.cpu(), ri)
 
 
+SMALL_N_CASES = [  # (B, N, k, mask): 4-row query tiles, k past N
+    (1, 1, 1, "random"),
+    (7, 1, 16, "random"),
+    (200, 31, 16, "few"),
+    (7, 31, 32, "random"),
+    (128, 128, 16, "random"),   # the IVF probe: one chunk, no merge
+    (200, 129, 32, "random"),
+    (1, 1000, 32, "few"),
+    (200, 1000, 1, "random"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("b,n,k,mask", SMALL_N_CASES)
+def test_cuda_cosine_kernel_small_n(cuda_device, b, n, k, mask, key_dtype):
+    """Small slabs take 4-row query tiles; past N the kernel's entries are
+    (-inf, -1), where the plain version stops at min(k, N) entries. The
+    plain version runs on the card too: on the CPU a one-row product (a
+    GEMV) rounds the last key rows differently, so planted equal rows do
+    not tie there."""
+    q, keys, valid, ties = make_inputs(b, n, 384, key_dtype, mask, k,
+                                       seed=b + n + k)
+    args = (torch.from_numpy(q).to(cuda_device),
+            keys_to_torch(keys, key_dtype).to(cuda_device),
+            torch.from_numpy(valid).to(cuda_device))
+    before = kmod.launches["cosine_topk"]
+    ks, ki = kmod.cosine_topk_cuda(*args, k)
+    assert kmod.launches["cosine_topk"] == before + 1
+    assert ks.shape == ki.shape == (b, k)
+    rs, ri = tref.cosine_topk_ref(*args, k)
+    m = rs.shape[1]
+    torch.testing.assert_close(ks[:, :m], rs, rtol=0, atol=1e-5)
+    assert torch.equal(ki[:, :m], ri)
+    assert bool(torch.all(ki[:, m:] == -1))
+    assert bool(torch.all(torch.isneginf(ks[:, m:])))
+    want = sorted(set(ties.tolist()))[:k]   # planted equal rows, lowest first
+    assert ki[0, :len(want)].cpu().tolist() == want
+
+
 @pytest.mark.cuda
 def test_cuda_ivf_probe_over_the_limit_raises(cuda_device):
     idx = IVFIndex(ncentroids=64, nprobe=kmod.MAX_K + 1, bucket_cap=4)
@@ -450,6 +490,8 @@ FLASH_CUDA_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window)
     (1, 256, 256, 8, 2, 64, True, 70),      # window, G=4
     (2, 64, 200, 4, 2, 128, True, None),    # Lk > Lq
     (1, 130, 130, 4, 1, 64, False, None),   # bidirectional, ragged
+    (39, 64, 64, 32, 4, 128, True, None),   # the serve shape at B=39
+    (3, 200, 200, 16, 2, 128, True, None),  # four KV tiles, ragged tail
 ]
 
 

@@ -136,14 +136,28 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     assert torch.equal(es, ts) and torch.equal(ei, ti)
 
 
-@pytest.mark.parametrize("b,n,expect_blocks", [(128, 16384, 256),
-                                               (1, 1000, 8),
-                                               (200, 1048576, 524)])
-def test_split_covers_the_slab_in_whole_tiles(b, n, expect_blocks):
-    per_chunk, chunks = kmod.split(b, n, num_sms=132)
+@pytest.mark.parametrize("b,n,expect,expect_blocks", [
+    # (keys per chunk, chunks, query rows per block), blocks of pass 1
+    (128, 16384, (128, 128, 64), 256),     # the main path
+    (128, 65536, (256, 256, 64), 512),     # the tenancy path
+    (200, 1048576, (8064, 131, 64), 524),
+    (128, 128, (128, 1, 4), 32),           # the IVF probe: one launch
+    (1, 1000, (128, 8, 4), 8),
+    (200, 31, (128, 1, 4), 50),
+    (7, 1, (128, 1, 4), 2),
+    (128, 8192, (512, 16, 4), 512),        # 2 x 64 wide blocks < 132 SMs
+    (128, 8448, (128, 66, 64), 132),       # 2 x 66 wide blocks = 132 SMs
+])
+def test_split_covers_the_slab_in_whole_tiles(b, n, expect, expect_blocks):
+    per_chunk, chunks, block_q = kmod.split(b, n, num_sms=132)
+    assert (per_chunk, chunks, block_q) == expect
     assert per_chunk % kmod.BLOCK_N == 0
     assert (chunks - 1) * per_chunk < n <= chunks * per_chunk
-    assert chunks * -(-b // kmod.BLOCK_Q) == expect_blocks
+    assert chunks * -(-b // block_q) == expect_blocks
+    # 4-row tiles exactly where 64-row tiles, one per 128-key tile, would
+    # give the card fewer blocks than SMs
+    wide_blocks = -(-b // kmod.BLOCK_Q) * -(-n // kmod.BLOCK_N)
+    assert (block_q == kmod.BLOCK_Q_NARROW) == (wide_blocks < 132)
 
 
 def _interval_torch(q, keys, valid, starts, sizes, mask, key_dtype):

@@ -316,6 +316,26 @@ def test_decode_attention_ref_ring_with_empty_slots_and_no_visible_row():
     np.testing.assert_array_equal(out.numpy(), np.asarray(pallas))
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_init_kv_cache_defaults_to_cuda(monkeypatch, quantized):
+    """``device=None`` resolves to CUDA, as at every entry point: without
+    CUDA it raises; ``device="cpu"`` gives the JAX package's empty caches."""
+    args = (2, 3, 8, 2, 16)
+    jc = jattn.init_kv_cache(*args, dtype=jnp.float32, quantized=quantized)
+    tc = tattn.init_kv_cache(*args, dtype=torch.float32, quantized=quantized,
+                             device="cpu")
+    names = ("k", "v", "slot_pos") + (("k_scale", "v_scale") if quantized
+                                      else ())
+    for name in names:
+        j, t = getattr(jc, name), getattr(tc, name)
+        assert t.device.type == "cpu" and str(t.dtype) == f"torch.{j.dtype}"
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert tc.pos == 0 and tc.quantized == quantized
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tattn.init_kv_cache(*args, quantized=quantized)
+
+
 def test_attention_ops_refuse_what_the_kernels_do_not_take():
     """The CPU path holds the kernels' contracts, so what the card would
     refuse is refused here too."""
