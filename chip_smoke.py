@@ -39,19 +39,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
             f32 search of the same slab counted
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events; the IVF
-            probe's split and its kernel launches per call (one)
+            probe's split and its kernel launches per call (one); the
+            interval forms also from a CUDA graph of what their wrappers
+            launch (the row order on the card, then the kernel), with the
+            rows sorted by interval giving each row the same top-k bit for
+            bit
   model     the model-backed miss path (``launch.serve --backend model``):
             the flash-attention and decode-attention kernels against their
             plain versions (causal and windowed, GQA 1-8, D 64/128, ragged
             lengths, Lk > Lq, the serve shape, four KV tiles; f32, bf16
-            and int8 KV, window with sinks,
-            rings with empty slots, rows that see nothing); the main
+            and int8 KV, window with sinks, rings with empty slots and
+            whole empty splits, rows that see nothing, B=1, S=1, S=17,
+            S=4096 and 20,000 in splits, G=16 with D=256); the main
             configuration served with full-width yi-6b (launches per batch
             with misses, finite logits, Table 1 hits equal to the main
             phase's, backend wall split into prefill and decode, one
             generate under torch.profiler); the first miss batch again
             through the plain attention; the reduced yi-6b card vs CPU; and
-            both kernels timed at the serve shape
+            both kernels and SDPA timed from CUDA graphs: flash at the serve
+            shape, decode at the serve shape, at the fewest misses a batch
+            and at yi-6b's 4,096-token context
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the per-kernel summary, and ``{"ok": true, "device": ...}``.
 """
@@ -1108,10 +1115,16 @@ def phase_timing(torch, card: str) -> dict:
         for variant in ("interval", "masked"):
             name = f"{prefix}cosine_topk_{variant}"
             if variant == "interval":
-                operands = (valid, starts, sizes)
+                # what the wrapper launches: the row order on the card, then
+                # the kernel; the plan's counts are read back once, here
+                _, groups, span = kmod.interval_plan(q, keys, valid, starts,
+                                                     sizes, k, scales)
 
                 def kernel():
-                    return kmod._launch(name, q, keys, operands, k, scales)
+                    order = kmod.interval_order(starts, sizes)
+                    return kmod._launch(name, q, keys,
+                                        (valid, starts, sizes, order), k,
+                                        scales, intervals=(groups, span))
 
                 def wrapper():
                     return getattr(kmod, f"{name}_cuda")(
@@ -1155,6 +1168,20 @@ def phase_timing(torch, card: str) -> dict:
                    "runs_ms": times, **bound,
                    "share_of_bound": bound["bound_ms"] / ms["kernel"],
                    "l2_warm": n * slot_bytes < 50e6}
+            if variant == "interval":
+                # order + launch from a CUDA graph; the same rows sorted by
+                # region first give the same top-k, bit for bit
+                row["graph_ms"] = _time_graph(torch, kernel, reps)
+                row["share_of_bound"] = bound["bound_ms"] / row["graph_ms"]
+                row["split"] = dict(zip(("keys_per_chunk", "chunks",
+                                         "block_q"), kmod.split(
+                    b, n, torch.cuda.get_device_properties(0)
+                    .multi_processor_count, groups, span)))
+                _same_for_sorted_rows(torch, wrapper, q, starts, sizes,
+                                      lambda qq, st, sz: getattr(
+                                          kmod, f"{name}_cuda")(
+                                          qq, *slab, valid, st, sz, k),
+                                      name)
             out[(name, n, dtype)] = row
             emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
                  regions=TENANTS, card=card, **row)
@@ -1162,6 +1189,21 @@ def phase_timing(torch, card: str) -> dict:
     out.update(_probe_timing(torch, card))
     out.update(_ivf_timing(torch, card))
     return out
+
+
+def _same_for_sorted_rows(torch, wrapper, q, starts, sizes, call, name
+                          ) -> None:
+    """The interval kernel on the rows as given and on the same rows sorted
+    by interval: each row's top-k equal bit for bit, or fail."""
+    perm = torch.argsort(starts.long() * (1 << 32) + sizes.long(),
+                         stable=True)
+    s1, i1 = wrapper()
+    s2, i2 = call(q[perm].contiguous(), starts[perm].contiguous(),
+                  sizes[perm].contiguous())
+    back = torch.argsort(perm)
+    if not (torch.equal(s1.view(torch.int32), s2[back].view(torch.int32))
+            and torch.equal(i1, i2[back])):
+        fail(f"{name}: the top-k of a row depends on where the row lies")
 
 
 def _device_kernels(torch, fn) -> dict:
@@ -1395,6 +1437,14 @@ def _decode_cases(torch) -> float:
         (2, 512, 32, 4, 128, 100, 4, "ring"),
         (2, 512, 16, 1, 256, None, 0, "full"),     # G=16, D=256
         (3, 96, 32, 4, 128, None, 0, "none"),      # nothing visible: 0
+        (1, 96, 32, 4, 128, None, 0, "prefix"),    # B=1
+        (2, 1, 8, 2, 64, None, 0, "full"),         # S=1
+        (3, 17, 8, 2, 64, None, 0, "full"),        # S=17, one split
+        (8, 4096, 32, 4, 128, None, 0, "full"),    # yi-6b's context, splits
+        (3, 512, 32, 4, 128, None, 0, "ring"),     # whole splits empty
+        (2, 1024, 16, 1, 256, 300, 2, "ring"),     # G=16, D=256, split
+        (2, 4096, 8, 2, 64, None, 0, "none"),      # splits, nothing visible
+        (1, 20000, 4, 1, 64, None, 0, "ring"),     # 128 splits of two tiles
     ]
     worst = 0.0
     for kv in ("f32", "bf16", "int8"):
@@ -1591,10 +1641,10 @@ def _full_width(torch, hits: dict) -> dict:
 
 def _profile_generate(torch, backend, call: dict) -> dict:
     """One ``generate`` of ``call``'s queries under ``torch.profiler``: the
-    card's kernel time in total and for the names that take the most,
-    beside the same call's unprofiled wall time from the serve run (the
-    profiler's own host work slows the profiled call). The idle share is
-    1 - kernel time / unprofiled wall."""
+    card's kernel time in total, for the names that take the most and for
+    the attention kernels, beside the same call's unprofiled wall time from
+    the serve run (the profiler's own host work slows the profiled call).
+    The idle share is 1 - kernel time / unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1607,7 +1657,12 @@ def _profile_generate(torch, backend, call: dict) -> dict:
     if busy_us <= 0:
         return {"device_time": "not measured: the profiler saw no kernel"}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    attention = [e for e in kernels
+                 if "decode_" in e.key or "flash_attention" in e.key]
     return {"rows": call["misses"], "kernel_s": busy_us / 1e6,
+            "attention_kernels": [{"name": e.key[:80], "count": e.count,
+                                   "s": e.self_device_time_total / 1e6}
+                                  for e in attention],
             "wall_unprofiled_s": call["generate_s"],
             "idle_share": 1.0 - busy_us / 1e6 / call["generate_s"],
             "kernel_launches": sum(e.count for e in kernels),
@@ -1698,10 +1753,48 @@ def _reduced_card_vs_cpu(torch) -> dict:
     return out
 
 
-def _model_timing(torch, card: str, b: int) -> dict:
-    """Both attention kernels at the serve path's shape (B = mean misses a
-    batch), against the plain versions and one SDPA call each."""
+def _attn_turns(torch, fns: dict, reps: int) -> dict:
+    """Kernel, plain version and SDPA timed in turns with CUDA events, then
+    the kernel and SDPA each from a CUDA graph of ``reps`` calls, in turns
+    (kernel, SDPA, SDPA, kernel; best of two): ``graph_ms`` and
+    ``library_ms`` are the graph times, ``library_host_ms`` the host-timed
+    SDPA."""
+    ms, times = _time_turns(torch, fns, reps)
+    graph = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        graph[name].append(_time_graph(torch, fns[name], reps))
+    return {"kernel_ms": ms["kernel"], "graph_ms": min(graph["kernel"]),
+            "plain_ms": ms["plain"], "library_ms": min(graph["library"]),
+            "library_host_ms": ms["library"], "runs_ms": times,
+            "graph_runs_ms": graph}
+
+
+def _decode_bound(q, k, vis: int) -> dict:
+    """Bytes and operations one decode launch needs: q read and the output
+    written once (q's dtype), the visible slots' K and V rows once (the
+    cache's dtype, int8 with its two 4-byte scales a row), slot_pos; 4 D
+    FLOP per query head and visible slot, at the bf16 tensor-core rate for
+    a bf16 q and cache, else the f32 rate (the kernel's f32 FMAs)."""
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    # a visible (b, slot, kv-head): its K and V rows, and two f32 scales
+    # when the cache is int8
+    row = 2 * d * k.element_size() + (8 if k.element_size() == 1 else 0)
+    tc = q.element_size() == 2 and k.element_size() == 2
+    return _bound(4.0 * d * h * b * vis,
+                  2 * q.numel() * q.element_size() + b * vis * hkv * row
+                  + k.shape[1] * 4, PEAK_BF16_FLOPS if tc else PEAK_F32_FLOPS)
+
+
+def _model_timing(torch, card: str, b: int, b_fewest: int) -> dict:
+    """Both attention kernels against the plain versions and one SDPA call
+    each, every kernel and SDPA also from CUDA graphs: flash at the serve
+    path's prefill (B = mean misses a batch); decode at the serve path's
+    step (B = the mean and the fewest misses a batch, S = 96, 76 visible)
+    and at yi-6b's published 4,096-token context (B = 8, all visible,
+    67 MB of K and V: past the 50 MB L2)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1712,56 +1805,49 @@ def _model_timing(torch, card: str, b: int) -> dict:
                                         (b, PROMPT, hkv, d),
                                         (b, PROMPT, hkv, d)), torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-    def flash():
-        return flash_attention_cuda(q, k, v)
-
-    fns = {"kernel": flash,
-           "plain": lambda: ref.flash_attention_ref(q, k, v),
-           "library": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True, enable_gqa=True)}
-    ms, times = _time_turns(torch, fns, 100)
-    graph_ms = _time_graph(torch, flash, 100)
+    row = _attn_turns(torch, {
+        "kernel": lambda: flash_attention_cuda(q, k, v),
+        "plain": lambda: ref.flash_attention_ref(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}, 100)
     pairs = PROMPT * (PROMPT + 1) // 2
     bound = _bound(4.0 * d * h * b * pairs,
                    2 * q.numel() * 2 + 2 * k.numel() * 2, PEAK_BF16_FLOPS)
-    out["flash_attention"] = {
-        "kernel_ms": ms["kernel"], "graph_ms": graph_ms,
-        "plain_ms": ms["plain"], "library_ms": ms["library"],
-        "runs_ms": times, **bound,
-        "share_of_bound": bound["bound_ms"] / graph_ms}
+    out["flash_attention"] = {**row, **bound,
+                              "share_of_bound": bound["bound_ms"]
+                              / row["graph_ms"]}
     emit("timing", kernel="flash_attention", B=b, L=PROMPT, H=h, HKV=hkv,
          D=d, dtype="bf16", causal=True, card=card,
          **out["flash_attention"])
 
-    s = PROMPT + NEW_TOKENS + 8
-    q, k, v = _attn_inputs(torch, gen, ((b, 1, h, d), (b, s, hkv, d),
-                                        (b, s, hkv, d)), torch.bfloat16)
-    sp, pos = _decode_slots(torch, s, "prefix")
-    visible = (sp >= 0) & (sp <= pos)
-    vis = int(visible.sum())
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = visible[None, None, None, :]
-
-    def decode():
-        return decode_attention_cuda(q, k, v, sp, pos)
-
-    fns = {"kernel": decode,
-           "plain": lambda: ref.decode_attention_ref(q, k, v, sp, pos),
-           "library": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=mask, enable_gqa=True)}
-    ms, times = _time_turns(torch, fns, 200)
-    graph_ms = _time_graph(torch, decode, 200)
-    bound = _bound(4.0 * d * h * b * vis,
-                   2 * q.numel() * 2 + 2 * b * vis * hkv * d * 2 + s * 4,
-                   PEAK_BF16_FLOPS)
-    out["decode_attention"] = {
-        "kernel_ms": ms["kernel"], "graph_ms": graph_ms,
-        "plain_ms": ms["plain"], "library_ms": ms["library"],
-        "runs_ms": times, **bound, "visible_slots": vis,
-        "share_of_bound": bound["bound_ms"] / graph_ms}
-    emit("timing", kernel="decode_attention", B=b, S=s, H=h, HKV=hkv, D=d,
-         pos=pos, dtype="bf16", card=card, **out["decode_attention"])
+    s_serve = PROMPT + NEW_TOKENS + 8
+    for shape, bb, s, layout in (("serve", b, s_serve, "prefix"),
+                                 ("fewest_misses", b_fewest, s_serve,
+                                  "prefix"),
+                                 ("yi6b_context", 8, 4096, "full")):
+        q, k, v = _attn_inputs(torch, gen, ((bb, 1, h, d), (bb, s, hkv, d),
+                                            (bb, s, hkv, d)), torch.bfloat16)
+        sp, pos = _decode_slots(torch, s, layout)
+        visible = (sp >= 0) & (sp <= pos)
+        vis = int(visible.sum())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = visible[None, None, None, :]
+        row = _attn_turns(torch, {
+            "kernel": lambda: decode_attention_cuda(q, k, v, sp, pos),
+            "plain": lambda: ref.decode_attention_ref(q, k, v, sp, pos),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)},
+            200 if s <= 128 else 50)
+        bound = _decode_bound(q, k, vis)
+        n_split, tile = kdec.split(s, d, k.element_size())
+        out[("decode_attention", shape)] = {
+            **row, **bound, "visible_slots": vis, "n_split": n_split,
+            "tile": tile, "share_of_bound": bound["bound_ms"]
+            / row["graph_ms"]}
+        emit("timing", kernel="decode_attention", shape=shape, B=bb, S=s,
+             H=h, HKV=hkv, D=d, pos=pos, dtype="bf16", card=card,
+             **out[("decode_attention", shape)])
+    out["decode_attention"] = out[("decode_attention", "serve")]
     return out
 
 
@@ -1775,7 +1861,7 @@ def phase_model(torch, card: str, hits: dict) -> dict:
     _reduced_card_vs_cpu(torch)
     b = max(1, round(sum(full["misses"]) / len(full["misses"])))
     return {"max_err": max_err, "launches": full["launches"],
-            "timing": _model_timing(torch, card, b)}
+            "timing": _model_timing(torch, card, b, min(full["misses"]))}
 
 
 # --------------------------------------------------------------------- #

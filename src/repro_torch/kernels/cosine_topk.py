@@ -25,9 +25,14 @@ Each wrapper checks its arguments, allocates the outputs and, when pass 1
 runs over more than one chunk, its scratch with ``torch.empty``, launches on
 the current stream without synchronizing (pass 2 only to merge chunks),
 raises if a launch was refused, and counts its launches in
-``launches[name]``. The interval wrapper reads its (B,) operands
-back once to check ``starts + sizes <= N`` (one host sync per call). They
-take CUDA tensors only: ``ops`` sends CPU tensors to the plain versions.
+``launches[name]``. The interval wrappers sort the rows by interval on the
+card (``interval_order``: the kernel reads rows through the permutation,
+so a query tile holds rows of about one interval, and writes each row's
+top-k to its own place) and read back, in one host sync per call, the
+check ``starts + sizes <= N`` with the count of distinct intervals and the
+largest size, from which ``split`` picks the tile height and the chunks.
+They take CUDA tensors only: ``ops`` sends CPU tensors to the plain
+versions.
 """
 from __future__ import annotations
 
@@ -47,8 +52,13 @@ launches = {"cosine_topk": 0, "cosine_topk_interval": 0,
 MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
 BLOCK_Q = 64    # query rows per wide block of pass 1 (BQ_WIDE in the source)
 BLOCK_Q_NARROW = 4   # one warp per query row (BQ_NARROW in the source)
+BLOCK_Q_INTERVAL = (64, 32, 16)   # wide tile heights of the interval forms
 BLOCK_N = 128   # keys per tile of pass 1 (BN in the source)
 BLOCKS_PER_SM = 4
+# the interval forms' blocks each score up to a few 128-key tiles of their
+# union: one block an SM there beat two or four at the tenancy shape on an
+# H100 (PERF.md, PR 17)
+INTERVAL_BLOCKS_PER_SM = 1
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -112,22 +122,59 @@ def check_masked_args(queries: torch.Tensor, keys: torch.Tensor,
     _check_layout(queries, keys, mask)
 
 
-def check_interval_args(queries: torch.Tensor, keys: torch.Tensor,
-                        valid: torch.Tensor, starts: torch.Tensor,
-                        sizes: torch.Tensor, k: int) -> None:
-    """Raise ValueError on anything the interval kernel does not take,
-    including an interval that leaves the slab (``starts + sizes > N``)."""
+def _check_interval_operands(queries: torch.Tensor, keys: torch.Tensor,
+                             valid: torch.Tensor, starts: torch.Tensor,
+                             sizes: torch.Tensor, k: int) -> None:
     check_args(queries, keys, valid, k)
-    b, n = queries.shape[0], keys.shape[0]
+    b = queries.shape[0]
     for name, t in (("starts", starts), ("sizes", sizes)):
         if t.dtype != torch.int32 or tuple(t.shape) != (b,):
             raise ValueError(f"{name} must be ({b},) int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     _check_layout(queries, starts, sizes)
-    # starts > n - sizes, not starts + sizes > n: no int32 wrap-around
-    if bool(((starts < 0) | (sizes < 0) | (starts > n - sizes)).any()):
-        raise ValueError(f"every interval must lie within [0, N={n}): need "
-                         "0 <= starts, 0 <= sizes, starts + sizes <= N")
+
+
+def _outside(starts: torch.Tensor, sizes: torch.Tensor, n: int
+             ) -> torch.Tensor:
+    """Whether some interval leaves [0, n), on the operands' device;
+    ``starts > n - sizes``, not ``starts + sizes > n``: no int32
+    wrap-around."""
+    return ((starts < 0) | (sizes < 0) | (starts > n - sizes)).any()
+
+
+def _refuse_outside(n: int) -> None:
+    raise ValueError(f"every interval must lie within [0, N={n}): need "
+                     "0 <= starts, 0 <= sizes, starts + sizes <= N")
+
+
+def check_interval_args(queries: torch.Tensor, keys: torch.Tensor,
+                        valid: torch.Tensor, starts: torch.Tensor,
+                        sizes: torch.Tensor, k: int) -> None:
+    """Raise ValueError on anything the interval kernel does not take,
+    including an interval that leaves the slab (``starts + sizes > N``)."""
+    _check_interval_operands(queries, keys, valid, starts, sizes, k)
+    if bool(_outside(starts, sizes, keys.shape[0])):
+        _refuse_outside(keys.shape[0])
+
+
+_EMPTY = torch.iinfo(torch.int64).max   # sort key of an empty interval
+
+
+def _sorted_intervals(starts: torch.Tensor, sizes: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (starts.to(torch.int64) << 32) | sizes.to(torch.int64)
+    key = torch.where(sizes > 0, key, _EMPTY)
+    return torch.sort(key, stable=True)
+
+
+def interval_order(starts: torch.Tensor, sizes: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B,) int32 permutation of the query rows, sorted by interval (start,
+    then size), the rows of an empty interval last; rows of equal intervals
+    keep their order. One stable sort on the operands' device, no sync.
+    ``starts`` and ``sizes`` are (B,) int32 within [0, 2**31)."""
+    return _sorted_intervals(starts, sizes)[1].to(torch.int32)
+
 
 
 def quantize_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -167,13 +214,29 @@ def check_quant_args(queries: torch.Tensor, keys: torch.Tensor,
     _check_scales(keys, scales)
 
 
-def check_quant_interval_args(queries: torch.Tensor, keys: torch.Tensor,
-                              scales: torch.Tensor, valid: torch.Tensor,
-                              starts: torch.Tensor, sizes: torch.Tensor,
-                              k: int) -> None:
-    """``check_interval_args`` for an int8 slab with per-row scales."""
-    _check_scales(keys, scales)
-    check_interval_args(queries, keys, valid, starts, sizes, k)
+def interval_plan(queries: torch.Tensor, keys: torch.Tensor,
+                  valid: torch.Tensor, starts: torch.Tensor,
+                  sizes: torch.Tensor, k: int,
+                  scales: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, int, int]:
+    """What the interval wrappers check and read back before a launch:
+    ``check_interval_args`` (with ``scales``, for an int8 slab with per-row
+    scales), then (``interval_order``, the number of distinct non-empty
+    intervals, the largest size), one host sync in all."""
+    if scales is not None:
+        _check_scales(keys, scales)
+    _check_interval_operands(queries, keys, valid, starts, sizes, k)
+    n = keys.shape[0]
+    key, order = _sorted_intervals(starts, sizes)
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    groups = (new & (key != _EMPTY)).sum()
+    outside, groups, biggest = torch.stack([
+        _outside(starts, sizes, n).long(), groups,
+        sizes.max().long()]).tolist()
+    if outside:
+        _refuse_outside(n)
+    return order.to(torch.int32), groups, biggest
 
 
 def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
@@ -184,17 +247,33 @@ def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
     _check_scales(keys, scales)
 
 
-def split(b: int, n: int, num_sms: int) -> tuple[int, int, int]:
+def split(b: int, n: int, num_sms: int, groups: int | None = None,
+          span: int | None = None) -> tuple[int, int, int]:
     """(keys per chunk, chunks, query rows per block) of pass 1: 64-row
     query tiles, or 4-row ones where 64-row tiles over one 128-key tile each
     would still give fewer blocks than SMs (the IVF probe: 128 queries over
     128 centroids); then whole 128-key tiles per chunk, as few as give
-    about ``BLOCKS_PER_SM`` blocks per SM."""
+    about ``BLOCKS_PER_SM`` blocks per SM.
+
+    The interval forms pass ``groups``, the number of distinct non-empty
+    intervals, and ``span``, the largest: rows sorted by interval
+    (``interval_order``) fill tiles of 64, 32 or 16 rows (the tallest that
+    ``b / groups`` rows fill), so a tile covers about one interval; the
+    kernel cuts each tile's union of intervals into ``chunks`` runs of whole
+    128-key tiles, so chunks are counted over ``span`` keys, not N, for
+    about ``INTERVAL_BLOCKS_PER_SM`` blocks an SM."""
+    wide, per_sm = BLOCK_Q, BLOCKS_PER_SM
+    if groups is not None:
+        per_sm = INTERVAL_BLOCKS_PER_SM
+        rows = b // max(groups, 1)
+        wide = next(h for h in BLOCK_Q_INTERVAL
+                    if rows >= h or h == BLOCK_Q_INTERVAL[-1])
+        n = max(span or 0, 1)
     n_tiles = -(-n // BLOCK_N)
-    block_q = BLOCK_Q if -(-b // BLOCK_Q) * n_tiles >= num_sms \
+    block_q = wide if -(-b // wide) * n_tiles >= num_sms \
         else BLOCK_Q_NARROW
     q_tiles = -(-b // block_q)
-    want = max(1, -(-BLOCKS_PER_SM * num_sms // q_tiles))
+    want = max(1, -(-per_sm * num_sms // q_tiles))
     per_chunk = -(-n_tiles // want) * BLOCK_N
     return per_chunk, -(-n // per_chunk), block_q
 
@@ -205,11 +284,11 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i] * 7 + [p] * 5   # B N d k kpc chunks block_q, outputs
         lib.cosine_topk_launch.argtypes = [p, p, i, p] + tail
-        lib.cosine_topk_interval_launch.argtypes = [p, p, i, p, p, p] + tail
+        lib.cosine_topk_interval_launch.argtypes = [p, p, i, p, p, p, p] + tail
         lib.cosine_topk_masked_launch.argtypes = [p, p, i, p] + tail
         # q keys scales, then the mask sources
         lib.quant_cosine_topk_launch.argtypes = [p, p, p, p] + tail
-        lib.quant_cosine_topk_interval_launch.argtypes = [p] * 6 + tail
+        lib.quant_cosine_topk_interval_launch.argtypes = [p] * 7 + tail
         lib.quant_cosine_topk_masked_launch.argtypes = [p, p, p, p] + tail
         for name in launches:
             getattr(lib, f"{name}_launch").restype = ctypes.c_int
@@ -220,11 +299,14 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
             masks: tuple[torch.Tensor, ...], k: int,
-            scales: torch.Tensor | None = None
+            scales: torch.Tensor | None = None,
+            intervals: tuple[int, int] | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel ``name`` on checked operands; ``masks`` are the
-    mask-source pointers of its entry point, in order. ``scales`` goes to
-    the per-row-scale entry points in place of the key type's code."""
+    mask-source pointers of its entry point, in order (the interval forms':
+    valid, starts, sizes, order). ``scales`` goes to the per-row-scale entry
+    points in place of the key type's code; ``intervals`` is the interval
+    forms' (distinct intervals, largest size) for ``split``."""
     dev = queries.device
     if dev.type != "cuda":
         raise RuntimeError(f"the CUDA cosine top-k takes CUDA tensors, got "
@@ -234,7 +316,7 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     b, d = queries.shape
     n = keys.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_chunk, chunks, block_q = split(b, n, sms)
+    per_chunk, chunks, block_q = split(b, n, sms, *(intervals or ()))
     # one chunk: pass 1 writes the output and pass 2 is not launched
     part_s = part_i = None
     if chunks > 1:
@@ -274,9 +356,11 @@ def cosine_topk_interval_cuda(queries: torch.Tensor, keys: torch.Tensor,
     """Top-k where row ``b`` sees ``valid`` within slots
     ``[starts[b], starts[b] + sizes[b])``; ``sizes[b] == 0`` gives exactly
     (-inf, -1). No (B, N) mask is built."""
-    check_interval_args(queries, keys, valid, starts, sizes, k)
+    order, groups, span = interval_plan(queries, keys, valid, starts, sizes,
+                                        k)
     return _launch("cosine_topk_interval", queries, keys,
-                   (valid, starts, sizes), k)
+                   (valid, starts, sizes, order), k,
+                   intervals=(groups, span))
 
 
 def cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,
@@ -303,9 +387,11 @@ def quant_cosine_topk_interval_cuda(queries: torch.Tensor, keys: torch.Tensor,
                                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``cosine_topk_interval_cuda`` over int8 ``keys`` scaled by
     ``scales[n]``."""
-    check_quant_interval_args(queries, keys, scales, valid, starts, sizes, k)
+    order, groups, span = interval_plan(queries, keys, valid, starts, sizes,
+                                        k, scales)
     return _launch("quant_cosine_topk_interval", queries, keys,
-                   (valid, starts, sizes), k, scales)
+                   (valid, starts, sizes, order), k, scales,
+                   intervals=(groups, span))
 
 
 def quant_cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,

@@ -52,7 +52,8 @@
 //   Pass 2 merges each row's chunks x k candidates, one warp per row; it is
 //     not launched when there is one chunk.
 // The query-tile height is a template parameter of pass 1, chosen by the
-// wrapper's split (kernels/cosine_topk.py):
+// wrapper's split (kernels/cosine_topk.py); the interval form also takes
+// wide tiles of 32 and 16 rows (below):
 //   wide, 64 rows: 256 threads in 16 x 16, a 4 x 8 patch each, 8 rows a
 //     warp in the top-k. The split gives B=128, N=16384 a grid of 128
 //     chunks x 2 tiles = 256 blocks, about two per SM, all resident at once.
@@ -67,16 +68,27 @@
 // loads not overlapped with compute, the query tile reloaded for every key
 // tile, and the merge not fused into pass 1.
 //
-// Interval form. A block loads the intervals of its query rows into
-// shared memory once and skips every 128-key tile that lies outside all of
-// them (the skip is uniform over the block, so it leaves the barriers
-// intact); rows past B get an empty interval. Counting only the visible work,
-// the tenancy path (B=128, N=65536, four 16384-slot regions) needs 1.61 GFLOP
-// (24 us at 67 TFLOP/s) and reads the 100.7 MB f32 slab (30 us at 3.35 TB/s),
-// so its bound is set by bytes: the slab no longer fits the 50 MB L2. But a
-// 64-row tile there mixes tenants, so the skip rarely fires and the kernel
-// scores all N, four times the visible operations. Dense form: one byte of
-// the (B, N) mask per score, read where the score tile is stored.
+// Interval form. The wrapper sorts the rows by interval on the card
+// (kernels/cosine_topk.py::interval_order, one stable sort, no sync) and
+// passes the permutation: a block reads its query rows, and their
+// intervals, through it, and writes each row's lists to the row's own
+// place, so grouping costs no gather or scatter launch. A tile of rows that
+// see one interval then has that interval as its union; the tile height
+// (64, 32 or 16 rows, split() picks the tallest that the rows per interval
+// fill) keeps it so, and chunk c of the grid takes the c-th run of whole
+// 128-key tiles of the union, so every block has work and none scores a key
+// outside it. Rows past B, and rows with an empty interval (sorted last),
+// see nothing. Each score is the same sum in the same order whatever the
+// tile height, and a row's top-k is ordered by (score, slot), so the
+// outputs are bit for bit those of the rows in any order. Counting only the
+// visible work, the tenancy path (B=128, N=65536, four 16384-slot regions)
+// needs 1.61 GFLOP (24 us at 67 TFLOP/s) and reads the 100.7 MB f32 slab
+// (30 us at 3.35 TB/s), so its bound is set by bytes: the slab does not fit
+// the 50 MB L2. Before the grouping, a 64-row tile of round-robin tenants
+// spanned all four regions and scored all N for every row, four times the
+// visible work (PERF.md, PR 17). Dense form: one byte of the (B, N) mask per
+// score, read where the score tile is stored; grouping rows does not help
+// it (ROADMAP R4b).
 #include <cuda_runtime.h>
 
 #include "warp_topk.cuh"
@@ -89,6 +101,9 @@ constexpr int BN = 128;                       // keys per tile
 constexpr int DK = 32;                        // dims per tile
 constexpr int NT = 256;                       // threads of a merge block
 constexpr int BQ_WIDE = 64, BQ_NARROW = 4;    // query rows per pass-1 block
+// the interval form's shorter wide tiles: a tile of rows grouped by interval
+// should cover about one interval
+constexpr int BQ_32 = 32, BQ_16 = 16;
 
 // The thread layout of a pass-1 block of BQ query rows: TY x TX threads,
 // each TQ rows (ty + TY i) x TN keys (tx + TX j) of a score tile.
@@ -114,16 +129,17 @@ enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
 enum ScaleSource { TYPE_SCALE = 0, ROW_SCALE = 1 };
 
 // scales: (N,) f32 (ROW_SCALE); valid: (N,) bytes (SHARED_MASK,
-// INTERVAL_MASK); starts/sizes: (B,) int32 (INTERVAL_MASK); mask: (B, N)
-// bytes (DENSE_MASK). Unused pointers may be null.
+// INTERVAL_MASK); starts/sizes: (B,) int32 and order: a (B,) int32
+// permutation of the rows (INTERVAL_MASK); mask: (B, N) bytes (DENSE_MASK).
+// Unused pointers may be null.
 template <typename KT, int MS, int SS, int BQ>
 __global__ void __launch_bounds__(Tile<BQ>::NT)
 cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
                     const float* __restrict__ scales,
                     const uint8_t* __restrict__ valid, const int* __restrict__ starts,
-                    const int* __restrict__ sizes, const uint8_t* __restrict__ mask,
-                    int B, int N, int d, int k, int keys_per_chunk,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
+                    const int* __restrict__ sizes, const int* __restrict__ order,
+                    const uint8_t* __restrict__ mask, int B, int N, int d, int k,
+                    int keys_per_chunk, float* __restrict__ part_s, int* __restrict__ part_i) {
   using L = Tile<BQ>;
   constexpr int NT = L::NT, TX = L::TX, TY = L::TY, TQ = L::TQ, TN = L::TN;
   constexpr int ROWS_PER_WARP = L::ROWS_PER_WARP;
@@ -131,8 +147,9 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   // buffer: qs [DK][BQ + 1] and ks [DK][BN + 1], then sc [BQ][BN + 1]. The +1
   // keeps the transposed stores free of bank conflicts.
   __shared__ float smem[L::SMEM];
-  // INTERVAL_MASK: row r of the block sees [row_lo[r], row_hi[r])
-  __shared__ int row_lo[BQ], row_hi[BQ];
+  // INTERVAL_MASK: row r of the block is query row row_id[r] (-1 past B),
+  // which sees [row_lo[r], row_hi[r])
+  __shared__ int row_id[BQ], row_lo[BQ], row_hi[BQ];
   // ROW_SCALE: the scales of the tile's 128 keys
   __shared__ float row_scale[BN];
   float* qs = smem;
@@ -144,8 +161,26 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   const int lane = tid & 31, warp = tid >> 5;
   const int chunk = blockIdx.x, chunks = gridDim.x;
   const int q0 = blockIdx.y * BQ;
-  const int n_begin = chunk * keys_per_chunk;
-  const int n_end = min(N, n_begin + keys_per_chunk);
+  int n_begin = chunk * keys_per_chunk;
+  int n_end = min(N, n_begin + keys_per_chunk);
+  // the query row of block row r, and whether it is one: the interval form
+  // reads its rows through the permutation `order`, so that a tile holds
+  // rows of about one interval, and writes each row's lists to the row's
+  // own place
+  auto qrow = [=](int r) -> int {
+    if constexpr (MS == INTERVAL_MASK) {
+      return row_id[r];
+    } else {
+      return q0 + r;
+    }
+  };
+  auto is_row = [=](int gr) -> bool {
+    if constexpr (MS == INTERVAL_MASK) {
+      return gr >= 0;
+    } else {
+      return gr < B;
+    }
+  };
 
   float ls[ROWS_PER_WARP];
   int li[ROWS_PER_WARP];
@@ -155,17 +190,20 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
     li[r] = -1;
   }
 
-  // keys [blk_lo, blk_hi) hold every slot some row of the block may see
-  int blk_lo = n_begin, blk_hi = n_end;
-  if (MS == INTERVAL_MASK) {
+  if constexpr (MS == INTERVAL_MASK) {
     if (tid < BQ) {
-      const int gr = q0 + tid;
-      const int lo = gr < B ? starts[gr] : 0;
-      const int sz = gr < B ? sizes[gr] : 0;
+      const int row = q0 + tid < B ? order[q0 + tid] : -1;
+      const int lo = row >= 0 ? starts[row] : 0;
+      const int sz = row >= 0 ? sizes[row] : 0;
+      row_id[tid] = row;
       row_lo[tid] = lo;
       row_hi[tid] = sz > 0 ? lo + sz : lo;
     }
     __syncthreads();
+    // keys [lo, hi) hold every slot some row of the block may see; chunk c
+    // of the grid takes the c-th of `chunks` runs of whole 128-key tiles of
+    // it (keys_per_chunk is not read), so every block of a tile of rows
+    // that see one interval has work, and none scores outside the union
     int lo = N, hi = 0;
     for (int r = 0; r < BQ; ++r) {
       if (row_hi[r] > row_lo[r]) {
@@ -173,12 +211,19 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
         hi = max(hi, row_hi[r]);
       }
     }
-    blk_lo = max(blk_lo, lo);
-    blk_hi = min(blk_hi, hi);
+    const int span = hi > lo ? ((hi - lo + BN - 1) / BN + chunks - 1) / chunks * BN : 0;
+    n_begin = lo + chunk * span;
+    n_end = min(hi, n_begin + span);
   }
 
+  const int blk_lo = n_begin, blk_hi = n_end;
   for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    if (n0 + BN <= blk_lo || n0 >= blk_hi) continue;  // uniform over the block
+    // never true; without it nvcc schedules the shared and dense forms'
+    // loop another way, 2-6% slower on an H100, and with it the interval
+    // form's 5-30% slower (PERF.md, PR 17)
+    if constexpr (MS != INTERVAL_MASK) {
+      if (n0 + BN <= blk_lo || n0 >= blk_hi) continue;
+    }
     if constexpr (SS == ROW_SCALE) {
       // the previous tile's last reads of row_scale precede its final barrier
       if (tid < BN) row_scale[tid] = n0 + tid < n_end ? scales[n0 + tid] : 0.0f;
@@ -201,8 +246,8 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
     auto fetch = [&](int c0) {
 #pragma unroll
       for (int p = 0; p < QL; ++p) {
-        const int e = tid + p * NT, gr = q0 + e / DK, gc = c0 + e % DK;
-        q_next[p] = (gr < B && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
+        const int e = tid + p * NT, gr = qrow(e / DK), gc = c0 + e % DK;
+        q_next[p] = (is_row(gr) && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
       }
 #pragma unroll
       for (int p = 0; p < KL; ++p) {
@@ -239,8 +284,8 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 #pragma unroll
         for (int p = 0; p < BQ * DK / NT; ++p) {
           const int e = tid + p * NT, r = e / DK, c = e % DK;
-          const int gr = q0 + r, gc = c0 + c;
-          qs[c * (BQ + 1) + r] = (gr < B && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
+          const int gr = qrow(r), gc = c0 + c;
+          qs[c * (BQ + 1) + r] = (is_row(gr) && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
         }
 #pragma unroll
         for (int p = 0; p < BN * DK / NT; ++p) {
@@ -319,8 +364,8 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int gr = q0 + warp * ROWS_PER_WARP + r;
-    if (gr < B && lane < k) {
+    const int gr = qrow(warp * ROWS_PER_WARP + r);
+    if (is_row(gr) && lane < k) {
       const size_t o = ((size_t)gr * chunks + chunk) * k + lane;
       part_s[o] = ls[r];
       part_i[o] = li[r];
@@ -359,6 +404,7 @@ struct Args {
   const void* valid;
   const void* starts;
   const void* sizes;
+  const void* order;
   const void* mask;
   int B, N, d, k, keys_per_chunk, chunks, block_q;
   void* part_s;
@@ -377,7 +423,8 @@ cudaError_t launch_tiles(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
       static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid),
       static_cast<const int*>(a.starts), static_cast<const int*>(a.sizes),
-      static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d, a.k, a.keys_per_chunk,
+      static_cast<const int*>(a.order), static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d,
+      a.k, a.keys_per_chunk,
       static_cast<float*>(single ? a.out_s : a.part_s),
       static_cast<int*>(single ? a.out_i : a.part_i));
   cudaError_t err = cudaGetLastError();
@@ -390,22 +437,32 @@ cudaError_t launch_tiles(const Args& a) {
 
 template <typename KT, int MS, int SS>
 cudaError_t launch(const Args& a) {
+  if constexpr (MS == INTERVAL_MASK) {
+    if (a.block_q == BQ_32) return launch_tiles<KT, MS, SS, BQ_32>(a);
+    if (a.block_q == BQ_16) return launch_tiles<KT, MS, SS, BQ_16>(a);
+  }
   return a.block_q == BQ_NARROW ? launch_tiles<KT, MS, SS, BQ_NARROW>(a)
                                 : launch_tiles<KT, MS, SS, BQ_WIDE>(a);
 }
 
+// the interval form chunks each tile's union of intervals itself, so its
+// keys_per_chunk need not cover N
+template <int MS>
 bool bad_split(const Args& a) {
-  return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.keys_per_chunk < 1 ||
-         a.chunks < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
-         (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N ||
-         (a.block_q != BQ_WIDE && a.block_q != BQ_NARROW) ||
+  const bool interval = MS == INTERVAL_MASK;
+  const bool tile_ok = a.block_q == BQ_WIDE || a.block_q == BQ_NARROW ||
+                       (interval && (a.block_q == BQ_32 || a.block_q == BQ_16));
+  return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.chunks < 1 ||
+         (!interval && (a.keys_per_chunk < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
+                        (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)) ||
+         (interval && a.order == nullptr) || !tile_ok ||
          (a.chunks > 1 && (a.part_s == nullptr || a.part_i == nullptr));
 }
 
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (scaled by 1/127)
 template <int MS>
 int dispatch(int key_dtype, const Args& a) {
-  if (bad_split(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_split<MS>(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (key_dtype) {
     case 0:
       return launch<float, MS, TYPE_SCALE>(a);
@@ -421,7 +478,7 @@ int dispatch(int key_dtype, const Args& a) {
 // int8 keys with per-row (N,) f32 scales
 template <int MS>
 int dispatch_quant(const Args& a) {
-  if (bad_split(a) || a.scales == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_split<MS>(a) || a.scales == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<int8_t, MS, ROW_SCALE>(a);
 }
 
@@ -432,28 +489,31 @@ extern "C" {
 // Each entry point returns the cudaError_t of its launches (0 on success).
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8. part_s/part_i hold
 // B * chunks * k entries, or may be null when chunks == 1; chunks *
-// keys_per_chunk must cover N; block_q is the query-tile height of pass 1,
-// 64 or 4.
+// keys_per_chunk must cover N (not read by the interval forms); block_q is
+// the query-tile height of pass 1, 64 or 4, and for the interval forms also
+// 32 or 16.
 
 // shared (N,) mask
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,
                        int B, int N, int d, int k, int keys_per_chunk, int chunks,
                        int block_q, void* part_s, void* part_i, void* out_s, void* out_i,
                        void* stream) {
-  const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, B, N, d, k,
+  const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<SHARED_MASK>(key_dtype, a);
 }
 
 // shared (N,) mask and per-row (B,) int32 intervals; the caller guarantees
-// 0 <= starts, 0 <= sizes and starts + sizes <= N
+// 0 <= starts, 0 <= sizes and starts + sizes <= N. order is a (B,) int32
+// permutation of the rows, the order in which tiles take them (outputs stay
+// in row order); rows of one interval side by side make the kernel fast.
 int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
                                 const void* valid, const void* starts, const void* sizes,
-                                int B, int N, int d, int k, int keys_per_chunk, int chunks,
-                                int block_q, void* part_s, void* part_i, void* out_s, void* out_i,
-                                void* stream) {
-  const Args a{q, keys, nullptr, valid, starts, sizes, nullptr, B, N, d, k,
+                                const void* order, int B, int N, int d, int k,
+                                int keys_per_chunk, int chunks, int block_q, void* part_s,
+                                void* part_i, void* out_s, void* out_i, void* stream) {
+  const Args a{q, keys, nullptr, valid, starts, sizes, order, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<INTERVAL_MASK>(key_dtype, a);
@@ -464,7 +524,7 @@ int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
                               const void* mask, int B, int N, int d, int k,
                               int keys_per_chunk, int chunks, int block_q, void* part_s,
                               void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
+  const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<DENSE_MASK>(key_dtype, a);
@@ -476,7 +536,7 @@ int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales
                              const void* valid, int B, int N, int d, int k,
                              int keys_per_chunk, int chunks, int block_q, void* part_s,
                              void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, B, N, d, k,
+  const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<SHARED_MASK>(a);
@@ -484,11 +544,11 @@ int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales
 
 int quant_cosine_topk_interval_launch(const void* q, const void* keys, const void* scales,
                                       const void* valid, const void* starts,
-                                      const void* sizes, int B, int N, int d, int k,
-                                      int keys_per_chunk, int chunks, int block_q, void* part_s,
-                                      void* part_i, void* out_s, void* out_i,
+                                      const void* sizes, const void* order, int B, int N,
+                                      int d, int k, int keys_per_chunk, int chunks, int block_q,
+                                      void* part_s, void* part_i, void* out_s, void* out_i,
                                       void* stream) {
-  const Args a{q, keys, scales, valid, starts, sizes, nullptr, B, N, d, k,
+  const Args a{q, keys, scales, valid, starts, sizes, order, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<INTERVAL_MASK>(a);
@@ -498,7 +558,7 @@ int quant_cosine_topk_masked_launch(const void* q, const void* keys, const void*
                                     const void* mask, int B, int N, int d, int k,
                                     int keys_per_chunk, int chunks, int block_q, void* part_s,
                                     void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, scales, nullptr, nullptr, nullptr, mask, B, N, d, k,
+  const Args a{q, keys, scales, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<DENSE_MASK>(a);

@@ -11,9 +11,12 @@ visible when ``0 <= slot_pos[s] <= pos`` and, with a window,
 D a multiple of 32 up to 256. Returns (B, 1, H, D) in q's dtype; a row
 with no visible slot is 0.
 
-The wrapper checks its arguments, allocates the output with
+The kernel cuts S into ``n_split`` splits, one block each per (b,
+kv-head) (``split`` picks the count); with more than one, the same C entry
+point launches a second kernel that merges them. The wrapper checks its
+arguments, allocates the output and the splits' scratch with
 ``torch.empty``, launches on the current stream without synchronizing,
-raises if the launch was refused, and counts its launches in
+raises if a launch was refused, and counts one launch per call in
 ``launches["decode_attention"]``. It takes CUDA tensors only: ``ops``
 sends CPU tensors to the plain version.
 """
@@ -31,6 +34,10 @@ launches = {"decode_attention": 0}
 
 MAX_G = 16       # query heads per KV head (MAX_G in the source)
 MAX_D = 256      # head dim, a multiple of 32
+MAX_TILE = 128   # cache slots a block stages at once (MAX_TILE in the source)
+TILE_BYTES = 64 * 1024   # K and V bytes of one staged tile, at most
+MIN_SLOTS = 64   # slots a split, at least
+MAX_SPLITS = 128  # splits a (b, kv-head), at most (MAX_SPLITS in the source)
 Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -90,15 +97,48 @@ def check_args(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError("every operand must be on one device")
 
 
+def split(s: int, d: int, kv_bytes: int) -> tuple[int, int]:
+    """(n_split, tile) of a launch: the S slots of each (b, kv-head) are cut
+    into ``n_split`` near-equal splits of at least ``MIN_SLOTS`` slots, as
+    many as that allows up to ``MAX_SPLITS`` (so ``n_split == 1`` at S <
+    128, the serve path's 96-slot caches), each split one block, walked in
+    tiles of ``tile`` slots: one tile a split unless ``MAX_SPLITS`` binds or
+    a tile would pass ``MAX_TILE`` slots or ``TILE_BYTES`` of K and V, the
+    tiles of a split balanced. Smaller splits put more blocks, hence more
+    loads, in flight on each SM; below ``MIN_SLOTS`` the merge costs more
+    than that saves (PERF.md, PR 17). B * HKV blocks a split: at the serve
+    path's shape (39 misses, 4 KV heads) that alone fills the card."""
+    max_tile = max(1, min(MAX_TILE, TILE_BYTES // (2 * d * kv_bytes)))
+    n_split = max(1, min(s // MIN_SLOTS, MAX_SPLITS))
+    longest = -(-s // n_split)
+    return n_split, -(-longest // -(-longest // max_tile))
+
+
+def scratch(q: torch.Tensor, n_split: int, hkv: int
+            ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(part_acc, part_ml) of a launch with ``n_split`` splits, the splits'
+    unnormalized accumulators and (running max, sum); None at one split."""
+    if n_split == 1:
+        return None, None
+    b, _, h, d = q.shape
+    g = h // hkv
+    part_acc = torch.empty((b, hkv, n_split, g, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, hkv, n_split, g, 2), dtype=torch.float32,
+                          device=q.device)
+    return part_acc, part_ml
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     if lib.decode_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # q k v k_scale v_scale slot_pos out q_dtype kv_dtype B S H HKV D
-        # pos window n_sink scale stream
+        # pos window n_sink scale n_split tile part_acc part_ml stream
         lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                                 i, i, i, i, i, i, i,
-                                                ctypes.c_float, p]
+                                                ctypes.c_float, i, i, p, p,
+                                                p]
         lib.decode_attention_launch.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [i]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -120,12 +160,16 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"the CUDA decode attention takes CUDA tensors, "
                            f"got {dev}; ops routes CPU tensors to the plain "
                            "version")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     lib = _lib()
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     quant = k_cache.dtype == torch.int8
+    n_split, tile = split(s, d, k_cache.element_size())
+    part = scratch(q, n_split, hkv)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
@@ -134,9 +178,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             v_scale.data_ptr() if quant else None, slot_pos.data_ptr(),
             out.data_ptr(), Q_CODE[q.dtype], KV_CODE[k_cache.dtype], b, s, h,
             hkv, d, int(pos), -1 if window is None else window, n_sink, scale,
+            n_split, tile, *(None if t is None else t.data_ptr()
+                             for t in part),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention launch failed: "
-                           f"{lib.decode_attention_error_string(err).decode()}")
+        msg = lib.decode_attention_error_string(err).decode()
+        raise RuntimeError(f"decode_attention launch failed: {msg}")
     launches["decode_attention"] += 1
     return out

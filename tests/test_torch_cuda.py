@@ -1,5 +1,6 @@
 """The port on the card: the CUDA cosine top-k kernels (shared mask, per-row
-interval, dense per-row mask; k up to the IVF probe's 16 and past it) and
+interval, dense per-row mask; k up to the IVF probe's 16 and past it; the
+interval forms' outputs independent of how rows are laid out) and
 the IVF candidate top-k against their plain PyTorch versions, the three
 per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
@@ -306,6 +307,73 @@ def test_cuda_quant_per_row_kernels_match_plain_versions(cuda_device, b, n,
         assert ki[r, :len(want)].cpu().tolist() == want.tolist()
 
 
+def make_layout_inputs(b, n, d, regions, seed):
+    """Unit queries and keys over ``regions`` equal slab regions; row r sees
+    region r % regions (every fifth row nothing), and ``valid`` holds 70%
+    of the slots. Returns (q, keys, valid, starts, sizes)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    size = n // regions
+    starts = (np.arange(b) % regions * size).astype(np.int32)
+    sizes = np.full(b, size, np.int32)
+    sizes[4::5] = 0
+    return q, keys, rng.random(n) < 0.7, starts, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("b", [1, 37, 128])
+def test_cuda_interval_kernels_ignore_the_row_layout(cuda_device, b, k,
+                                                     quant):
+    """Rows round robin over the regions (every tile mixes them), sorted by
+    region, and at random give each row the same top-k, bit for bit; the
+    round-robin layout also equals the plain version."""
+    q, keys, valid, starts, sizes = make_layout_inputs(b, 4096, 64, 4,
+                                                       seed=b + k)
+    dev = cuda_device
+    kt = torch.from_numpy(keys).to(dev)
+    scales = None
+    if quant:
+        kt, scales = kmod.quantize_keys(kt)
+    name = "quant_cosine_topk_interval" if quant else "cosine_topk_interval"
+    perms = {"round_robin": np.arange(b),
+             "sorted": np.argsort(starts + (sizes == 0) * 4096,
+                                  kind="stable"),
+             "random": np.random.default_rng(b).permutation(b)}
+    got = {}
+    for layout, perm in perms.items():
+        args = [torch.from_numpy(np.ascontiguousarray(x[perm])).to(dev)
+                for x in (q, starts, sizes)]
+        vt = torch.from_numpy(valid).to(dev)
+        before = kmod.launches[name]
+        if quant:
+            ks, ki = kmod.quant_cosine_topk_interval_cuda(
+                args[0], kt, scales, vt, args[1], args[2], k)
+        else:
+            ks, ki = kmod.cosine_topk_interval_cuda(args[0], kt, vt, args[1],
+                                                    args[2], k)
+        assert kmod.launches[name] == before + 1
+        back = np.argsort(perm)   # to round-robin row order
+        got[layout] = (ks.cpu()[back], ki.cpu()[back])
+    for layout in ("sorted", "random"):
+        assert torch.equal(got[layout][0].view(torch.int32),
+                           got["round_robin"][0].view(torch.int32)), layout
+        assert torch.equal(got[layout][1], got["round_robin"][1]), layout
+    cpu = [torch.from_numpy(x) for x in (q, valid, starts, sizes)]
+    if quant:
+        rs, ri = tref.quant_cosine_topk_interval_ref(
+            cpu[0], kt.cpu(), scales.cpu(), *cpu[1:], k)
+    else:
+        rs, ri = tref.cosine_topk_interval_ref(cpu[0], kt.cpu(), *cpu[1:], k)
+    torch.testing.assert_close(got["round_robin"][0], rs, rtol=0, atol=1e-5)
+    assert torch.equal(got["round_robin"][1], ri)
+    assert bool(torch.all(ri[torch.from_numpy(sizes == 0)] == -1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_dtype", ["f32", "int8"])
 @pytest.mark.parametrize("fused", [True, False])
@@ -315,9 +383,8 @@ def test_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype, fused):
     kmod.reset_launches()
     eng, requests, on_card = serve.run(device=str(cuda_device), **kw)
     # one search a batch
-    assert kmod.launches == {"cosine_topk": -(-len(requests) // 16),
-                             "cosine_topk_interval": 0,
-                             "cosine_topk_masked": 0}
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk": -(-len(requests) // 16)}
     _, _, on_cpu = serve.run(device="cpu", **kw)
     assert [(r.answer, r.cached) for r in on_card] == \
         [(r.answer, r.cached) for r in on_cpu]
@@ -334,9 +401,8 @@ def test_tenant_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype, fused):
               key_dtype=key_dtype, log=lambda *a: None)
     kmod.reset_launches()
     eng, requests, on_card = serve.run(device=str(cuda_device), **kw)
-    assert kmod.launches == {"cosine_topk": 0,
-                             "cosine_topk_interval": -(-len(requests) // 16),
-                             "cosine_topk_masked": 0}
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk_interval": -(-len(requests) // 16)}
     cpu, _, on_cpu = serve.run(device="cpu", **kw)
     assert [(r.answer, r.cached) for r in on_card] == \
         [(r.answer, r.cached) for r in on_cpu]
@@ -460,9 +526,8 @@ def test_ivf_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype,
     kivf.reset_launches()
     on_card = _served(eng.process(requests))
     batches = -(-len(requests) // 16)
-    assert kmod.launches == {"cosine_topk": batches,
-                             "cosine_topk_interval": 0,
-                             "cosine_topk_masked": 0}
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk": batches}
     assert kivf.launches == {"ivf_topk": batches}
     assert any(cached for _, cached in on_card[0])
     restored, _ = _ivf_engine("cpu", **kw)
@@ -518,7 +583,14 @@ DECODE_CUDA_CASES = [  # (B, S, H, HKV, D, window, n_sink, ring)
     (5, 96, 32, 4, 128, None, 0, False),    # the serve path's heads
     (2, 512, 8, 2, 64, None, 0, True),      # a ring with empty slots
     (3, 96, 6, 2, 64, 32, 8, False),        # window with sinks
-    (2, 128, 16, 1, 256, None, 0, False),   # G=16, D=256
+    (2, 128, 16, 1, 256, None, 0, False),   # G=16, D=256, two splits
+    (1, 96, 32, 4, 128, None, 0, False),    # B=1
+    (2, 1, 8, 2, 64, None, 0, False),       # S=1
+    (3, 17, 8, 2, 64, None, 0, False),      # S=17, one split
+    (2, 4096, 32, 4, 128, None, 0, False),  # S=4096, several splits
+    (3, 512, 32, 4, 128, None, 0, True),    # whole splits empty: m = -inf
+    (1, 1024, 16, 1, 256, 300, 2, True),    # G=16, D=256, split, window
+    (1, 20000, 4, 1, 64, None, 0, True),    # 128 splits of two tiles each
 ]
 
 
@@ -558,6 +630,8 @@ def test_cuda_decode_attention_matches_plain_version(cuda_device, b, s, h,
     q, k, v, sp, pos, ks, vs = _decode_case(b, s, h, hkv, d, ring, kv,
                                             cuda_device, seed=b * s + h)
     kw = dict(window=window, n_sink=sink, k_scale=ks, v_scale=vs)
+    n_split, _ = kdec.split(s, d, k.element_size())
+    assert (n_split > 1) == (s >= 2 * kdec.MIN_SLOTS)
     before = kdec.launches["decode_attention"]
     out = kdec.decode_attention_cuda(q, k, v, sp, pos, **kw)
     assert kdec.launches["decode_attention"] == before + 1

@@ -14,7 +14,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "flash_variants.py",
+                                 "decode_variants.py")]
     assert len(files) > 10
     return files
 
