@@ -12,7 +12,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
   kernel    each CUDA kernel (shared-mask, per-row interval and dense-mask
             cosine top-k, k up to the IVF probe's 16 and past it, small
             slabs of 1 to 1,000 keys through the 4-row query tiles, k past
-            N, each also over an int8 slab with per-row scales; the IVF
+            N, B past one 128-row tensor-core tile, d=100, each also over
+            an int8 slab with per-row scales; the IVF
             candidate top-k on a real candidate matrix, all-visible,
             all-empty, ragged and planted-tie cases) against its plain
             PyTorch version on the card;
@@ -20,7 +21,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
             counted, held request by request against the same run on the CPU;
-            then the separate lookup+insert path against the fused one
+            each served batch searched whole (tensor cores) and row by row
+            (FMA), with the same hit decisions; then the separate
+            lookup+insert path against the fused one
   tenancy   the multi-tenant serve loop (``launch.serve --tenants 4``
             defaults) the same way, through the interval kernel; then
             ``ExactIndex.search`` with a per-row (B, N) mask through the
@@ -38,7 +41,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
             the plain versions, with the hit decisions that differ from the
             f32 search of the same slab counted
   timing    each kernel, its plain version and one PyTorch call computing
-            the same function, timed in turns with CUDA events; the IVF
+            the same function, timed in turns with CUDA events; the
+            shared-mask rows also from a CUDA graph of the wrapper's
+            launches, beside cuBLAS ``q @ keys.T`` alone (TF32 off), their
+            bound reckoned for 3xTF32 (2 products for int8 keys) with the
+            f32-FMA bound beside it; the IVF
             probe's split and its kernel launches per call (one); the
             interval forms also from a CUDA graph of what their wrappers
             launch (the row order on the card, then the kernel), with the
@@ -77,10 +84,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense TF32 on them, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
-SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-2, "quant": 1e-5}
+# bf16 keys and the plain version's operands are the same bf16 numbers, exact
+# in f32, so bf16 is held to the f32 tolerance
+SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-5, "quant": 1e-5}
 MAIN_BATCHES = 16          # 2,000 test queries in batches of 128
 TENANTS = 4                # launch.serve --tenants 4: 4 x 16,384 slots
 KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked",
@@ -357,6 +367,10 @@ def phase_kernel(torch) -> dict:
         (1, 1000, 384, 32, "few"),
         (200, 1000, 384, 16, "random"),
         (7, 1000, 1536, 1, "random"),
+        # past one 128-row tensor-core tile; d = 100, not a whole 32-dim
+        # slice (f32 rows by cp.async, bf16 and int8 rows by plain loads)
+        (129, 16385, 100, 4, "random"),
+        (129, 16383, 384, 16, "random"),
     ]
     per_row_cases = [  # (B, N, d, k, interval layout)
         (128, 65536, 384, 4, "regions"),    # the tenancy path's shape
@@ -554,6 +568,7 @@ def phase_main(torch) -> tuple[int, dict, tuple]:
             served = (eng, reqs)
             hits = {c: m["cache_hits"] for c, m in
                     eng.metrics.summary()["categories"].items()}
+            _batch_size_check(torch, resp)
         scores = [r.score for r in resp]
         if len(resp) != len(reqs) or not all(
                 math.isfinite(s) for s in scores):
@@ -589,6 +604,72 @@ def phase_main(torch) -> tuple[int, dict, tuple]:
     emit("main", check="separate path equals fused", requests=len(fused),
          launches_fused=fl["cosine_topk"], launches_separate=sl["cosine_topk"])
     return main_launches, hits, served
+
+
+def _batch_size_check(torch, served) -> None:
+    """The main path's f32 stream served again on a fresh engine, where
+    every batch's search over the slab, as that batch finds it, is made
+    whole (128 rows: tensor-core tiles, 3xTF32) and one row at a time (4-row
+    tiles, f32 FMAs). The hit decisions at THRESHOLD must agree, and the
+    replay's responses must be ``served``'s. Prints the largest score
+    difference between the two forms (ROADMAP, Queue C), how many rows miss
+    and the closest score to THRESHOLD."""
+    from repro_torch.core import index as index_mod
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.launch import serve
+    ops = index_mod.ops
+    search = ops.cosine_topk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = {"diff": 0.0, "flips": 0, "rows": 0, "misses": 0,
+            "closest": math.inf}
+
+    def both_forms(q, keys, alive, *, k):
+        # one search a batch (the fused step's peek); its pad rows left out
+        n_valid = next(batch_rows)
+        forms = {kmod.split(b, keys.shape[0], sms, shared=True)[2]
+                 for b in (q.shape[0], 1)}
+        if forms != {kmod.BLOCK_Q_TC, kmod.BLOCK_Q_NARROW}:
+            fail(f"batch-size check: the forms compared are {forms}")
+        out = search(q, keys, alive, k=k)
+        whole = out[0][:n_valid, 0]
+        single = torch.cat([search(q[r:r + 1], keys, alive, k=k)[0]
+                            for r in range(n_valid)])[:, 0]
+        if not torch.equal(torch.isfinite(whole), torch.isfinite(single)):
+            fail("batch-size check: a row sees slots in one form only")
+        fin = torch.isfinite(whole)
+        if fin.any():
+            seen["diff"] = max(seen["diff"], float(
+                (whole[fin] - single[fin]).abs().max()))
+            seen["closest"] = min(seen["closest"], float(
+                (whole[fin] - THRESHOLD).abs().min()))
+        seen["flips"] += int(((whole >= THRESHOLD)
+                              != (single >= THRESHOLD)).sum())
+        seen["misses"] += int((whole < THRESHOLD).sum())
+        seen["rows"] += n_valid
+        return out
+
+    eng, reqs = serve.build(device="cuda", key_dtype="f32",
+                            log=lambda *a: None)
+    batch_rows = iter([len(b) for b in eng.batcher.batches(reqs)])
+    ops.cosine_topk = both_forms
+    try:
+        resp = eng.process(reqs)
+    finally:
+        ops.cosine_topk = search
+    torch.cuda.synchronize()
+    _same_decisions(resp, served, "batch-size replay vs the main path", 0.0)
+    if seen["rows"] != len(reqs):
+        fail(f"batch-size check: {seen['rows']} of {len(reqs)} rows compared")
+    if seen["flips"]:
+        fail(f"batch-size check: {seen['flips']} hit decisions differ "
+             "between a batch of 128 and one row at a time")
+    if not seen["diff"] <= SCORE_TOL["f32"]:
+        fail(f"batch-size check: scores differ by {seen['diff']}")
+    emit("main", check="batch of 128 (tensor cores) vs one row (FMA), "
+         "each batch over the slab as it was served", rows=seen["rows"],
+         max_score_diff=seen["diff"], hit_decisions_differing=seen["flips"],
+         rows_below_threshold=seen["misses"],
+         closest_score_to_threshold=seen["closest"])
 
 
 # --------------------------------------------------------------------- #
@@ -1076,14 +1157,30 @@ def phase_timing(torch, card: str) -> dict:
             return torch.topk(torch.where(valid, q @ _as_f32(torch, *slab).T,
                                           neg), k)
 
+        keys_f32 = _as_f32(torch, *slab)
+
+        def gemm():
+            return q @ keys_f32.T
+
         reps = 200 if n <= 16384 else 10
         ms, times = _time_turns(torch, {"kernel": kernel, "plain": plain,
                                         "library": library}, reps)
-        bound = _bound(2.0 * b * n * d,
-                       b * d * 4 + n * slot_bytes + n + b * k * 8)
-        row = {"kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
-               "library_ms": ms["library"], "runs_ms": times, **bound,
-               "share_of_bound": bound["bound_ms"] / ms["kernel"],
+        # the tensor-core form's products: a_lo b_hi + a_hi b_lo + a_hi b_hi
+        # for f32 keys, two for int8 keys (exact; scaled after the sum)
+        nbytes = b * d * 4 + n * slot_bytes + n + b * k * 8
+        products = 3 if dtype == "f32" else 2
+        bound = _bound(products * 2.0 * b * n * d, nbytes, PEAK_TF32_FLOPS)
+        fma = _bound(2.0 * b * n * d, nbytes)
+        graph_ms = _time_graph(torch, kernel, reps)
+        row = {"kernel_ms": ms["kernel"], "graph_ms": graph_ms,
+               "plain_ms": ms["plain"], "library_ms": ms["library"],
+               "gemm_ms": _time_graph(torch, gemm, reps), "runs_ms": times,
+               **bound, "tf32_products": products,
+               "bound_fma_ms": fma["bound_ms"],
+               "bound_fma_by": fma["bound_by"],
+               "share_of_bound": bound["bound_ms"] / graph_ms,
+               "split": kmod.split(b, n, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count, shared=True),
                "l2_warm": n * slot_bytes < 50e6}
         out[(name, n, dtype)] = row
         emit("timing", kernel=name, B=b, N=n, d=d, k=k,

@@ -30,12 +30,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+from variant_harness import CSRC, ROOT, build, ptxas_after, turns
+
 OUT = ROOT / "build" / "decode_variants"
 
 # ---- the one-block-per-(b, kv-head) kernel (serial loads per slot) ------
@@ -163,38 +162,6 @@ def variants(src: str) -> tuple[str, dict[str, tuple[str, bool]]]:
                      "of decode_attention.cu")
 
 
-def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """One nvcc each, all at once; returns each library and the -Xptxas -v
-    lines of its bf16-query, bf16-cache kernel."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", "-gencode",
-             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-             "-o", str(OUT / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            if name == "kernel":
-                raise SystemExit(f"nvcc failed on {name}:\n{log[-3000:]}")
-            print(json.dumps({"variant": name, "nvcc_failed": log[-1500:]}),
-                  flush=True)
-            continue
-        lines = log.splitlines()
-        at = [i for i, line in enumerate(lines) if "properties" in line
-              and ("decode_tc_kernel" in line or "13__nv_bfloat16S" in line)]
-        ptxas = " | ".join(x.strip() for x in lines[at[0] + 1:at[0] + 3]) \
-            if at else ""
-        libs[name] = (ctypes.CDLL(str(OUT / f"lib{name}.so")), ptxas)
-    return libs
-
-
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--source", type=Path,
@@ -212,7 +179,10 @@ def main() -> None:
 
     card = cs.nvidia_smi()
     design, found = variants(args.source.read_text())
-    libs = build({name: text for name, (text, _) in found.items()})
+    # the bf16-query, bf16-cache kernel's registers and spills
+    libs = build({name: text for name, (text, _) in found.items()}, OUT,
+                 {"kernel"}, ptxas_after(lambda line: "decode_tc_kernel"
+                                         in line or "13__nv_bfloat16S" in line))
     found = {name: found[name] for name in libs}
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib, _ in libs.values():
@@ -276,10 +246,7 @@ def main() -> None:
         mask = ((sp >= 0) & (sp <= pos))[None, None, None, :]
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        times = {name: [] for name in fns}
-        for turn in range(4):
-            for name in list(fns)[::1 if turn % 2 == 0 else -1]:
-                times[name].append(cs._time_graph(torch, fns[name], 200))
+        times = turns(fns, 200)
         for name, runs in times.items():
             row = {"design": design, "shape": shape, "B": b, "S": s,
                    "visible": int(((sp >= 0) & (sp <= pos)).sum()),

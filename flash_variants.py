@@ -20,12 +20,10 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+from variant_harness import CSRC, ROOT, build, ptxas_after, turns
+
 OUT = ROOT / "build" / "flash_variants"
 
 EXP = ("__expf(m[r] - m_new)", "__expf(x - m_new)")
@@ -72,39 +70,6 @@ def variants(src: str) -> dict[str, str]:
     }
 
 
-def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """One nvcc each, all at once; returns each library and the -Xptxas -v
-    lines of its D=128 bf16 kernel."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", "-gencode",
-             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-             "-o", str(OUT / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on {name}:\n{log[-3000:]}")
-        lines = log.splitlines()
-        at = [i for i, line in enumerate(lines)
-              if "bf16_kernelILi128" in line and "properties" in line]
-        ptxas = " | ".join(x.strip() for x in lines[at[0] + 1:at[0] + 3]) \
-            if at else ""
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [
-            ctypes.c_float, p]
-        lib.flash_attention_launch.restype = ctypes.c_int
-        libs[name] = (lib, ptxas)
-    return libs
-
-
 def main() -> None:
     import torch
     import torch.nn.functional as F
@@ -116,7 +81,15 @@ def main() -> None:
     from repro_torch.kernels import ref
 
     card = cs.nvidia_smi()
-    libs = build(variants((CSRC / "flash_attention.cu").read_text()))
+    found = variants((CSRC / "flash_attention.cu").read_text())
+    # the D=128 bf16 kernel's registers and spills
+    libs = build(found, OUT, set(found),
+                 ptxas_after(lambda line: "bf16_kernelILi128" in line))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib, _ in libs.values():
+        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [
+            ctypes.c_float, p]
+        lib.flash_attention_launch.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(47)
 
     def call(lib, q, k, v, window=None):
@@ -154,10 +127,7 @@ def main() -> None:
            for name, (lib, _) in libs.items()}
     fns["sdpa"] = lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
-    times = {name: [] for name in fns}
-    for turn in range(4):
-        for name in list(fns)[::1 if turn % 2 == 0 else -1]:
-            times[name].append(cs._time_graph(torch, fns[name], 200))
+    times = turns(fns, 200)
     for name, runs in times.items():
         print(json.dumps({"variant": name, "graph_ms": min(runs),
                           "runs_ms": runs, "max_abs_err": errs.get(name),

@@ -53,8 +53,19 @@ MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
 BLOCK_Q = 64    # query rows per wide block of pass 1 (BQ_WIDE in the source)
 BLOCK_Q_NARROW = 4   # one warp per query row (BQ_NARROW in the source)
 BLOCK_Q_INTERVAL = (64, 32, 16)   # wide tile heights of the interval forms
-BLOCK_N = 128   # keys per tile of pass 1 (BN in the source)
+# the shared-mask forms' tensor-core tiles (tc::BQ in the source): a block
+# takes the serve path's whole batch of 128 queries, so each key is read once
+BLOCK_Q_TC = 128
+BLOCK_N = 128   # keys per tile of pass 1 (BN and tc::BN in the source)
 BLOCKS_PER_SM = 4
+TC_BLOCKS_PER_SM = 1   # the tensor-core block holds ~210 KB of shared memory
+# tensor-core tiles where at least TC_MIN_ROWS query rows fill them and there
+# are at least TC_MIN_SCORES scores: a block of one 128 x 128 tile takes
+# ~40 us however few blocks there are, while the 4-row tiles' time grows with
+# B x N and passes it near 2**18 scores on an H100 (B=128 from N=2,048, B=64
+# from 4,096, B=32 from 8,192; cosine_variants.py, PERF.md §6)
+TC_MIN_ROWS = 32
+TC_MIN_SCORES = 1 << 18
 # the interval forms' blocks each score up to a few 128-key tiles of their
 # union: one block an SM there beat two or four at the tenancy shape on an
 # H100 (PERF.md, PR 17)
@@ -248,12 +259,19 @@ def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
 
 
 def split(b: int, n: int, num_sms: int, groups: int | None = None,
-          span: int | None = None) -> tuple[int, int, int]:
+          span: int | None = None, shared: bool = False
+          ) -> tuple[int, int, int]:
     """(keys per chunk, chunks, query rows per block) of pass 1: 64-row
     query tiles, or 4-row ones where 64-row tiles over one 128-key tile each
     would still give fewer blocks than SMs (the IVF probe: 128 queries over
     128 centroids); then whole 128-key tiles per chunk, as few as give
     about ``BLOCKS_PER_SM`` blocks per SM.
+
+    The shared-mask forms (``shared``) take 128-row tensor-core tiles where
+    ``b >= TC_MIN_ROWS`` and ``b * n >= TC_MIN_SCORES``, chunked for about
+    ``TC_BLOCKS_PER_SM`` blocks an SM (the main path, B=128 over 16,384
+    slots: 128 blocks of one tile each); 4-row tiles elsewhere (the IVF
+    probe, a few queries, a small slab).
 
     The interval forms pass ``groups``, the number of distinct non-empty
     intervals, and ``span``, the largest: rows sorted by interval
@@ -270,9 +288,22 @@ def split(b: int, n: int, num_sms: int, groups: int | None = None,
                     if rows >= h or h == BLOCK_Q_INTERVAL[-1])
         n = max(span or 0, 1)
     n_tiles = -(-n // BLOCK_N)
-    block_q = wide if -(-b // wide) * n_tiles >= num_sms \
-        else BLOCK_Q_NARROW
-    q_tiles = -(-b // block_q)
+    if shared:
+        tc = b >= TC_MIN_ROWS and b * n >= TC_MIN_SCORES
+        block_q = BLOCK_Q_TC if tc else BLOCK_Q_NARROW
+        per_sm = TC_BLOCKS_PER_SM if tc else BLOCKS_PER_SM
+    else:
+        block_q = wide if -(-b // wide) * n_tiles >= num_sms \
+            else BLOCK_Q_NARROW
+    return chunking(b, n, num_sms, block_q, per_sm)
+
+
+def chunking(b: int, n: int, num_sms: int, block_q: int, per_sm: int
+             ) -> tuple[int, int, int]:
+    """(keys per chunk, chunks, ``block_q``) for query tiles of ``block_q``
+    rows: whole ``BLOCK_N``-key tiles per chunk, as few as give about
+    ``per_sm`` blocks an SM."""
+    n_tiles, q_tiles = -(-n // BLOCK_N), -(-b // block_q)
     want = max(1, -(-per_sm * num_sms // q_tiles))
     per_chunk = -(-n_tiles // want) * BLOCK_N
     return per_chunk, -(-n // per_chunk), block_q
@@ -316,7 +347,9 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     b, d = queries.shape
     n = keys.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_chunk, chunks, block_q = split(b, n, sms, *(intervals or ()))
+    per_chunk, chunks, block_q = split(
+        b, n, sms, *(intervals or ()),
+        shared=name in ("cosine_topk", "quant_cosine_topk"))
     # one chunk: pass 1 writes the output and pass 2 is not launched
     part_s = part_i = None
     if chunks > 1:

@@ -15,58 +15,79 @@
 // scores = queries (B, d) x keys (N, d)^T, then the k <= 32 best visible
 // slots of each row, ordered by (score desc, slot id asc), with (-inf, -1) where
 // fewer than k slots are visible. Keys are f32, bf16 or int8, loaded as they
-// are stored (int8 one byte each). Two template parameters of pass 1 decide
-// the rest. The scale source turns a key into f32 as it is stored in shared
-// memory: by its type (int8 times 1/127, the slab's uniform quantization) or
-// as float(kq) * scales[n], the product the Pallas kernel and the plain
-// version form before their GEMM, so the FMAs see the plain version's operands
-// bit for bit; each tile reads its 128 scales once. The mask source decides
-// which scores are offered to the top-k lists, so a slot outside a row's
-// interval (or dense mask) never enters that row's list, whatever its score
-// or slot id.
+// are stored (int8 one byte each). The mask source (a template parameter)
+// decides which scores are offered to the top-k lists, so a slot outside a
+// row's interval (or dense mask) never enters that row's list, whatever its
+// score or slot id. The scale source turns a key into the plain version's
+// f32 operand: by its type (int8 times 1/127, the slab's uniform
+// quantization) or as float(kq) * scales[n], the product the Pallas kernel
+// and the plain version form before their GEMM.
+//
+// Two pass-1 loops. The shared-mask forms (the serve path: rows 1 and 2 of
+// PERF.md §6) run on tensor cores (cosine_topk_tc, 128-row tiles); the
+// interval and dense forms, and the shared forms where 128-row tiles do not
+// pay (the IVF probe, a few queries), run f32 FMAs on CUDA cores
+// (cosine_topk_partial, 64-, 32-, 16- and 4-row tiles). Each loop is its own
+// kernel, so a change to one does not move the other's code.
 //
 // Bound on an H100 SXM at the main path's shapes (B=128, d=384, N=16384, f32
-// keys): 2*B*d*N = 1.61 GFLOP at the 67 TFLOP/s f32 CUDA-core peak is 24 us,
-// while reading the 25.4 MB slab at 3.35 TB/s is 7.6 us, so it is bound by
-// operations. The products run in plain f32 FMA, not TF32 and not tensor
-// cores: at the paper's configuration the closest score lies 1.85e-5 from the
-// 0.8 threshold, and TF32's ~1e-3 error would flip hit decisions. A per-row-
-// scale int8 slab moves 6.6 MB instead of 25.4 MB (keys, scales, mask) but
-// does the same 1.61 GFLOP, so it has the same 24 us bound; scaling after the
-// dot, or int8 tensor-core products, would round differently from the plain
-// version and are later work.
+// keys): the tensor-core form does 3 TF32 products per f32 product (3 x 1.61
+// GFLOP at the 494.7 TFLOP/s dense TF32 peak: 9.8 us); int8 keys take 2
+// (6.5 us); reading the 25.4 MB f32 slab at 3.35 TB/s takes 7.6 us, the
+// 6.6 MB int8 one 2.0 us. So it is bound by operations. On f32 FMAs (67
+// TFLOP/s) the same 1.61 GFLOP take 24 us. TF32 alone errs by ~5e-5 on a
+// score at d=384 (tests/test_torch_tf32.py), past the 1.85e-5 by which the
+// paper configuration's closest score clears the 0.8 threshold; 3xTF32
+// stays within ~2e-7 of the f32 products.
 //
 // Design. The TPU kernel carries a running top-k across a sequential grid;
 // CUDA blocks run in no order, so this is two passes.
-//   Pass 1, grid (N-chunks, query tiles). A block streams its chunk in
-//     tiles of 128 keys x 32 dims through shared memory, converting the keys
-//     to f32 as they are loaded. Each thread accumulates a patch of scores
-//     with FMAs over d in a fixed order (per 32-dim tile, then across
-//     tiles), so two equal key rows get bitwise-equal scores and ties
-//     resolve by slot id alone. Each score tile is masked by `valid` and
-//     offered to one warp-held top-k list per query row; a list keeps one
-//     entry per lane (warp_topk.cuh), so the IVF probe's k=16 runs the same
-//     code, in the same registers, as the main path's k=4. The block writes
-//     its lists to partial (B, chunks, k), or straight to the output when
-//     there is one chunk.
+//   Pass 1, grid (N-chunks, query tiles): each block scores its chunk of
+//     whole 128-key tiles against its query tile and keeps, per query row,
+//     the k best; it writes them to partial (B, chunks, k), or straight to
+//     the output when there is one chunk.
 //   Pass 2 merges each row's chunks x k candidates, one warp per row; it is
 //     not launched when there is one chunk.
-// The query-tile height is a template parameter of pass 1, chosen by the
-// wrapper's split (kernels/cosine_topk.py); the interval form also takes
-// wide tiles of 32 and 16 rows (below):
-//   wide, 64 rows: 256 threads in 16 x 16, a 4 x 8 patch each, 8 rows a
-//     warp in the top-k. The split gives B=128, N=16384 a grid of 128
-//     chunks x 2 tiles = 256 blocks, about two per SM, all resident at once.
+// Tensor-core form (block_q = 128, tc:: below). A block takes 128 query rows
+// (the serve path's whole batch, so every key is read once from device
+// memory) and 128-key tiles in 32-dim slices, STAGES - 1 slices of queries
+// and keys in flight by 16-byte cp.async while one is multiplied, across
+// tile boundaries; the main shape is 128 blocks of one tile each, one block
+// an SM (~210 KB of shared memory, 230-250 registers, no spills). Each warp
+// computes a 64 x 32 patch with mma.sync.m16n8k8 TF32: per 8 dims, a_lo
+// b_hi + a_hi b_lo + a_hi b_hi, where hi is x rounded to TF32 by integer
+// operations and lo = x - hi (the tensor cores drop its low 13 bits);
+// queries and f32 keys reach the registers by ldmatrix and are split there.
+// bf16 keys are exact in TF32, and int8 keys enter as they are stored,
+// their scale multiplying the sum (a rounding ~1e-7 from the plain
+// version's): two products. As in the FMA form, a fresh sum per 32-dim
+// slice is added to the tile's f32 sum, and two equal key rows get
+// bitwise-equal scores, so ties resolve by slot id alone. The tile's scores,
+// masked, go to shared memory; for k <= 4 two threads a row take half its
+// keys each into a sorted 4-entry list by a branch-free compare-exchange
+// (ids rise, so a tie never ranks first), skipping groups of four below the
+// list's last entry; pass 2 is then one warp a row over lane-held 4-entry
+// lists merged by a shuffle butterfly. For larger k a warp a row keeps a
+// list of one entry per lane (warp_topk.cuh) across the tiles, and pass 2
+// is the FMA form's.
+// FMA form (cosine_topk_partial): each thread accumulates a patch of scores
+// with FMAs over d in the same two-level order; each score tile is masked
+// and offered to one warp-held list per query row, so the IVF probe's k=16
+// runs the same code as the main path's k=4. Its tile heights:
+//   wide, 64 rows (dense form): 256 threads in 16 x 16, a 4 x 8 patch each,
+//     8 rows a warp in the top-k.
 //   narrow, 4 rows: 128 threads, one warp per query row, each lane 4 keys
 //     (lane + 32 j) of its row, the next 32-dim slice of queries and keys
-//     loaded into registers while this one is multiplied. Taken where 64-row
-//     tiles, even at one chunk per 128-key tile, would leave SMs idle: the
-//     IVF probe (B=128 queries over N=128 centroids) gets 32 blocks and one
-//     launch, where 64-row tiles would give it 2 blocks and a merge of one
-//     chunk. The summation order, hence every score bit, is the wide form's.
-// Left for later work, in the wide form: 12 shared-memory loads per 32 FMAs,
-// loads not overlapped with compute, the query tile reloaded for every key
-// tile, and the merge not fused into pass 1.
+//     loaded into registers while this one is multiplied. Taken where wider
+//     tiles would leave SMs idle: the IVF probe (B=128 queries over N=128
+//     centroids) gets 32 blocks and one launch, and by the shared forms
+//     where B < 32 or B x N < 2^18 (kernels/cosine_topk.py::split).
+// A query row's scores thus depend on its batch: on tensor cores in a batch
+// of 128, on FMAs alone, within ~1e-6 (ROADMAP, Queue C).
+// Left for later work: mma.sync reaches about half of the TF32 peak, and the
+// products, with the hi/lo splits, bound the tensor-core form; wgmma, with
+// the split overlapped with the products, is the next step. The FMA form's
+// wide tiles still load 12 words from shared memory per 32 FMAs.
 //
 // Interval form. The wrapper sorts the rows by interval on the card
 // (kernels/cosine_topk.py::interval_order, one stable sort, no sync) and
@@ -218,7 +239,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 
   const int blk_lo = n_begin, blk_hi = n_end;
   for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    // never true; without it nvcc schedules the shared and dense forms'
+    // never true; without it nvcc schedules the dense and narrow forms'
     // loop another way, 2-6% slower on an H100, and with it the interval
     // form's 5-30% slower (PERF.md, PR 17)
     if constexpr (MS != INTERVAL_MASK) {
@@ -397,6 +418,467 @@ cosine_topk_merge(const float* __restrict__ part_s, const int* __restrict__ part
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core form of the shared-mask pass 1 (block_q == tc::BQ).
+namespace tc {
+constexpr int BQ = 128;     // query rows a block: the serve path's whole batch
+constexpr int BN = 128;     // keys a tile
+constexpr int STAGES = 3;   // 32-dim slices of queries and keys in flight
+constexpr int NT = 256;     // 8 warps: 2 along the query rows x 4 along the keys
+constexpr int WARPS_N = 4;
+constexpr int WM = BQ / (NT / 32 / WARPS_N);   // 64 query rows a warp
+constexpr int WN = BN / WARPS_N;               // 32 keys a warp
+constexpr int MT = WM / 16, NT8 = WN / 8;      // m16n8k8 tiles a warp: 4 x 4
+constexpr int SMALL_K = 4;  // k up to this: two threads a row keep its lists
+constexpr int RPW = BQ / (NT / 32);            // rows a warp keeps for larger k
+// Staged rows are padded by 16 bytes, so that the 8 rows of an ldmatrix, or
+// the 8 x 4 lanes of a fragment load, hit distinct banks (f32 rows 36 words
+// apart, bf16 20, int8 12).
+constexpr int Q_PITCH = DK * 4 + 16;           // bytes a staged query row
+// floats a score-tile row: 16-byte rows, so that a warp's 32 rows read
+// as float4 hit every bank once
+constexpr int SC_PITCH = BN + 4;
+template <typename KT>
+__host__ __device__ constexpr int k_pitch() { return DK * static_cast<int>(sizeof(KT)) + 16; }
+template <typename KT>
+__host__ __device__ constexpr int stage_bytes() { return BQ * Q_PITCH + BN * k_pitch<KT>(); }
+// the stages, the score tile and the lists (MAX_K entries a row)
+template <typename KT>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<KT>() + BQ * SC_PITCH * 4 + BQ * MAX_K * 8;
+}
+static_assert(NT == 2 * BQ, "two threads a row keep the small-k lists");
+static_assert(smem_bytes<float>() <= 227 * 1024, "one block an SM");
+}  // namespace tc
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from global to shared memory, or 16 zero bytes when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x rounded to TF32 (10 mantissa bits, ties away from zero, as
+// cvt.rna.tf32.f32) by integer operations, which issue faster than cvt (3.6
+// us of 45 at the main shape, cosine_variants.py)
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  unsigned r;
+  r = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return r;
+}
+// x = hi + lo to about 21 bits: hi its TF32 rounding, lo the rest (exact in
+// f32), whose low 13 bits the tensor cores drop: |lo| <= 2^-11 |x|, so the
+// dropped part is under 2^-21 |x| (rounding lo too cost 1.9 us of 42.7,
+// cosine_variants.py)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_bits(x);
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+// four 8 x 4 tiles of 32-bit words (an m8n8 b16 ldmatrix each): lane l
+// gives the row address of tile l / 8, row l % 8; each lane gets word
+// (l % 4) of row l / 4 of every tile
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a (16 x 8, row major) * b (8 x 8, column major), TF32 in, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A bf16 or int8 key as it is stored, in f32: exact in TF32, so its lo is 0
+__device__ __forceinline__ float stored_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float stored_f32(int8_t v) { return static_cast<float>(v); }
+
+// Inserts (s, id) into a sorted list of SMALL_K entries held by one thread:
+// the entries it ranks before shift down one place, the last drops out; no
+// branch. RISING: every id in the list is below id, so a tie never ranks
+// first and a score comparison decides.
+template <bool RISING>
+__device__ __forceinline__ void insert_small(float (&ls)[tc::SMALL_K], int (&li)[tc::SMALL_K],
+                                             float s, int id) {
+  bool before[tc::SMALL_K];
+#pragma unroll
+  for (int e = 0; e < tc::SMALL_K; ++e)
+    before[e] = RISING ? s > ls[e] : ranks_before(s, id, ls[e], li[e]);
+#pragma unroll
+  for (int e = tc::SMALL_K - 1; e >= 0; --e) {
+    const bool shift = e > 0 && before[e - 1];
+    ls[e] = before[e] ? (shift ? ls[e - 1] : s) : ls[e];
+    li[e] = before[e] ? (shift ? li[e - 1] : id) : li[e];
+  }
+}
+
+// Pass 1 of the shared-mask form on tensor cores. A block takes 128 query
+// rows and a chunk of whole 128-key tiles; every (tile, 32-dim slice) is one
+// step of a pipeline that keeps STAGES - 1 slices of queries and keys in
+// flight by cp.async (vec) while one is multiplied, across tile boundaries.
+// Each warp computes a 64 x 32 patch of the tile's scores with 3xTF32:
+// per k-step of 8, a_lo b_hi + a_hi b_lo + a_hi b_hi (bf16 and int8 keys
+// are exact in TF32: two products), into a fresh sum per 32-dim slice added
+// to the tile's f32 sum, the plain FMA form's two levels. After a tile's
+// last slice its masked scores go to shared memory and into the lists,
+// which stay in shared memory across the chunk's tiles: for k <= SMALL_K
+// two threads a row scan half the tile's keys each (a warp reads 32 rows of
+// one column, no bank conflict), for larger k a warp a row offers 32 keys
+// at a time.
+// Without vec (rows not 16-byte aligned: d * sizeof(KT) % 16 != 0), each
+// thread stages elements by plain loads; the sums are the same.
+template <typename KT, int SS>
+__global__ void __launch_bounds__(tc::NT, 1)
+cosine_topk_tc(const float* __restrict__ q, const KT* __restrict__ keys,
+               const float* __restrict__ scales, const uint8_t* __restrict__ valid, int B,
+               int N, int d, int k, int keys_per_chunk, bool vec, float* __restrict__ part_s,
+               int* __restrict__ part_i) {
+  constexpr int BQ = tc::BQ, BN = tc::BN, STAGES = tc::STAGES, NT = tc::NT;
+  constexpr int WARPS_N = tc::WARPS_N, WM = tc::WM, WN = tc::WN, MT = tc::MT, NT8 = tc::NT8;
+  constexpr int SMALL_K = tc::SMALL_K, RPW = tc::RPW;
+  constexpr int Q_PITCH = tc::Q_PITCH, SC_PITCH = tc::SC_PITCH;
+  constexpr int KP = tc::k_pitch<KT>();
+  constexpr int SB = tc::stage_bytes<KT>();
+  // int8 keys enter the products as they are stored (exact in TF32, so two
+  // products, not three) and their scale, 1/127 or the row's, multiplies
+  // the sum: a rounding that differs from the plain version's by ~1e-7
+  constexpr bool POST_SCALE = sizeof(KT) == 1;
+  constexpr bool EXACT = sizeof(KT) < 4;   // bf16 or int8: lo is 0
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem + STAGES * SB);
+  float* lst_s = sc + BQ * SC_PITCH;
+  int* lst_i = reinterpret_cast<int*>(lst_s + BQ * MAX_K);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // fragment row group, thread in group
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int n_begin = chunk * keys_per_chunk;
+  const int n_end = min(N, n_begin + keys_per_chunk);
+  const int slices = (d + DK - 1) / DK;
+  const int steps = (n_end - n_begin + BN - 1) / BN * slices;
+
+  for (int e = tid; e < BQ * MAX_K; e += NT) {
+    lst_s[e] = -INFINITY;
+    lst_i[e] = -1;
+  }
+
+  // queries [BQ][DK] f32 and keys [BN][DK] as stored, rows and dims past the
+  // operands zero
+  auto stage = [&](int step) {
+    const int n0 = n_begin + step / slices * BN, c0 = step % slices * DK;
+    unsigned char* qs = smem + step % STAGES * SB;
+    unsigned char* ks = qs + BQ * Q_PITCH;
+    if (vec) {
+      constexpr int QV = 4, QC = DK / QV;   // floats a copy, copies a row
+#pragma unroll
+      for (int p = 0; p < BQ * QC / NT; ++p) {
+        const int e = tid + p * NT, r = e / QC, c = e % QC * QV;
+        const bool ok = q0 + r < B && c0 + c < d;
+        cp_async16(qs + r * Q_PITCH + c * 4, ok ? q + (size_t)(q0 + r) * d + c0 + c : q, ok);
+      }
+      constexpr int KV = 16 / sizeof(KT), KC = DK / KV;
+#pragma unroll
+      for (int p = 0; p < BN * KC / NT; ++p) {
+        const int e = tid + p * NT, r = e / KC, c = e % KC * KV;
+        const bool ok = n0 + r < n_end && c0 + c < d;
+        cp_async16(ks + r * KP + c * sizeof(KT), ok ? keys + (size_t)(n0 + r) * d + c0 + c : keys,
+                   ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < BQ * DK; e += NT) {
+        const int r = e / DK, c = e % DK;
+        reinterpret_cast<float*>(qs + r * Q_PITCH)[c] =
+            q0 + r < B && c0 + c < d ? q[(size_t)(q0 + r) * d + c0 + c] : 0.0f;
+      }
+#pragma unroll 4
+      for (int e = tid; e < BN * DK; e += NT) {
+        const int r = e / DK, c = e % DK;
+        KT v{};
+        if (n0 + r < n_end && c0 + c < d) v = keys[(size_t)(n0 + r) * d + c0 + c];
+        reinterpret_cast<KT*>(ks + r * KP)[c] = v;
+      }
+    }
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) stage(s);
+    cp_async_commit();
+  }
+
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int tile = s / slices, slice = s % slices;
+    // step s has landed, and every thread is done with step s - 1, whose
+    // buffer the next copies overwrite
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (s + STAGES - 1 < steps) stage(s + STAGES - 1);
+    cp_async_commit();
+
+    // the last slice of a tile loads the visibility (and, POST_SCALE, the
+    // scale) of this thread's 8 score columns, in flight during its products
+    const int n0 = n_begin + tile * BN;
+    bool vis[NT8][2];
+    float post[NT8][2];
+    if (slice == slices - 1) {
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + wn * WN + j * 8 + 2 * t + h;
+          vis[j][h] = n < n_end && valid[n];
+          if constexpr (POST_SCALE)
+            post[j][h] = SS == ROW_SCALE ? (n < n_end ? scales[n] : 0.0f) : 1.0f / 127.0f;
+        }
+    }
+
+    const unsigned char* qs = smem + s % STAGES * SB;
+    const unsigned char* ks = qs + BQ * Q_PITCH;
+    float part[MT][NT8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
+    // this lane's ldmatrix rows: of the queries, and of f32 keys
+    const int lm = lane >> 3, lr = lane & 7;
+    const unsigned char* a_row = qs + (wm * WM + lr + 8 * (lm & 1)) * Q_PITCH + 16 * (lm >> 1);
+    const unsigned char* b_row = ks + (wn * WN + lr + 8 * (lm >> 1)) * KP + 16 * (lm & 1);
+#pragma unroll
+    for (int kk = 0; kk < DK; kk += 8) {
+      // fragments of the f32 words as staged, split into hi and lo here
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned raw[4];
+        ldmatrix_x4(raw, a_row + i * 16 * Q_PITCH + kk * 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32(__uint_as_float(raw[c]), ah[i][c], al[i][c]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NT8; jj += 2) {
+        // b[0], b[1]: n-tile jj; b[2], b[3]: n-tile jj + 1
+        unsigned bh[4], bl[4];
+        if constexpr (sizeof(KT) == 4) {
+          unsigned raw[4];
+          ldmatrix_x4(raw, b_row + jj * 8 * KP + kk * 4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) split_tf32(__uint_as_float(raw[c]), bh[c], bl[c]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const KT* kr = reinterpret_cast<const KT*>(ks + (wn * WN + (jj + h) * 8 + g) * KP);
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              bh[2 * h + c] = __float_as_uint(stored_f32(kr[kk + t + 4 * c]));
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_tf32(part[i][jj + h], al[i], bh[2 * h], bh[2 * h + 1]);
+            if constexpr (!EXACT) mma_tf32(part[i][jj + h], ah[i], bl[2 * h], bl[2 * h + 1]);
+            mma_tf32(part[i][jj + h], ah[i], bh[2 * h], bh[2 * h + 1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+
+    if (slice < slices - 1) continue;
+    // the tile's scores, masked, to shared memory; then into the lists
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = wm * WM + i * 16 + g;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int c = wn * WN + j * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float s0 = acc[i][j][h], s8 = acc[i][j][2 + h];
+          if constexpr (POST_SCALE) {
+            s0 = __fmul_rn(s0, post[j][h]);
+            s8 = __fmul_rn(s8, post[j][h]);
+          }
+          sc[r * SC_PITCH + c + h] = vis[j][h] ? s0 : -INFINITY;
+          sc[(r + 8) * SC_PITCH + c + h] = vis[j][h] ? s8 : -INFINITY;
+        }
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) acc[i][j][c4] = 0.0f;
+      }
+    }
+    __syncthreads();
+    if (k <= SMALL_K) {
+      // thread tid: row tid % BQ, keys [half * BN/2, (half + 1) * BN/2) of
+      // each tile, so its ids rise; a list of SMALL_K entries, of which the
+      // first k are the row's
+      const int r = tid % BQ, half = tid / BQ;
+      if (q0 + r < B) {
+        float* ps = lst_s + r * MAX_K + half * SMALL_K;
+        int* pi = lst_i + r * MAX_K + half * SMALL_K;
+        float ls[SMALL_K];
+        int li[SMALL_K];
+#pragma unroll
+        for (int e = 0; e < SMALL_K; ++e) {
+          ls[e] = ps[e];
+          li[e] = pi[e];
+        }
+        const float4* row = reinterpret_cast<const float4*>(sc + r * SC_PITCH + half * (BN / 2));
+        const int id0 = n0 + half * (BN / 2);
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          const float4 v = row[c];
+          // once a chunk's first tiles have filled the list, most groups of
+          // four stop here
+          if (fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)) > ls[SMALL_K - 1]) {
+            insert_small<true>(ls, li, v.x, id0 + 4 * c);
+            insert_small<true>(ls, li, v.y, id0 + 4 * c + 1);
+            insert_small<true>(ls, li, v.z, id0 + 4 * c + 2);
+            insert_small<true>(ls, li, v.w, id0 + 4 * c + 3);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < SMALL_K; ++e) {
+          ps[e] = ls[e];
+          pi[e] = li[e];
+        }
+      }
+    } else {
+      // rows past B are the block's last ones, so the break is warp-uniform
+      for (int rr = 0; rr < RPW; ++rr) {
+        const int r = warp * RPW + rr;
+        if (q0 + r >= B) break;
+        float ls = lst_s[r * MAX_K + lane];
+        int li = lst_i[r * MAX_K + lane];
+#pragma unroll 1
+        for (int m = 0; m < BN / 32; ++m) {
+          const int col = m * 32 + lane;
+          const float v = sc[r * SC_PITCH + col];
+          warp_offer(v, n0 + col, v > -INFINITY, k, lane, ls, li);
+        }
+        lst_s[r * MAX_K + lane] = ls;
+        lst_i[r * MAX_K + lane] = li;
+      }
+    }
+    // the next tile's scores are stored after at least one more barrier
+  }
+
+  __syncthreads();
+  const size_t chunks = gridDim.x;
+  if (k <= SMALL_K) {
+    // a row's two half lists merged by its first thread
+    const int r = tid;
+    if (r < BQ && q0 + r < B) {
+      float ls[SMALL_K];
+      int li[SMALL_K];
+#pragma unroll
+      for (int e = 0; e < SMALL_K; ++e) {
+        ls[e] = lst_s[r * MAX_K + e];
+        li[e] = lst_i[r * MAX_K + e];
+      }
+#pragma unroll
+      for (int e = 0; e < SMALL_K; ++e)
+        insert_small<false>(ls, li, lst_s[r * MAX_K + SMALL_K + e],
+                            lst_i[r * MAX_K + SMALL_K + e]);
+      const size_t o = ((size_t)(q0 + r) * chunks + chunk) * k;
+#pragma unroll
+      for (int e = 0; e < SMALL_K; ++e) {
+        if (e < k) {
+          part_s[o + e] = ls[e];
+          part_i[o + e] = li[e];
+        }
+      }
+    }
+  } else {
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = warp * RPW + rr;
+      if (q0 + r < B && lane < k) {
+        const size_t o = ((size_t)(q0 + r) * chunks + chunk) * k + lane;
+        part_s[o] = lst_s[r * MAX_K + lane];
+        part_i[o] = lst_i[r * MAX_K + lane];
+      }
+    }
+  }
+}
+
+// Pass 2 of the tensor-core form for k <= SMALL_K: one warp a row. Lane l
+// loads chunks l, l + 32, ... (their ids rise from chunk to chunk, and
+// within a chunk equal scores come in id order) into its own list, then the
+// 32 lists merge by a butterfly of shuffles, every lane ending with the
+// row's list.
+__global__ void __launch_bounds__(NT)
+cosine_topk_merge_small(const float* __restrict__ part_s, const int* __restrict__ part_i, int B,
+                        int chunks, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
+  constexpr int SMALL_K = tc::SMALL_K;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (row >= B) return;  // the whole warp leaves together
+  float ls[SMALL_K];
+  int li[SMALL_K];
+#pragma unroll
+  for (int e = 0; e < SMALL_K; ++e) {
+    ls[e] = -INFINITY;
+    li[e] = -1;
+  }
+  const float* ps = part_s + (size_t)row * chunks * k;
+  const int* pi = part_i + (size_t)row * chunks * k;
+#pragma unroll 4
+  for (int c = lane; c < chunks; c += 32) {
+#pragma unroll
+    for (int e = 0; e < SMALL_K; ++e)
+      if (e < k) insert_small<true>(ls, li, ps[c * k + e], pi[c * k + e]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float os[SMALL_K];
+    int oi[SMALL_K];
+#pragma unroll
+    for (int e = 0; e < SMALL_K; ++e) {
+      os[e] = __shfl_xor_sync(FULL, ls[e], off);
+      oi[e] = __shfl_xor_sync(FULL, li[e], off);
+    }
+#pragma unroll
+    for (int e = 0; e < SMALL_K; ++e) insert_small<false>(ls, li, os[e], oi[e]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int e = 0; e < SMALL_K; ++e) {
+      if (e < k) {
+        out_s[(size_t)row * k + e] = ls[e];
+        out_i[(size_t)row * k + e] = li[e];
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* keys;
@@ -414,44 +896,84 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename KT, int MS, int SS, int BQ>
-cudaError_t launch_tiles(const Args& a) {
-  // one chunk: pass 1's lists are the result, (B, 1, k) is (B, k)
-  const bool single = a.chunks == 1;
-  const dim3 grid(a.chunks, (a.B + BQ - 1) / BQ);
-  cosine_topk_partial<KT, MS, SS, BQ><<<grid, Tile<BQ>::NT, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
-      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid),
-      static_cast<const int*>(a.starts), static_cast<const int*>(a.sizes),
-      static_cast<const int*>(a.order), static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d,
-      a.k, a.keys_per_chunk,
-      static_cast<float*>(single ? a.out_s : a.part_s),
-      static_cast<int*>(single ? a.out_i : a.part_i));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || single) return err;
+// pass 2 after a pass 1 of more than one chunk (its cudaGetLastError)
+cudaError_t launch_merge(const Args& a, cudaError_t pass1) {
+  if (pass1 != cudaSuccess || a.chunks == 1) return pass1;
   cosine_topk_merge<<<(a.B + NT / 32 - 1) / (NT / 32), NT, 0, a.stream>>>(
       static_cast<const float*>(a.part_s), static_cast<const int*>(a.part_i), a.B,
       a.chunks, a.k, static_cast<float*>(a.out_s), static_cast<int*>(a.out_i));
   return cudaGetLastError();
 }
 
+// one chunk: pass 1's lists are the result, (B, 1, k) is (B, k)
+float* pass1_scores(const Args& a) { return static_cast<float*>(a.chunks == 1 ? a.out_s : a.part_s); }
+int* pass1_ids(const Args& a) { return static_cast<int*>(a.chunks == 1 ? a.out_i : a.part_i); }
+
+template <typename KT, int MS, int SS, int BQ>
+cudaError_t launch_tiles(const Args& a) {
+  const dim3 grid(a.chunks, (a.B + BQ - 1) / BQ);
+  cosine_topk_partial<KT, MS, SS, BQ><<<grid, Tile<BQ>::NT, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
+      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid),
+      static_cast<const int*>(a.starts), static_cast<const int*>(a.sizes),
+      static_cast<const int*>(a.order), static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d,
+      a.k, a.keys_per_chunk, pass1_scores(a), pass1_ids(a));
+  return launch_merge(a, cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename KT, int SS>
+cudaError_t launch_tc(const Args& a) {
+  constexpr int smem = tc::smem_bytes<KT>();
+  static bool configured = false;   // one opt-in per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cosine_topk_tc<KT, SS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  // 16-byte copies where every staged row starts on 16 bytes
+  const bool vec = a.d * 4 % 16 == 0 && a.d * sizeof(KT) % 16 == 0 && aligned16(a.q) &&
+                   aligned16(a.keys);
+  const dim3 grid(a.chunks, (a.B + tc::BQ - 1) / tc::BQ);
+  cosine_topk_tc<KT, SS><<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
+      static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid), a.B, a.N, a.d,
+      a.k, a.keys_per_chunk, vec, pass1_scores(a), pass1_ids(a));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.chunks == 1 || a.k > tc::SMALL_K) return launch_merge(a, err);
+  cosine_topk_merge_small<<<(a.B + NT / 32 - 1) / (NT / 32), NT, 0, a.stream>>>(
+      static_cast<const float*>(a.part_s), static_cast<const int*>(a.part_i), a.B, a.chunks,
+      a.k, static_cast<float*>(a.out_s), static_cast<int*>(a.out_i));
+  return cudaGetLastError();
+}
+
 template <typename KT, int MS, int SS>
 cudaError_t launch(const Args& a) {
-  if constexpr (MS == INTERVAL_MASK) {
-    if (a.block_q == BQ_32) return launch_tiles<KT, MS, SS, BQ_32>(a);
-    if (a.block_q == BQ_16) return launch_tiles<KT, MS, SS, BQ_16>(a);
+  if constexpr (MS == SHARED_MASK) {
+    return a.block_q == tc::BQ ? launch_tc<KT, SS>(a)
+                               : launch_tiles<KT, MS, SS, BQ_NARROW>(a);
+  } else {
+    if constexpr (MS == INTERVAL_MASK) {
+      if (a.block_q == BQ_32) return launch_tiles<KT, MS, SS, BQ_32>(a);
+      if (a.block_q == BQ_16) return launch_tiles<KT, MS, SS, BQ_16>(a);
+    }
+    return a.block_q == BQ_NARROW ? launch_tiles<KT, MS, SS, BQ_NARROW>(a)
+                                  : launch_tiles<KT, MS, SS, BQ_WIDE>(a);
   }
-  return a.block_q == BQ_NARROW ? launch_tiles<KT, MS, SS, BQ_NARROW>(a)
-                                : launch_tiles<KT, MS, SS, BQ_WIDE>(a);
 }
 
 // the interval form chunks each tile's union of intervals itself, so its
-// keys_per_chunk need not cover N
+// keys_per_chunk need not cover N; the shared form takes 128-row tiles on
+// tensor cores or 4-row ones, the others 64-row or 4-row ones (the interval
+// form also 32 and 16)
 template <int MS>
 bool bad_split(const Args& a) {
   const bool interval = MS == INTERVAL_MASK;
-  const bool tile_ok = a.block_q == BQ_WIDE || a.block_q == BQ_NARROW ||
-                       (interval && (a.block_q == BQ_32 || a.block_q == BQ_16));
+  const bool tile_ok =
+      a.block_q == BQ_NARROW || (MS == SHARED_MASK ? a.block_q == tc::BQ : a.block_q == BQ_WIDE) ||
+      (interval && (a.block_q == BQ_32 || a.block_q == BQ_16));
   return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.chunks < 1 ||
          (!interval && (a.keys_per_chunk < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
                         (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)) ||
@@ -490,8 +1012,9 @@ extern "C" {
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8. part_s/part_i hold
 // B * chunks * k entries, or may be null when chunks == 1; chunks *
 // keys_per_chunk must cover N (not read by the interval forms); block_q is
-// the query-tile height of pass 1, 64 or 4, and for the interval forms also
-// 32 or 16.
+// the query-tile height of pass 1: for the shared-mask forms 128 (tensor
+// cores) or 4, for the others 64 or 4, and for the interval forms also 32 or
+// 16.
 
 // shared (N,) mask
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,

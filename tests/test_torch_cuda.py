@@ -1,6 +1,8 @@
 """The port on the card: the CUDA cosine top-k kernels (shared mask, per-row
 interval, dense per-row mask; k up to the IVF probe's 16 and past it; the
-interval forms' outputs independent of how rows are laid out) and
+shared form's tensor-core tiles at their edges, and its hit decisions the
+same in a batch of 128 as one row at a time; the interval forms' outputs
+independent of how rows are laid out) and
 the IVF candidate top-k against their plain PyTorch versions, the three
 per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
@@ -307,6 +309,119 @@ def test_cuda_quant_per_row_kernels_match_plain_versions(cuda_device, b, n,
         assert ki[r, :len(want)].cpu().tolist() == want.tolist()
 
 
+EDGE_CASES = [  # (B, N, d, k) around the tensor-core form's 128 x 128 tile
+    (128, 16383, 384, 4),
+    (127, 16385, 100, 1),     # d not a whole 32-dim slice
+    (129, 16383, 1536, 16),   # two query tiles; k > 4: warp-held lists
+    (200, 16385, 1, 32),      # d = 1: every score is +-1, ties everywhere
+    (128, 16385, 1536, 32),
+    (129, 16385, 384, 4),
+    (200, 16383, 100, 4),
+    (1, 16383, 384, 4),       # one row: the 4-row tiles
+    (1, 16385, 1, 1),
+    (127, 127, 384, 16),      # a small slab: the 4-row tiles
+    (200, 129, 1536, 4),
+    (128, 1, 100, 1),
+    (129, 127, 1, 32),
+]
+# every key type: bf16 and int8 keys, and the plain version's operands, are
+# the same numbers, exact in f32
+EDGE_TOL = 1e-5
+# ids must agree wherever a score lies farther than this from its
+# neighbours: twice the largest score error of the tensor-core form on the
+# card (1.01e-6 over chip_smoke.py's kernel cases)
+ID_GAP = 2e-6
+
+
+def _hold_to_plain(ks, ki, rs1, ri1, k, tol):
+    """The kernel's (scores, ids) against the plain version's top-(k+1):
+    the same empty slots, scores within ``tol``, and the same ids wherever a
+    score lies more than ``ID_GAP`` from its neighbours (the next entry past
+    the list included) or the row's scores agree bit for bit. Returns the
+    entries whose ids differ: (row, place, kernel id, plain id, kernel
+    score, plain score, the plain score's gap to its nearest neighbour)."""
+    ks, ki, rs1, ri1 = (x.cpu() for x in (ks, ki, rs1, ri1))
+    b = ks.shape[0]
+    if rs1.shape[1] < k + 1:
+        pad = k + 1 - rs1.shape[1]
+        rs1 = torch.cat([rs1, torch.full((b, pad), -np.inf)], dim=1)
+        ri1 = torch.cat([ri1, torch.full((b, pad), -1, dtype=ri1.dtype)],
+                        dim=1)
+    rs, ri = rs1[:, :k], ri1[:, :k]
+    empty = ri < 0
+    assert torch.equal(empty, ki < 0)
+    assert bool(torch.isneginf(ks[empty]).all())
+    if (~empty).any():
+        assert (ks[~empty] - rs[~empty]).abs().max().item() <= tol
+    gap = torch.full((b, k + 1), np.inf)
+    diff = (rs1[:, 1:] - rs1[:, :-1]).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], diff)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], diff)
+    apart = (gap[:, :k] > ID_GAP) & ~empty
+    assert torch.equal(ki[apart], ri[apart])
+    same = (ks.view(torch.int32) == rs.view(torch.int32)).all(dim=1)
+    assert torch.equal(ki[same], ri[same])
+    return [(r, c, int(ki[r, c]), int(ri[r, c]), float(ks[r, c]),
+             float(rs[r, c]), float(gap[r, c]))
+            for r, c in ((ki != ri) & ~empty).nonzero().tolist()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8", "quant"])
+@pytest.mark.parametrize("b,n,d,k", EDGE_CASES)
+def test_cuda_shared_kernel_at_tile_edges(cuda_device, b, n, d, k,
+                                          key_dtype):
+    quant = key_dtype == "quant"
+    q, keys, valid, ties = make_inputs(b, n, d, "f32" if quant else
+                                       key_dtype, "random", k, seed=b + n + d)
+    qt = torch.from_numpy(q).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    kt = keys_to_torch(keys, key_dtype).to(cuda_device)
+    slab = kmod.quantize_keys(kt) if quant else (kt,)
+    name = "quant_cosine_topk" if quant else "cosine_topk"
+    before = kmod.launches[name]
+    ks, ki = getattr(kmod, f"{name}_cuda")(qt, *slab, vt, k)
+    assert kmod.launches[name] == before + 1
+    rs1, ri1 = getattr(tref, f"{name}_ref")(qt, *slab, vt, k + 1)
+    _hold_to_plain(ks, ki, rs1, ri1, k, EDGE_TOL)
+    if d > 1:   # query 0 is the key row planted at the tie slots
+        want = np.unique(ties)[:k]
+        assert ki[0, :len(want)].cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+def test_cuda_batch_size_keeps_hit_decisions(cuda_device, key_dtype):
+    """A query scored in a batch of 128 (tensor-core tiles, 3xTF32) and on
+    its own (4-row tiles, f32 FMAs) gets scores within 1e-5 and the same hit
+    decision at 0.8 wherever its score lies farther than 1e-5 from 0.8."""
+    rng = np.random.default_rng(18)
+    n, d, b, threshold = 16384, 384, 128, 0.8
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    noise = rng.standard_normal((b, d)).astype(np.float32)
+    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+    # a key plus noise: top-1 scores spread over 0.7 to 0.9
+    w = rng.uniform(0.7, 0.9, b).astype(np.float32)[:, None]
+    q = w * keys[:b] + np.sqrt(1 - w * w) * noise
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if key_dtype == "int8":
+        keys = np.clip(np.round(keys * 127.0), -127, 127).astype(np.int8)
+    qt = torch.from_numpy(q).to(cuda_device)
+    kt = torch.from_numpy(keys).to(cuda_device)
+    vt = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kmod.split(b, n, sms, shared=True)[2] == kmod.BLOCK_Q_TC
+    assert kmod.split(1, n, sms, shared=True)[2] == kmod.BLOCK_Q_NARROW
+    whole = kmod.cosine_topk_cuda(qt, kt, vt, 4)[0][:, 0].cpu()
+    alone = torch.cat([kmod.cosine_topk_cuda(qt[r:r + 1], kt, vt, 4)[0]
+                       for r in range(b)])[:, 0].cpu()
+    assert (whole - alone).abs().max().item() <= 1e-5
+    far = (whole - threshold).abs() > 1e-5
+    assert torch.equal((whole >= threshold)[far], (alone >= threshold)[far])
+    assert 0 < int((whole >= threshold).sum()) < b
+
+
 def make_layout_inputs(b, n, d, regions, seed):
     """Unit queries and keys over ``regions`` equal slab regions; row r sees
     region r % regions (every fifth row nothing), and ``valid`` holds 70%
@@ -439,9 +554,14 @@ def test_cuda_cosine_kernel_takes_the_probe_k(cuda_device, n, k):
     q, keys, valid, _ = make_inputs(128, n, 384, "f32", "random", k, seed=n)
     args = [torch.from_numpy(x).to(cuda_device) for x in (q, keys, valid)]
     ks, ki = kmod.cosine_topk_cuda(*args, k)
-    rs, ri = tref.cosine_topk_ref(*[a.cpu() for a in args], k)
-    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=1e-5)
-    assert torch.equal(ki.cpu(), ri)
+    rs1, ri1 = tref.cosine_topk_ref(*[a.cpu() for a in args], k + 1)
+    # scores within 1e-5; ids equal wherever a score lies more than ID_GAP
+    # from its neighbours: at N=16,384 the tensor-core form's 3xTF32 sums
+    # may order two slots closer than that otherwise than the CPU's f32
+    # GEMM. The slots that differ are printed (pytest -rP shows them).
+    swapped = _hold_to_plain(ks, ki, rs1, ri1, k, 1e-5)
+    print(f"N={n} k={k}: ids differing (row, place, kernel id, plain id, "
+          f"kernel score, plain score, gap): {swapped}")
 
 
 SMALL_N_CASES = [  # (B, N, k, mask): 4-row query tiles, k past N

@@ -138,24 +138,60 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
 
 @pytest.mark.parametrize("b,n,expect,expect_blocks", [
     # (keys per chunk, chunks, query rows per block), blocks of pass 1
-    (128, 16384, (128, 128, 64), 256),     # the main path
-    (128, 65536, (256, 256, 64), 512),     # the tenancy path
-    (200, 1048576, (8064, 131, 64), 524),
+    (128, 16384, (128, 128, 128), 128),    # the main path: a tile a block
+    (128, 65536, (512, 128, 128), 128),
+    (200, 1048576, (16000, 66, 128), 132),
     (128, 128, (128, 1, 4), 32),           # the IVF probe: one launch
+    (1, 1000, (128, 8, 4), 8),
+    (200, 31, (128, 1, 4), 50),
+    (7, 1, (128, 1, 4), 2),
+    (128, 8192, (128, 64, 128), 64),       # fewer blocks than SMs
+    (128, 8448, (128, 66, 128), 66),
+    # B around the 128-row tile, N not a multiple of the 128-key tile
+    (1, 16383, (128, 128, 4), 128),        # one row: 4-row tiles
+    (127, 16383, (128, 128, 128), 128),
+    (129, 16385, (256, 65, 128), 130),     # two query tiles
+    (200, 16383, (256, 64, 128), 128),
+    (31, 16384, (256, 64, 4), 512),        # under TC_MIN_ROWS
+    (32, 8192, (128, 64, 128), 64),        # 2**18 scores
+    (32, 4096, (128, 32, 4), 256),         # fewer
+    (128, 2048, (128, 16, 128), 16),
+    (128, 1000, (128, 8, 4), 256),
+])
+def test_split_covers_the_slab_in_whole_tiles(b, n, expect, expect_blocks):
+    per_chunk, chunks, block_q = kmod.split(b, n, num_sms=132, shared=True)
+    assert (per_chunk, chunks, block_q) == expect
+    assert per_chunk % kmod.BLOCK_N == 0
+    assert (chunks - 1) * per_chunk < n <= chunks * per_chunk
+    assert chunks * -(-b // block_q) == expect_blocks
+    # 128-row tensor-core tiles exactly where TC_MIN_ROWS rows fill them and
+    # there are TC_MIN_SCORES scores; 4-row tiles elsewhere
+    tc = b >= kmod.TC_MIN_ROWS and b * n >= kmod.TC_MIN_SCORES
+    assert block_q == (kmod.BLOCK_Q_TC if tc else kmod.BLOCK_Q_NARROW)
+    # about TC_BLOCKS_PER_SM blocks an SM, where the slab has the tiles
+    if tc and chunks < -(-n // kmod.BLOCK_N):
+        assert 0.9 * 132 <= expect_blocks <= kmod.TC_BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("b,n,expect,expect_blocks", [
+    # the dense-mask form keeps 64-row tiles, or 4-row ones where 64-row
+    # tiles over one 128-key tile each would give fewer blocks than SMs
+    (128, 16384, (128, 128, 64), 256),
+    (128, 65536, (256, 256, 64), 512),     # the per-row search's shape
+    (200, 1048576, (8064, 131, 64), 524),
+    (128, 128, (128, 1, 4), 32),
     (1, 1000, (128, 8, 4), 8),
     (200, 31, (128, 1, 4), 50),
     (7, 1, (128, 1, 4), 2),
     (128, 8192, (512, 16, 4), 512),        # 2 x 64 wide blocks < 132 SMs
     (128, 8448, (128, 66, 64), 132),       # 2 x 66 wide blocks = 132 SMs
 ])
-def test_split_covers_the_slab_in_whole_tiles(b, n, expect, expect_blocks):
+def test_split_of_the_dense_form_keeps_64_row_tiles(b, n, expect,
+                                                    expect_blocks):
     per_chunk, chunks, block_q = kmod.split(b, n, num_sms=132)
     assert (per_chunk, chunks, block_q) == expect
-    assert per_chunk % kmod.BLOCK_N == 0
     assert (chunks - 1) * per_chunk < n <= chunks * per_chunk
     assert chunks * -(-b // block_q) == expect_blocks
-    # 4-row tiles exactly where 64-row tiles, one per 128-key tile, would
-    # give the card fewer blocks than SMs
     wide_blocks = -(-b // kmod.BLOCK_Q) * -(-n // kmod.BLOCK_N)
     assert (block_q == kmod.BLOCK_Q_NARROW) == (wide_blocks < 132)
 
