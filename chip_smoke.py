@@ -14,9 +14,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
             slabs of 1 to 1,000 keys through the 4-row query tiles, k past
             N, B past one 128-row tensor-core tile, d=100, each also over
             an int8 slab with per-row scales; the IVF
-            candidate top-k on a real candidate matrix, all-visible,
-            all-empty, ragged and planted-tie cases) against its plain
-            PyTorch version on the card;
+            candidate top-k on the serve path's candidate matrix with its
+            probe and bucket table (the grouping contract checked, k=4 and
+            32, bit for bit equal to the kernel given cand alone), a skewed
+            table (one full bucket of 1,024 probed by every row) and a cap
+            of 100 with planted ties across two buckets, and all-visible,
+            all-empty, ragged and planted-tie cases on cand alone) against
+            its plain PyTorch version on the card;
             ``quantize_keys`` on the card against the CPU, bitwise
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
@@ -30,8 +34,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
             dense-mask kernel, against the interval search
   ivf       the IVF serve loop (``launch.serve --index ivf`` defaults) on
             the card for f32 and int8 slabs and with ``--tenants 4``, held
-            against the CPU: one probe and one IVF launch per batch, the
-            same decisions, and any bucket-table difference of the two
+            against the CPU: one probe and one IVF launch per batch (the
+            grouping contract checked on every batch's operands after the
+            run), the same decisions, and any bucket-table difference of the
+            two
             k-means runs printed and checked against a CPU engine restored
             from the card's post-refit snapshot
   quant     per-row-scale int8 lookups (``quantize_keys``, then
@@ -50,7 +56,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
             interval forms also from a CUDA graph of what their wrappers
             launch (the row order on the card, then the kernel), with the
             rows sorted by interval giving each row the same top-k bit for
-            bit
+            bit; the IVF kernel with and without the probe's grouping at
+            the serve shape and with every id visible (the grouped call's
+            bound counts cand only where a probed bucket has a live
+            member, the others the whole id matrix), and the whole
+            ``IVFIndex.search`` from one CUDA graph
   model     the model-backed miss path (``launch.serve --backend model``):
             the flash-attention and decode-attention kernels against their
             plain versions (causal and windowed, GQA 1-8, D 64/128, ragged
@@ -425,8 +435,9 @@ def _quantize_keys_check(torch) -> None:
 
 def _ivf_serve_candidates(torch, b=128):
     """The IVF serve path's operands at its defaults: the warm f32 slab
-    after the first refit, the first ``b`` served queries (normalized) and
-    their (B, M) candidate matrix."""
+    after the first refit, the first ``b`` served queries (normalized),
+    their (B, M) candidate matrix, and the grouping ``IVFIndex.search``
+    passes with it: the probe (B, P) int32 and the bucket table (C, cap)."""
     from repro_torch.core import store
     from repro_torch.core.similarity import l2_normalize
     from repro_torch.launch import serve
@@ -434,13 +445,17 @@ def _ivf_serve_candidates(torch, b=128):
     eng._maybe_refit()
     q = l2_normalize(eng._embed([r.query for r in reqs[:b]]))
     alive = store.alive_mask(eng.state, eng._now)
-    cand = eng.cache.index.candidates(eng.runtime.index_state, q, alive)
-    return eng, q, eng.state.keys, cand
+    st = eng.runtime.index_state
+    cand, probe = eng.cache.index.probe_candidates(st, q, alive)
+    return eng, q, eng.state.keys, cand, probe, st.buckets
 
 
-def _ivf_case(torch, dtype, q, keys, cand, k, where, tie_rows=None):
+def _ivf_case(torch, dtype, q, keys, cand, k, where, tie_rows=None,
+              groups=None):
     """The IVF kernel against its plain version on f32 ``keys`` cast to
-    ``dtype``; returns the max abs score error."""
+    ``dtype``; returns the max abs score error. With ``groups`` (probe,
+    buckets) the kernel runs bucket by bucket, and its output must also
+    equal, bit for bit, that of the same kernel given cand alone."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ivf_topk import ivf_topk_cuda
     if dtype == "bf16":
@@ -448,22 +463,71 @@ def _ivf_case(torch, dtype, q, keys, cand, k, where, tie_rows=None):
     elif dtype == "int8":
         keys = torch.clamp(torch.round(keys * 127.0), -127, 127).to(
             torch.int8)
-    ks, ki = ivf_topk_cuda(q, keys, cand, k)
+    kw = {} if groups is None else dict(probe=groups[0], buckets=groups[1])
+    ks, ki = ivf_topk_cuda(q, keys, cand, k, **kw)
     rs1, ri1 = ref.ivf_topk_ref(q, keys, cand, k + 1)
-    return _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype],
-                    f"ivf_topk {dtype} {where}", tie_rows or {})
+    err = _compare(torch, ks, ki, rs1, ri1, k, SCORE_TOL[dtype],
+                   f"ivf_topk {dtype} {where}", tie_rows or {})
+    if groups is not None:
+        us, ui = ivf_topk_cuda(q, keys, cand, k)
+        if not (torch.equal(ks.view(torch.int32), us.view(torch.int32))
+                and torch.equal(ki, ui)):
+            fail(f"ivf_topk {dtype} {where}: the grouped and ungrouped "
+                 "forms differ")
+    return err
+
+
+def _grouped_table(torch, gen, b, c, cap, p, n, d):
+    """A seeded grouped table on the card: unit keys, queries, a bucket
+    table whose bucket 0 is full and probed by every row (the skew), the
+    others a random share live, and cand = buckets[probe] with a third of
+    it -1. Planted ties across two buckets: slots u1 < u2 hold one key row,
+    row 0's query is that row, u2 sits in the bucket row 0 probes first and
+    u1 in the next, so row 0 must return u2 before u1."""
+    keys = _make_keys(torch, gen, n, d, "f32")
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    u1, u2 = n // 3, n // 2
+    keys[u2] = keys[u1]
+    q[0] = keys[u1]
+    q = q / q.norm(dim=1, keepdim=True)
+    slots = torch.randint(0, n, (c, cap), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    slots[torch.isin(slots, torch.tensor([u1, u2], device="cuda"))] = 0
+    share = torch.rand((c, 1), generator=gen, device="cuda")
+    live = torch.rand((c, cap), generator=gen, device="cuda") < share
+    live[0] = True
+    buckets = torch.where(live, slots, -1).to(torch.int32)
+    rest = torch.argsort(torch.rand((b, c - 1), generator=gen,
+                                    device="cuda"), dim=1) + 1
+    probe = torch.cat([torch.zeros((b, 1), dtype=torch.long,
+                                   device="cuda"), rest[:, :p - 1]], 1)
+    probe[0, :3] = torch.tensor([2, 3, 0], device="cuda")
+    probe[0, 3:] = rest[0][~torch.isin(rest[0], torch.tensor(
+        [2, 3], device="cuda"))][:p - 3]
+    probe = probe.to(torch.int32).contiguous()
+    buckets[2, 0], buckets[3, 0] = u2, u1
+    cand = buckets[probe.long()].reshape(b, p * cap)
+    cand[torch.rand(cand.shape, generator=gen, device="cuda") < 1 / 3] = -1
+    cand[0, 0], cand[0, cap] = u2, u1
+    return q, keys, cand.contiguous(), probe, buckets, [u2, u1]
 
 
 def _ivf_kernel_cases(torch) -> float:
     """Every IVF kernel case for f32, bf16 and int8 keys; returns the worst
-    score error."""
-    _, q, keys, cand = _ivf_serve_candidates(torch)
+    score error. The serve shape's cases run grouped (the probe and bucket
+    table ``IVFIndex.search`` passes), the rest on cand alone."""
+    from repro_torch.kernels.ivf_topk import check_contract
+    _, q, keys, cand, probe, buckets = _ivf_serve_candidates(torch)
+    check_contract(cand, probe, buckets)
+    emit("kernel", check="ivf_topk grouping contract on the serve operands",
+         visible=int((cand >= 0).sum()))
+    groups = (probe, buckets)
     keys = keys.float()
     gen = torch.Generator(device="cuda").manual_seed(31)
     n, d = keys.shape
     every = torch.randint(0, n, cand.shape, generator=gen, device="cuda",
                           dtype=torch.int32)
-    # B > 64, M past one 2,048-position block and not a multiple of it,
+    # B > 64, M past one 2,048-position chunk and not a multiple of it,
     # ids a tenth visible, rows 0-9 with fewer visible ids than k
     rk = _make_keys(torch, gen, 5000, d, "f32")
     rq = torch.randn((200, d), generator=gen, device="cuda")
@@ -487,20 +551,35 @@ def _ivf_kernel_cases(torch) -> float:
                        dtype=torch.int32)
     tc[torch.isin(tc, torch.tensor([u1, u2, t], device="cuda"))] = -1
     tc[0, 100], tc[0, 900], tc[1, 5], tc[1, 700] = u2, u1, t, t
+    # the grouped form: planted ties across two probed buckets, a skewed
+    # table (one full bucket of 1,024 members probed by all 128 rows), and
+    # a cap of 100
+    sq, sk, sc, sp, sb, sties = _grouped_table(torch, gen, 128, 24, 1024, 16,
+                                               20000, d)
+    check_contract(sc, sp, sb)
+    cq, ck, cc, cp, cb, cties = _grouped_table(torch, gen, 60, 12, 100, 5,
+                                               900, d)
     worst = 0.0
     for dtype in ("f32", "bf16", "int8"):
         errs = [
-            _ivf_case(torch, dtype, q, keys, cand, 4, "serve shape"),
+            _ivf_case(torch, dtype, q, keys, cand, 4, "serve shape",
+                      groups=groups),
+            _ivf_case(torch, dtype, q, keys, cand, 32, "serve shape k=32",
+                      groups=groups),
             _ivf_case(torch, dtype, q, keys, every, 4, "all visible"),
             _ivf_case(torch, dtype, q, keys, torch.full_like(cand, -1), 4,
-                      "all -1"),
+                      "all -1", groups=groups),
             _ivf_case(torch, dtype, rq, rk, ragged, 8, "B=200 M=3001 k=8"),
             _ivf_case(torch, dtype, tq, tk, tc, 4, "planted ties",
                       {0: [u2, u1], 1: [t, t]}),
-            _ivf_case(torch, dtype, q, keys, cand, 32, "serve shape k=32"),
+            _ivf_case(torch, dtype, sq, sk, sc, 4, "skewed table, ties "
+                      "across buckets", {0: sties}, groups=(sp, sb)),
+            _ivf_case(torch, dtype, cq, ck, cc, 8, "cap 100, ties across "
+                      "buckets", {0: cties}, groups=(cp, cb)),
         ]
         emit("kernel", kernel="ivf_topk", dtype=dtype, cases=len(errs),
-             max_abs_err=max(errs), tolerance=SCORE_TOL[dtype])
+             max_abs_err=max(errs), tolerance=SCORE_TOL[dtype],
+             grouped_equals_ungrouped="bitwise, 5 grouped cases")
         worst = max(worst, max(errs))
     return worst
 
@@ -827,12 +906,40 @@ def _ivf_run(torch, device, snapshot=None, on_warm_slab=None, **kw):
         eng.save_cache(snapshot)
     extra = None if on_warm_slab is None else on_warm_slab(eng, reqs)
     _reset_launches()
-    t0 = time.perf_counter()
-    resp = eng.process(reqs)
+    with _ivf_operands() as operands:
+        t0 = time.perf_counter()
+        resp = eng.process(reqs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
     if device == "cuda":
-        torch.cuda.synchronize()
-    wall += time.perf_counter() - t0
+        from repro_torch.kernels.ivf_topk import check_contract
+        if len(operands) != MAIN_BATCHES:
+            fail(f"ivf_topk got {len(operands)} grouped calls, not "
+                 f"{MAIN_BATCHES}")
+        for cand, probe, buckets in operands:
+            check_contract(cand, probe, buckets)
     return eng, reqs, resp, refit_state, _launches(), wall, extra
+
+
+class _ivf_operands:
+    """Keeps the (cand, probe, buckets) of every ``ops.ivf_topk`` call made
+    with the grouping while it is entered, without waiting for the card, so
+    that the contract can be checked after the timed run."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.original, self.seen = ops, ops.ivf_topk, []
+
+        def keep(queries, keys, cand, **kw):
+            if kw.get("probe") is not None:
+                self.seen.append((cand, kw["probe"], kw["buckets"]))
+            return self.original(queries, keys, cand, **kw)
+        ops.ivf_topk = keep
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.ops.ivf_topk = self.original
 
 
 def _decisions(eng) -> dict:
@@ -888,6 +995,8 @@ def phase_ivf(torch, scratch: Path) -> dict:
             torch, "cuda", snapshot=snap, on_warm_slab=_warm_slab_stats, **kw)
         _expect_launches(launches, {"cosine_topk": MAIN_BATCHES,
                                     "ivf_topk": MAIN_BATCHES}, where)
+        emit("ivf", check="grouping contract held on every served batch's "
+             "operands", where=where, batches=MAIN_BATCHES)
         scores = [r.score for r in resp]
         if len(resp) != len(reqs) or not all(math.isfinite(x)
                                              for x in scores):
@@ -1359,10 +1468,19 @@ def _probe_timing(torch, card: str) -> dict:
 
 def _ivf_timing(torch, card: str) -> dict:
     """The IVF kernel at the serve shape (the real candidate matrix of the
-    first served batch) and with every one of the 16,384 ids visible."""
+    first served batch) with the probe's grouping (``serve``, as
+    ``IVFIndex.search`` calls it) and without (``serve_ungrouped``), and
+    with every one of the 16,384 ids visible and random (``all_visible``,
+    no grouping), each in turns with its plain version and a library call,
+    beside the bound of what each call needs (grouped: cand at the probed
+    buckets' live members, the table rows and the probe; else the whole id
+    matrix, which the grouped row also keeps as ``id_matrix_bound_ms``);
+    then the whole ``IVFIndex.search`` (probe, candidates with their dedup
+    sort, the kernel) from one CUDA graph, for the kernel's share."""
+    from repro_torch.core import store
     from repro_torch.kernels import ref
     from repro_torch.kernels.ivf_topk import ivf_topk_cuda
-    _, q, slab, cand = _ivf_serve_candidates(torch)
+    eng, q, slab, cand, probe, buckets = _ivf_serve_candidates(torch)
     slab = slab.float()
     gen = torch.Generator(device="cuda").manual_seed(17)
     every = torch.randint(0, slab.shape[0], cand.shape, generator=gen,
@@ -1371,13 +1489,15 @@ def _ivf_timing(torch, card: str) -> dict:
     k = 4
     neg = torch.tensor(float("-inf"), device="cuda")
     out = {}
-    for shape, ids in (("serve", cand), ("all_visible", every)):
+    for shape, ids, kw in (
+            ("serve", cand, dict(probe=probe, buckets=buckets)),
+            ("serve_ungrouped", cand, {}), ("all_visible", every, {})):
         for dtype in ("f32", "int8"):
             keys = slab if dtype == "f32" else torch.clamp(
                 torch.round(slab * 127.0), -127, 127).to(torch.int8)
 
             def kernel():
-                return ivf_topk_cuda(q, keys, ids, k)
+                return ivf_topk_cuda(q, keys, ids, k, **kw)
 
             def plain():
                 return ref.ivf_topk_ref(q, keys, ids, k)
@@ -1388,27 +1508,52 @@ def _ivf_timing(torch, card: str) -> dict:
                         "bd,bmd->bm", q,
                         _as_f32(torch, keys)[ids.clamp(min=0).long()]),
                     neg), k)
-            reps = 100 if shape == "serve" else 10
+            reps = 10 if shape == "all_visible" else 100
             ms, times = _time_turns(torch, {"kernel": kernel, "plain": plain,
                                             "library": library}, reps)
             # the work this candidate matrix needs: each visible pair
-            # scored once, each distinct visible slab row read once
+            # scored once, each distinct visible slab row read once, and
+            # the ids: the whole id matrix, or with the grouping cand only
+            # where the probed bucket has a live member, the probed
+            # buckets' rows of the table and the probe
             vis = ids >= 0
             pairs = int(vis.sum())
             rows = int(torch.unique(ids[vis]).numel())
-            bound = _bound(2.0 * d * pairs,
-                           ids.numel() * 4 + b * d * 4
-                           + rows * d * keys.element_size() + b * k * 8)
+            flops = 2.0 * d * pairs
+            rest = b * d * 4 + rows * d * keys.element_size() + b * k * 8
+            matrix = _bound(flops, ids.numel() * 4 + rest)
+            bound = matrix
+            if kw:
+                live = ((buckets >= 0) & (buckets < slab.shape[0])).sum(1)
+                bound = _bound(flops, 4 * (
+                    int(live[probe.long()].sum())
+                    + int(torch.unique(probe).numel()) * buckets.shape[1]
+                    + probe.numel()) + rest)
             graph_ms = _time_graph(torch, kernel, reps)
             row = {"kernel_ms": ms["kernel"], "graph_ms": graph_ms,
                    "plain_ms": ms["plain"], "library_ms": ms["library"],
                    "runs_ms": times, **bound,
                    "share_of_bound": bound["bound_ms"] / graph_ms,
+                   "id_matrix_bound_ms": matrix["bound_ms"],
+                   "share_of_id_matrix_bound": matrix["bound_ms"] / graph_ms,
                    "visible_pairs": pairs, "distinct_rows": rows}
             out[("ivf_topk", shape, dtype)] = row
             emit("timing", kernel="ivf_topk", shape=shape, B=b,
                  M=ids.shape[1], N=slab.shape[0], d=d, k=k, key_dtype=dtype,
-                 card=card, **row)
+                 grouped=bool(kw), card=card, **row)
+    # the whole lookup of the IVF serve path, from one graph
+    index, st = eng.cache.index, eng.runtime.index_state
+    alive = store.alive_mask(eng.state, eng._now)
+    keys = eng.state.keys
+
+    def search():
+        return index.search(st, q, keys, alive)
+    search_ms = _time_graph(torch, search, 100)
+    kernel_ms = out[("ivf_topk", "serve", "f32")]["graph_ms"]
+    emit("timing", kernel="ivf_topk", role="IVFIndex.search (probe, "
+         "candidates, kernel)", B=b, key_dtype="f32", card=card,
+         search_graph_ms=search_ms, kernel_graph_ms=kernel_ms,
+         kernel_share=kernel_ms / search_ms)
     return out
 
 

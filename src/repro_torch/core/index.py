@@ -237,8 +237,11 @@ class IVFIndex:
             top_scores = torch.nn.functional.pad(top_scores, (0, pad),
                                                  value=NEG_INF)
         bucket_valid = top_scores > NEG_INF
+        # row-major, as the IVF kernel reads the table (the top-k of the
+        # transposed one-hot comes back column-major)
         buckets = torch.where(bucket_valid, top_idx,
-                              torch.full_like(top_idx, -1)).to(torch.int32)
+                              torch.full_like(top_idx, -1)).to(
+                                  torch.int32).contiguous()
         return IVFState(centroids=centroids, buckets=buckets,
                         bucket_valid=bucket_valid)
 
@@ -301,12 +304,22 @@ class IVFIndex:
                    ) -> torch.Tensor:
         """Probe + visibility: (B, d) normalized queries -> (B, M) int32
         candidate slot ids, M = nprobe * bucket_cap, -1 marking every
-        invisible candidate. The probe is the cosine top-k over the
-        centroids with an all-true mask (the CUDA kernel on the card).
-        Folded into the ids, in order: bucket-slot validity, slab aliveness
-        (``valid``, (N,) shared or (B, N) per row), the per-row tenancy
-        ``interval`` (compares on the gathered ids, never a (B, N) mask) and
-        per-row duplicate suppression."""
+        invisible candidate (``probe_candidates`` without the probe)."""
+        return self.probe_candidates(istate, q, valid, interval=interval)[0]
+
+    def probe_candidates(self, istate: IVFState, q: torch.Tensor,
+                         valid: torch.Tensor, *,
+                         interval: tuple[torch.Tensor, torch.Tensor]
+                         | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cand (B, M) int32, probe (B, P) int32): the probe is the cosine
+        top-k over the centroids with an all-true mask (the CUDA kernel on
+        the card), P = min(nprobe, ncentroids), and ``cand[b, j * cap + t]``
+        is ``buckets[probe[b, j], t]`` or -1, the grouping the IVF kernel
+        reads. Folded into the ids, in order: bucket-slot validity, slab
+        aliveness (``valid``, (N,) shared or (B, N) per row), the per-row
+        tenancy ``interval`` (compares on the gathered ids, never a (B, N)
+        mask) and per-row duplicate suppression."""
         b = q.shape[0]
         p = min(self.nprobe, self.ncentroids)
         if q.device.type == "cuda" and p > kcos.MAX_K:
@@ -317,9 +330,9 @@ class IVFIndex:
         always = torch.ones((istate.centroids.shape[0],), dtype=torch.bool,
                             device=q.device)
         _, probe = ops.cosine_topk(q, istate.centroids, always, k=p)
-        probe = probe.to(torch.int64)
-        cand = istate.buckets[probe].reshape(b, -1)           # (B, M)
-        visible = istate.bucket_valid[probe].reshape(b, -1)
+        rows = probe.to(torch.int64)
+        cand = istate.buckets[rows].reshape(b, -1)            # (B, M)
+        visible = istate.bucket_valid[rows].reshape(b, -1)
         safe = torch.clamp(cand, min=0).to(torch.int64)
         if valid.dim() == 2:
             visible = visible & torch.gather(valid, 1, safe)
@@ -330,7 +343,7 @@ class IVFIndex:
             visible = visible & (safe >= starts[:, None]) \
                 & (safe < (starts + sizes)[:, None])
         visible = dedup_candidates(cand, visible)
-        return torch.where(visible, cand, torch.full_like(cand, -1))
+        return torch.where(visible, cand, torch.full_like(cand, -1)), probe
 
     def search(self, istate: IVFState, queries: torch.Tensor,
                keys: torch.Tensor, valid: torch.Tensor, *,
@@ -340,8 +353,12 @@ class IVFIndex:
         ``nprobe`` buckets. ``valid`` is (N,) shared or (B, N) per row;
         ``interval`` restricts row b to ``[starts[b], starts[b] +
         sizes[b])``. Rows with no visible live candidate return
-        (-inf, -1)."""
+        (-inf, -1). The IVF kernel gets the probe and the bucket table, and
+        scores each probed bucket's members once for all its rows."""
         q = l2_normalize(queries.to(torch.float32))
-        cand = self.candidates(istate, q, valid, interval=interval)
+        cand, probe = self.probe_candidates(istate, q, valid,
+                                            interval=interval)
         k = min(self.topk, cand.shape[1])
-        return ops.ivf_topk(q, keys, cand, k=k, backend=self.backend)
+        return ops.ivf_topk(q, keys, cand, k=k, backend=self.backend,
+                            probe=probe.to(torch.int32).contiguous(),
+                            buckets=istate.buckets.contiguous())

@@ -9,8 +9,21 @@ ids, visible where ``0 <= id < N``; k <= min(32, M). Returns (scores
 (B, k) f32 sorted descending, slot ids (B, k) int32), ties to the lowest
 candidate position, (-inf, -1) where fewer than k ids are visible.
 
+The grouping (``probe``, ``buckets``): ``IVFIndex`` builds cand from a probe
+(B, P) int32, the probed bucket of each block of ``cap`` positions, and its
+bucket table (C, cap) int32 of slot ids, with ``M == P * cap``: every entry
+``cand[b, j * cap + t]`` is either -1 or ``buckets[probe[b, j], t]``. Given
+both, the kernel stages each probed bucket's live members once and scores
+them against every row that probed the bucket. The card does not check the
+contract (``check_contract`` does, on any device, with a sync; ``ops``
+runs it on the CPU route); a cand that breaks it gets scores of the bucket
+members at the positions where it is visible. Without them, the kernel's
+entry point describes cand as groups of one: each row's chunk of 2,048
+positions is its own bucket, and the same kernel runs.
+
 The wrapper checks its arguments, allocates the outputs and the pass-1
-scratch with ``torch.empty``, launches both passes on the current stream
+scratch (its size from the kernel's own plan) with ``torch.empty``,
+launches both passes on the current stream
 without synchronizing, raises if a launch was refused, and counts its
 launches in ``launches["ivf_topk"]``. It takes CUDA tensors only: ``ops``
 sends CPU tensors to the plain version.
@@ -29,9 +42,8 @@ from repro_torch.kernels.cosine_topk import DTYPE_CODE
 launches = {"ivf_topk": 0}
 
 MAX_K = 32              # one list entry per lane (csrc/warp_topk.cuh)
-MAX_D = 4096            # the query row in shared memory (16 KB)
-POS_PER_BLOCK = 2048    # candidate positions per pass-1 block
-WARPS = 8               # warps per pass-1 block, one top-k list each
+MAX_D = 4096            # a tile of 8 staged rows fits in shared memory
+MAX_P = 32              # probes a row in the grouped form
 
 
 def reset_launches() -> None:
@@ -39,7 +51,8 @@ def reset_launches() -> None:
 
 
 def check_args(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
-               k: int) -> None:
+               k: int, probe: torch.Tensor | None = None,
+               buckets: torch.Tensor | None = None) -> None:
     """Raise ValueError on anything the kernel does not take."""
     if queries.dim() != 2 or keys.dim() != 2 or cand.dim() != 2:
         raise ValueError(f"queries, keys and cand must be 2-D, got "
@@ -63,32 +76,76 @@ def check_args(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
     if not 1 <= k <= min(MAX_K, m):
         raise ValueError(f"k must be within [1, min({MAX_K}, M={m})], got "
                          f"{k}")
-    if not all(t.is_contiguous() for t in (queries, keys, cand)):
+    operands = [queries, keys, cand]
+    if (probe is None) != (buckets is None):
+        raise ValueError("probe and buckets go together")
+    if probe is not None:
+        if probe.dim() != 2 or buckets.dim() != 2:
+            raise ValueError(f"probe and buckets must be 2-D, got "
+                             f"{tuple(probe.shape)} and "
+                             f"{tuple(buckets.shape)}")
+        if probe.dtype != torch.int32 or buckets.dtype != torch.int32:
+            raise ValueError(f"probe and buckets must be int32, got "
+                             f"{probe.dtype} and {buckets.dtype}")
+        p, (c, cap) = probe.shape[1], buckets.shape
+        if probe.shape[0] != b or not 1 <= p <= MAX_P or c < 1 \
+                or p * cap != m:
+            raise ValueError(f"need probe (B={b}, P) with 1 <= P <= "
+                             f"{MAX_P}, buckets (C >= 1, cap) and M == P * "
+                             f"cap: probe {tuple(probe.shape)}, buckets "
+                             f"{tuple(buckets.shape)}, M={m}")
+        operands += [probe, buckets]
+    if not all(t.is_contiguous() for t in operands):
         raise ValueError("every operand must be contiguous")
-    if len({t.device for t in (queries, keys, cand)}) != 1:
+    if len({t.device for t in operands}) != 1:
         raise ValueError("every operand must be on one device")
+
+
+def check_contract(cand: torch.Tensor, probe: torch.Tensor,
+                   buckets: torch.Tensor) -> None:
+    """Raise ValueError unless every probe names a bucket of the table and
+    every entry ``cand[b, j * cap + t]`` is -1 or ``buckets[probe[b, j],
+    t]``. Reads the tensors back: on the card it waits for them."""
+    c = buckets.shape[0]
+    if bool(((probe < 0) | (probe >= c)).any()):
+        raise ValueError(f"probe names a bucket outside [0, {c})")
+    want = buckets[probe.long()].reshape(cand.shape)
+    bad = (cand != -1) & (cand != want)
+    if bool(bad.any()):
+        b, pos = (int(x) for x in bad.nonzero()[0])
+        raise ValueError(
+            f"cand breaks the grouping: cand[{b}, {pos}] = "
+            f"{int(cand[b, pos])}, neither -1 nor the bucket member "
+            f"{int(want[b, pos])}")
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("ivf_topk")
     if lib.ivf_topk_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q keys key_dtype cand B N M d k chunks part_s part_i out_s out_i
-        # stream
-        lib.ivf_topk_launch.argtypes = [p, p, i, p, i, i, i, i, i, i,
-                                        p, p, p, p, p]
+        # q keys key_dtype cand probe buckets B N M d k P C cap scratch
+        # out_s out_i stream
+        lib.ivf_topk_launch.argtypes = [p, p, i, p, p, p, i, i, i, i, i,
+                                        i, i, i, p, p, p, p]
         lib.ivf_topk_launch.restype = ctypes.c_int
+        # key_dtype grouped B N M d k P C cap
+        lib.ivf_topk_scratch_bytes.argtypes = [i] * 10
+        lib.ivf_topk_scratch_bytes.restype = ctypes.c_longlong
         lib.ivf_topk_error_string.argtypes = [i]
         lib.ivf_topk_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def ivf_topk_cuda(queries: torch.Tensor, keys: torch.Tensor,
-                  cand: torch.Tensor, k: int
+                  cand: torch.Tensor, k: int, *,
+                  probe: torch.Tensor | None = None,
+                  buckets: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over each row's visible candidate ids; the (B, M, d) tensor of
-    gathered rows is never built."""
-    check_args(queries, keys, cand, k)
+    gathered rows is never built. With ``probe`` (B, P) and ``buckets``
+    (C, cap), each entry of ``cand`` must be -1 or ``buckets[probe[b, j],
+    t]`` at position ``j * cap + t`` (not checked here)."""
+    check_args(queries, keys, cand, k, probe, buckets)
     dev = queries.device
     if dev.type != "cuda":
         raise RuntimeError(f"the CUDA IVF top-k takes CUDA tensors, got "
@@ -97,19 +154,23 @@ def ivf_topk_cuda(queries: torch.Tensor, keys: torch.Tensor,
     lib = _lib()
     b, d = queries.shape
     n, m = keys.shape[0], cand.shape[1]
-    chunks = -(-m // POS_PER_BLOCK)
-    part_s = torch.empty((b, chunks * WARPS, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((b, chunks * WARPS, k), dtype=torch.int32,
-                         device=dev)
+    code = DTYPE_CODE[keys.dtype]
+    # the grouping's (P, C, cap); without it the kernel's entry point
+    # derives its own and reads none of these
+    p, (c, cap) = ((probe.shape[1], buckets.shape) if probe is not None
+                   else (0, (0, 0)))
+    scratch = torch.empty(lib.ivf_topk_scratch_bytes(
+        code, probe is not None, b, n, m, d, k, p, c, cap),
+        dtype=torch.uint8, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.ivf_topk_launch(
-            queries.data_ptr(), keys.data_ptr(), DTYPE_CODE[keys.dtype],
-            cand.data_ptr(), b, n, m, d, k, chunks, part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            queries.data_ptr(), keys.data_ptr(), code, cand.data_ptr(),
+            None if probe is None else probe.data_ptr(),
+            None if buckets is None else buckets.data_ptr(), b, n, m, d, k,
+            p, c, cap, scratch.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ivf_topk launch failed: "
                            f"{lib.ivf_topk_error_string(err).decode()}")

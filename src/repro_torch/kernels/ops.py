@@ -35,6 +35,7 @@ from repro_torch.kernels.cosine_topk import (check_args, check_interval_args,
                                              quant_cosine_topk_cuda,
                                              quant_cosine_topk_masked_cuda)
 from repro_torch.kernels.ivf_topk import check_args as check_ivf_args
+from repro_torch.kernels.ivf_topk import check_contract as check_ivf_contract
 from repro_torch.kernels.ivf_topk import ivf_topk_cuda
 
 BACKENDS = ("auto", "torch", "kernel")
@@ -89,11 +90,18 @@ def quant_cosine_topk(queries: torch.Tensor, keys_q: torch.Tensor,
 
 
 def ivf_topk(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
-             *, k: int = 4, backend: str = "auto"
+             *, k: int = 4, backend: str = "auto",
+             probe: torch.Tensor | None = None,
+             buckets: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """IVF candidate top-k: ``cand`` is (B, M) int32 candidate slot ids, -1
     marking every invisible candidate (``IVFIndex.candidates`` folds bucket
     validity, aliveness, tenancy and per-row duplicates into the ids).
+    ``probe`` (B, P) and ``buckets`` (C, cap) int32, M == P * cap, give the
+    grouping the kernel works by: each entry ``cand[b, j * cap + t]`` must
+    be -1 or ``buckets[probe[b, j], t]``. The plain route checks that
+    contract and raises ValueError on a violation (the result does not
+    depend on the grouping); the card trusts it.
     ``backend`` is ``'auto'`` (follow the device of the tensors),
     ``'torch'`` (the plain version on any device) or ``'kernel'`` (the CUDA
     kernel; raises on CPU tensors)."""
@@ -101,8 +109,11 @@ def ivf_topk(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "kernel" or (backend == "auto"
                                and queries.device.type == "cuda"):
-        return ivf_topk_cuda(queries, keys, cand, k)
-    check_ivf_args(queries, keys, cand, k)
+        return ivf_topk_cuda(queries, keys, cand, k, probe=probe,
+                             buckets=buckets)
+    check_ivf_args(queries, keys, cand, k, probe, buckets)
+    if probe is not None:
+        check_ivf_contract(cand, probe, buckets)
     return ref.ivf_topk_ref(queries, keys, cand, k)
 
 

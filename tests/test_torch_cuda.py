@@ -3,7 +3,8 @@ interval, dense per-row mask; k up to the IVF probe's 16 and past it; the
 shared form's tensor-core tiles at their edges, and its hit decisions the
 same in a batch of 128 as one row at a time; the interval forms' outputs
 independent of how rows are laid out) and
-the IVF candidate top-k against their plain PyTorch versions, the three
+the IVF candidate top-k (with and without the probe's grouping, a skewed
+bucket table among its cases) against their plain PyTorch versions, the three
 per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
 the same loop on the CPU; the prefill flash-attention and decode-attention
@@ -15,6 +16,8 @@ neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
 It also holds the seeded kernel inputs that ``test_torch_kernels.py`` feeds
 to the JAX package on the CPU."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -122,6 +125,11 @@ IVF_CASES = [  # (B, N, M, d, k)
     (3, 64, 20, 20, 4),      # 16-byte loads only for f32: d*2, d % 16 != 0
     (70, 200, 2100, 32, 4),  # B > 64, M past one 2,048-position block
 ]
+# on the card only: without a probe each row's chunk of 2,048 positions is
+# a bucket of its own; one full chunk, row 0's tie across two chunks, a
+# 1-position last chunk
+IVF_CHUNK_CASES = [(5, 300, 2048, 32, 4), (5, 300, 3001, 32, 4),
+                   (5, 300, 4097, 32, 4)]
 
 
 def make_ivf_inputs(b, n, m, d, k, key_dtype, seed):
@@ -170,6 +178,81 @@ def _ivf_inputs(b, n, m, d, k, key_dtype, seed):
     if key_dtype == "int8":
         keys = np.clip(np.round(keys * 127.0), -127, 127).astype(np.int8)
     return q, keys, cand, ties
+
+
+GROUPED_CASES = [  # (B, C, cap, P, N, d, k)
+    (9, 6, 16, 3, 60, 48, 4),
+    (40, 12, 100, 5, 900, 64, 8),    # cap 100: two 64-member tiles
+    (70, 8, 37, 4, 300, 20, 4),      # d=20: bf16 and int8 rows staged by element
+    (33, 10, 24, 6, 200, 32, 32),    # k=32: more than a group's 8 entries
+    (12, 6, 40, 3, 300, 2000, 4),    # d=2000: 8-row tiles, chunks of the query
+]
+
+
+def make_grouped_ivf_inputs(b, c, cap, p, n, d, k, key_dtype, seed):
+    """The IVF kernel's grouped operands: a bucket table (C, cap) whose
+    buckets hold live members at random positions (bucket 0 full, bucket 1
+    empty, the others a random share; a slot may sit in several buckets),
+    each row's P distinct probes with bucket 0 probed by every row, and
+    cand = buckets[probe] with a third of the entries -1 (row 1 sees
+    nothing, row 2 fewer than k ids). Planted ties across two buckets:
+    slots u1 < u2 hold one key row, query 0 is that row, u2 sits in the
+    bucket row 0 probes first and u1 in the next, so row 0 must return u2
+    (the lower position) before u1. Returns (q, keys, cand, probe, buckets,
+    ties)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    u1, u2 = n // 3, n // 2
+    keys[u2] = keys[u1]
+    others = np.setdiff1d(np.arange(n), (u1, u2))
+    live = rng.random((c, cap)) < rng.random((c, 1))
+    live[0], live[1] = True, False
+    buckets = np.where(live, rng.choice(others, (c, cap)), -1).astype(np.int32)
+    probe = np.stack([np.concatenate([[0], 1 + rng.permutation(c - 1)[:p - 1]])
+                      for _ in range(b)])
+    rest = rng.permutation(np.setdiff1d(np.arange(c), (0, 2, 3)))
+    probe[0] = np.concatenate([[2, 3, 0], rest])[:p]
+    probe = probe.astype(np.int32)
+    buckets[2, 0], buckets[3, 0] = u2, u1
+    cand = buckets[probe].reshape(b, p * cap)
+    cand[rng.random(cand.shape) < 1 / 3] = -1
+    cand[0, 0], cand[0, cap] = u2, u1
+    if b > 1:
+        cand[1] = -1
+    if b > 2:
+        keep = np.flatnonzero(cand[2] >= 0)[:k - 1]
+        cand[2, np.setdiff1d(np.arange(p * cap), keep)] = -1
+    q[0] = keys[u1]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if key_dtype == "int8":
+        keys = np.clip(np.round(keys * 127.0), -127, 127).astype(np.int8)
+    return q, keys, cand, probe, buckets, {0: [u2, u1]}
+
+
+def assert_topk_close(got, want1, k, tol):
+    """A kernel's (scores, ids) against the plain version's top-(k+1):
+    scores within ``tol``, the same empty entries, and the same ids wherever
+    a score lies more than ``tol`` from both neighbours (many distinct rows
+    may score within the f32 reorderings of each other)."""
+    ks, ki = (x.cpu() for x in got)
+    rs1, ri1 = (x.cpu() for x in want1)
+    rs1 = torch.cat([rs1, torch.full((rs1.shape[0], k + 1 - rs1.shape[1]),
+                                     -math.inf)], 1)
+    ri1 = torch.cat([ri1, torch.full((ri1.shape[0], k + 1 - ri1.shape[1]),
+                                     -1, dtype=ri1.dtype)], 1)
+    rs, ri = rs1[:, :k], ri1[:, :k]
+    empty = ri < 0
+    assert torch.equal(empty, ki < 0)
+    assert bool(torch.all(torch.isneginf(ks[empty])))
+    torch.testing.assert_close(ks[~empty], rs[~empty], rtol=0, atol=tol)
+    gap = torch.full(rs1.shape, math.inf)
+    diff = (rs1[:, 1:] - rs1[:, :-1]).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], diff)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], diff)
+    apart = (gap[:, :k] > tol) & ~empty
+    assert torch.equal(ki[apart], ri[apart])
 
 
 def _scores_apart(q, keys, cand, key_dtype):
@@ -529,7 +612,7 @@ def test_tenant_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype, fused):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("b,n,m,d,k", IVF_CASES)
+@pytest.mark.parametrize("b,n,m,d,k", IVF_CASES + IVF_CHUNK_CASES)
 def test_cuda_ivf_kernel_matches_plain_version(cuda_device, b, n, m, d, k,
                                                key_dtype):
     q, keys, cand, ties = make_ivf_inputs(b, n, m, d, k, key_dtype,
@@ -541,11 +624,81 @@ def test_cuda_ivf_kernel_matches_plain_version(cuda_device, b, n, m, d, k,
     ks, ki = kivf.ivf_topk_cuda(*args, k)
     assert kivf.launches["ivf_topk"] == before + 1
     rs, ri = tref.ivf_topk_ref(*[a.cpu() for a in args], k)
-    tol = 1e-2 if key_dtype == "bf16" else 1e-5
-    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=tol)
+    # bf16 keys too: kernel and plain version sum the same bf16 numbers
+    torch.testing.assert_close(ks.cpu(), rs, rtol=0, atol=1e-5)
     assert torch.equal(ki.cpu(), ri)
     for r, want in ties.items():
         assert ki[r, :len(want)].cpu().tolist() == want
+
+
+def _grouped_on(device, key_dtype, *case, seed):
+    q, keys, cand, probe, buckets, ties = make_grouped_ivf_inputs(
+        *case, key_dtype, seed=seed)
+    args = (torch.from_numpy(q).to(device),
+            keys_to_torch(keys, key_dtype).to(device),
+            torch.from_numpy(cand).to(device))
+    groups = dict(probe=torch.from_numpy(probe).to(device),
+                  buckets=torch.from_numpy(buckets).to(device))
+    return args, groups, ties
+
+
+def _same_bits(a, b):
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+        and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_cuda_grouped_ivf_kernel_matches_plain_version(cuda_device, case,
+                                                       key_dtype):
+    """The bucket-major form against the plain version (which takes no
+    grouping), bit for bit equal to the same kernel without the grouping;
+    the planted ties across two buckets go to the lower position."""
+    args, groups, ties = _grouped_on(cuda_device, key_dtype, *case,
+                                     seed=sum(case))
+    k = case[-1]
+    before = kivf.launches["ivf_topk"]
+    grouped = kivf.ivf_topk_cuda(*args, k, **groups)
+    assert kivf.launches["ivf_topk"] == before + 1
+    ungrouped = kivf.ivf_topk_cuda(*args, k)
+    assert_topk_close(grouped, tref.ivf_topk_ref(
+        *[a.cpu() for a in args], k + 1), k, 1e-5)
+    assert _same_bits(grouped, ungrouped)
+    for r, want in ties.items():
+        assert grouped[1][r, :len(want)].cpu().tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+def test_cuda_grouped_ivf_kernel_takes_a_skewed_table(cuda_device, key_dtype):
+    """The serve path's P and cap with one full bucket (1,024 live members)
+    that all 128 rows probe: its work spreads over tiles and slices, and
+    the result is the plain version's, bit for bit the ungrouped form's."""
+    case = (128, 24, 1024, 16, 20000, 384, 4)
+    args, groups, ties = _grouped_on(cuda_device, key_dtype, *case, seed=5)
+    assert bool((groups["probe"] == 0).any(1).all())
+    assert bool((groups["buckets"][0] >= 0).all())
+    grouped = kivf.ivf_topk_cuda(*args, 4, **groups)
+    assert_topk_close(grouped, tref.ivf_topk_ref(*[a.cpu() for a in args],
+                                                 5), 4, 1e-5)
+    assert _same_bits(grouped, kivf.ivf_topk_cuda(*args, 4))
+    assert grouped[1][0, :2].cpu().tolist() == ties[0]
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_ivf_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    args, groups, _ = _grouped_on(cuda_device, "f32", *GROUPED_CASES[0],
+                                  seed=1)
+    before = dict(kivf.launches)
+    for bad in (dict(groups, probe=groups["probe"].long()),
+                dict(groups, buckets=groups["buckets"][:, :-1]),
+                dict(groups, probe=groups["probe"].cpu()),
+                dict(probe=groups["probe"])):
+        with pytest.raises(ValueError):
+            kivf.ivf_topk_cuda(*args, 4, **bad)
+    assert kivf.launches == before
 
 
 @pytest.mark.cuda
@@ -658,6 +811,30 @@ def test_ivf_serve_loop_on_cuda_matches_cpu(cuda_device, key_dtype,
         decisions, scores = _served(other.process(requests))
         assert on_card[0] == decisions
         np.testing.assert_allclose(on_card[1], scores, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ivf_tenancy_serve_loop_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """``--index ivf --tenants 4`` on the card: one probe and one grouped
+    IVF launch a batch, each row seeing only its tenant's members through
+    cand; the decisions and per-tenant counters equal those of a CPU engine
+    serving from the card's post-refit snapshot."""
+    kw = dict(corpus=30, queries=15, batch=16, key_dtype="f32", tenants=4)
+    eng, requests = _ivf_engine(str(cuda_device), tmp_path, **kw)
+    kmod.reset_launches()
+    kivf.reset_launches()
+    on_card = _served(eng.process(requests))
+    batches = -(-len(requests) // 16)
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk": batches}
+    assert kivf.launches == {"ivf_topk": batches}
+    restored, _ = _ivf_engine("cpu", **kw)
+    restored.load_cache(str(tmp_path / "refit"))
+    decisions, scores = _served(restored.process(requests))
+    assert on_card[0] == decisions
+    np.testing.assert_allclose(on_card[1], scores, rtol=0, atol=1e-5)
+    assert eng.tenant_stats() == restored.tenant_stats()
+    assert any(cached for _, cached in on_card[0])
 
 
 # --------------------------------------------------------------------- #
