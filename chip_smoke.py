@@ -10,7 +10,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
   card      the card's name and power limit; f32 products must not use TF32
   build     nvcc of every kernel source for sm_90a, with -Xptxas -v
   kernel    each CUDA kernel (shared-mask, per-row interval and dense-mask
-            cosine top-k, k up to the IVF probe's 16 and past it, small
+            cosine top-k, the per-row forms also where every row sees all
+            of N (the dense mask a random four fifths of it) and where most
+            rows see one region and a few all of N; k up to the IVF
+            probe's 16 and past it, small
             slabs of 1 to 1,000 keys through the 4-row query tiles, k past
             N, B past one 128-row tensor-core tile, d=100, each also over
             an int8 slab with per-row scales; the IVF
@@ -53,10 +56,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
             bound reckoned for 3xTF32 (2 products for int8 keys) with the
             f32-FMA bound beside it; the IVF
             probe's split and its kernel launches per call (one); the
-            interval forms also from a CUDA graph of what their wrappers
-            launch (the row order on the card, then the kernel), with the
-            rows sorted by interval giving each row the same top-k bit for
-            bit; the IVF kernel with and without the probe's grouping at
+            interval and dense forms also from a CUDA graph of what their
+            wrappers launch (the row order on the card, for the dense form
+            after its pass 0, then the kernel), with the rows sorted by
+            interval giving each row the same top-k bit for bit, the dense
+            form also where each row sees a random 80% of N, its pass 0
+            held bit for bit against the plain version on each mask; all
+            per-row bounds reckoned as the shared-mask rows' (3xTF32, 2
+            products for int8 keys, the f32-FMA bound beside); the IVF
+            kernel with and without the probe's grouping at
             the serve shape and with every id visible (the grouped call's
             bound counts cand only where a probed bucket has a live
             member, the others the whole id matrix), and the whole
@@ -273,8 +281,18 @@ def _intervals(torch, gen, b, n, layout):
     """(starts, sizes) (B,) int32 on the card. ``regions``: TENANTS equal
     contiguous regions, a random one per row, every fifth row empty (a
     padded row); ``random``: random intervals that cross 128-key tiles and
-    pass-1 chunks, every fourth row empty; ``empty``: every row empty."""
-    if layout == "regions":
+    pass-1 chunks, every fourth row empty; ``unstructured``: every row all
+    of N (the dense-mask case then knocks out a random fifth of each row's
+    slots, independently), every fifth row empty; ``skewed``: most rows the
+    first region, every eighth row all of N, every fifth row empty;
+    ``empty``: every row empty."""
+    if layout in ("unstructured", "skewed"):
+        size = n // TENANTS if layout == "skewed" else n
+        starts = torch.zeros(b, dtype=torch.long, device="cuda")
+        sizes = torch.full((b,), size, dtype=torch.long, device="cuda")
+        sizes[::8] = n
+        sizes[4::5] = 0
+    elif layout == "regions":
         size = n // TENANTS
         tenant = torch.randint(0, TENANTS, (b,), generator=gen, device="cuda")
         starts = tenant * size
@@ -290,6 +308,27 @@ def _intervals(torch, gen, b, n, layout):
         starts = torch.zeros(b, dtype=torch.long, device="cuda")
         sizes = torch.zeros(b, dtype=torch.long, device="cuda")
     return starts.to(torch.int32), sizes.to(torch.int32)
+
+
+def _tile_summary_check(torch, mask, where) -> None:
+    """The dense form's pass 0 and row ranking on the card
+    (``cosine_topk.tile_summary``) against their plain versions on
+    ``mask``: bitmaps, sort keys and tile counts equal to
+    ``ref.tile_summary_ref``'s bit for bit, the order a stable sort of the
+    keys; or fail."""
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.kernels import ref
+    *got, order = kmod.tile_summary(mask)
+    want = ref.tile_summary_ref(mask)
+    for label, g, w in zip(("bitmaps", "sort keys", "tile counts"), got,
+                           want):
+        if not torch.equal(g, w):
+            fail(f"tile_summary {label} differ from the plain version at "
+                 f"{where}")
+    if not torch.equal(order.long(),
+                       torch.sort(want[1], stable=True).indices):
+        fail(f"tile_summary's order is not a stable sort of its keys at "
+             f"{where}")
 
 
 def _per_row_case(torch, variant, dtype, b, n, d, k, layout, seed):
@@ -336,6 +375,7 @@ def _per_row_case(torch, variant, dtype, b, n, d, k, layout, seed):
         for r in tie_rows:
             mask[r] = interval_visibility(valid, starts[r:r + 1],
                                           sizes[r:r + 1])[0]
+        _tile_summary_check(torch, mask, f"{dtype} B={b} N={n} {layout}")
         ks, ki = getattr(kmod, f"{prefix}cosine_topk_masked_cuda")(
             q, *slab, mask, k)
         rs1, ri1 = getattr(ref, f"{prefix}cosine_topk_ref")(q, *slab, mask,
@@ -392,6 +432,11 @@ def phase_kernel(torch) -> dict:
         (7, 1000, 384, 1, "regions"),
         (70, 16383, 1536, 16, "random"),
         (9, 1000, 384, 32, "random"),
+        # the dense form's grouping: no tile to skip; most rows one region
+        (128, 65536, 384, 4, "unstructured"),
+        (128, 65536, 384, 4, "skewed"),
+        (200, 16383, 384, 8, "skewed"),
+        (7, 1000, 384, 4, "unstructured"),
     ]
     worst = dict.fromkeys(KERNELS, 0.0)
     # "quant": int8 keys with per-row scales, the quant_* kernels
@@ -412,6 +457,8 @@ def phase_kernel(torch) -> dict:
                  cases=len(per_row_cases), max_abs_err=max(errs),
                  tolerance=SCORE_TOL[dtype])
             worst[name] = max(worst[name], max(errs))
+    emit("kernel", check="dense pass 0 and row ranking card == plain, "
+         "bitwise", masks=4 * len(per_row_cases))
     worst["ivf_topk"] = _ivf_kernel_cases(torch)
     _quantize_keys_check(torch)
     return worst
@@ -1318,94 +1365,150 @@ def phase_timing(torch, card: str) -> dict:
             torch.ones(n, dtype=torch.bool, device="cuda"), starts,
             sizes).any(0).sum())
         visible = int(sizes.long().sum())
-        for variant in ("interval", "masked"):
-            name = f"{prefix}cosine_topk_{variant}"
-            if variant == "interval":
-                # what the wrapper launches: the row order on the card, then
-                # the kernel; the plan's counts are read back once, here
-                _, groups, span = kmod.interval_plan(q, keys, valid, starts,
-                                                     sizes, k, scales)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        # the rows sorted by region: each must get the same top-k, bit for
+        # bit, as in the given (round-robin) order
+        perm = torch.argsort(starts.long() * (1 << 32) + sizes.long(),
+                             stable=True)
 
-                def kernel():
-                    order = kmod.interval_order(starts, sizes)
-                    return kmod._launch(name, q, keys,
-                                        (valid, starts, sizes, order), k,
-                                        scales, intervals=(groups, span))
+        # the interval form: what the wrapper launches is the row order on
+        # the card, then the kernel; the plan's counts are read back once,
+        # here
+        name = f"{prefix}cosine_topk_interval"
+        _, groups, span = kmod.interval_plan(q, keys, valid, starts, sizes,
+                                             k, scales)
 
-                def wrapper():
-                    return getattr(kmod, f"{name}_cuda")(
-                        q, *slab, valid, starts, sizes, k)
+        def kernel():
+            order = kmod.interval_order(starts, sizes)
+            return kmod._launch(name, q, keys, (valid, starts, sizes, order),
+                                k, scales, intervals=(groups, span))
 
-                def plain():
-                    return getattr(ref, f"{prefix}cosine_topk_interval_ref")(
-                        q, *slab, valid, starts, sizes, k)
+        def wrapper():
+            return getattr(kmod, f"{name}_cuda")(q, *slab, valid, starts,
+                                                 sizes, k)
 
-                def library():
-                    cols = torch.arange(n, device="cuda")[None, :]
-                    inside = (cols >= starts[:, None]) & \
-                        (cols < (starts + sizes)[:, None])
-                    return torch.topk(torch.where(
-                        valid[None] & inside, q @ _as_f32(torch, *slab).T,
-                        neg), k)
-                nbytes = (b * d * 4 + union * (slot_bytes + 1) + 2 * b * 4
-                          + b * k * 8)
-            else:
-                def kernel():
-                    return kmod._launch(name, q, keys, (mask,), k, scales)
+        def plain():
+            return getattr(ref, f"{prefix}cosine_topk_interval_ref")(
+                q, *slab, valid, starts, sizes, k)
 
-                def wrapper():
-                    return getattr(kmod, f"{name}_cuda")(q, *slab, mask, k)
+        def library():
+            cols = torch.arange(n, device="cuda")[None, :]
+            inside = (cols >= starts[:, None]) & \
+                (cols < (starts + sizes)[:, None])
+            return torch.topk(torch.where(
+                valid[None] & inside, q @ _as_f32(torch, *slab).T, neg), k)
+        nbytes = b * d * 4 + union * (slot_bytes + 1) + 2 * b * 4 + b * k * 8
+        row = _per_row_timing(torch, {"kernel": kernel, "wrapper": wrapper,
+                                      "plain": plain, "library": library},
+                              reps, 2.0 * d * visible, nbytes,
+                              n * slot_bytes, dtype)
+        row["split"] = dict(zip(SPLIT_KEYS, kmod.split(b, n, sms, groups,
+                                                        span)))
+        _same_for_sorted_rows(torch, wrapper, perm, lambda pm: getattr(
+            kmod, f"{name}_cuda")(q[pm].contiguous(), *slab, valid,
+                                  starts[pm].contiguous(),
+                                  sizes[pm].contiguous(), k), name)
+        out[(name, n, dtype)] = row
+        emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
+             regions=TENANTS, card=card, **row)
 
-                def plain():
-                    return getattr(ref, f"{prefix}cosine_topk_ref")(
-                        q, *slab, mask, k)
-
-                def library():
-                    return torch.topk(torch.where(
-                        mask, q @ _as_f32(torch, *slab).T, neg), k)
-                nbytes = b * d * 4 + union * slot_bytes + b * n + b * k * 8
-            ms, times = _time_turns(torch, {"kernel": kernel,
-                                            "wrapper": wrapper,
-                                            "plain": plain,
-                                            "library": library}, reps)
-            bound = _bound(2.0 * d * visible, nbytes)
-            row = {"kernel_ms": ms["kernel"], "wrapper_ms": ms["wrapper"],
-                   "plain_ms": ms["plain"], "library_ms": ms["library"],
-                   "runs_ms": times, **bound,
-                   "share_of_bound": bound["bound_ms"] / ms["kernel"],
-                   "l2_warm": n * slot_bytes < 50e6}
-            if variant == "interval":
-                # order + launch from a CUDA graph; the same rows sorted by
-                # region first give the same top-k, bit for bit
-                row["graph_ms"] = _time_graph(torch, kernel, reps)
-                row["share_of_bound"] = bound["bound_ms"] / row["graph_ms"]
-                row["split"] = dict(zip(("keys_per_chunk", "chunks",
-                                         "block_q"), kmod.split(
-                    b, n, torch.cuda.get_device_properties(0)
-                    .multi_processor_count, groups, span)))
-                _same_for_sorted_rows(torch, wrapper, q, starts, sizes,
-                                      lambda qq, st, sz: getattr(
-                                          kmod, f"{name}_cuda")(
-                                          qq, *slab, valid, st, sz, k),
-                                      name)
-            out[(name, n, dtype)] = row
+        # the dense form at the same visibility and, at N = 65,536, where
+        # each row sees an independent random 80% of N (no tile to skip)
+        name = f"{prefix}cosine_topk_masked"
+        layouts = {"regions": mask}
+        if n == 65536:
+            layouts["unstructured"] = torch.rand(
+                (b, n), generator=gen, device="cuda") < 0.8
+        for layout, dense in layouts.items():
+            row = _dense_timing(torch, name, prefix, q, slab, dense, k, reps,
+                                slot_bytes, sms, dtype)
+            _same_for_sorted_rows(
+                torch, lambda: getattr(kmod, f"{name}_cuda")(q, *slab, dense,
+                                                             k),
+                perm, lambda pm: getattr(kmod, f"{name}_cuda")(
+                    q[pm].contiguous(), *slab, dense[pm].contiguous(), k),
+                name)
+            out[(name, n, dtype) if layout == "regions"
+                else (name, n, dtype, layout)] = row
             emit("timing", kernel=name, B=b, N=n, d=d, k=k, key_dtype=dtype,
-                 regions=TENANTS, card=card, **row)
+                 regions=TENANTS, mask=layout, card=card, **row)
 
     out.update(_probe_timing(torch, card))
     out.update(_ivf_timing(torch, card))
     return out
 
 
-def _same_for_sorted_rows(torch, wrapper, q, starts, sizes, call, name
-                          ) -> None:
-    """The interval kernel on the rows as given and on the same rows sorted
-    by interval: each row's top-k equal bit for bit, or fail."""
-    perm = torch.argsort(starts.long() * (1 << 32) + sizes.long(),
-                         stable=True)
+SPLIT_KEYS = ("keys_per_chunk", "chunks", "block_q")
+
+
+def _per_row_timing(torch, fns: dict, reps: int, flops: float,
+                    nbytes: float, slab_bytes: float, dtype: str) -> dict:
+    """A per-row form's timing row: ``fns`` (kernel, wrapper, plain,
+    library) in turns with CUDA events, then ``kernel`` (what the wrapper
+    launches, its plan read back beforehand) from a CUDA graph. ``flops``
+    counts the visible products; the bound reckons them as the shared-mask
+    rows do, as 3xTF32 (2 products for int8 keys, exact in TF32), with the
+    f32-FMA bound beside it."""
+    ms, times = _time_turns(torch, fns, reps)
+    products = 3 if dtype == "f32" else 2
+    bound = _bound(products * flops, nbytes, PEAK_TF32_FLOPS)
+    fma = _bound(flops, nbytes)
+    graph_ms = _time_graph(torch, fns["kernel"], reps)
+    return {"graph_ms": graph_ms, "kernel_ms": ms["kernel"],
+            "wrapper_ms": ms["wrapper"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "runs_ms": times, **bound,
+            "tf32_products": products, "bound_fma_ms": fma["bound_ms"],
+            "bound_fma_by": fma["bound_by"],
+            "share_of_bound": bound["bound_ms"] / graph_ms,
+            "share_of_fma_bound": fma["bound_ms"] / graph_ms,
+            "l2_warm": slab_bytes < 50e6}
+
+
+def _dense_timing(torch, name, prefix, q, slab, mask, k, reps, slot_bytes,
+                  sms, dtype) -> dict:
+    """The dense form ``name`` timed under ``mask``: what its wrapper
+    launches (pass 0, the ranking of its keys, pass 1, the merge) from a CUDA
+    graph, the plan read back once here. Its bound counts the visible pairs'
+    products and reads q, the mask and the slots of the tiles some row
+    sees."""
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.kernels import ref
+    b, d = q.shape
+    n = mask.shape[1]
+    keys, scales = slab[0], (slab[1] if len(slab) == 2 else None)
+    neg = torch.tensor(float("-inf"), device="cuda")
+    _tile_summary_check(torch, mask, f"timing {name} N={n}")
+    _, _, groups, most = kmod.masked_plan(q, keys, mask, k, scales)
+
+    def kernel():
+        bits, _, _, order = kmod.tile_summary(mask)
+        return kmod._launch(name, q, keys, (mask, order, bits), k, scales,
+                            intervals=(groups, most * kmod.BLOCK_N))
+
+    fns = {"kernel": kernel,
+           "wrapper": lambda: getattr(kmod, f"{name}_cuda")(q, *slab, mask,
+                                                            k),
+           "plain": lambda: getattr(ref, f"{prefix}cosine_topk_ref")(
+               q, *slab, mask, k),
+           "library": lambda: torch.topk(torch.where(
+               mask, q @ _as_f32(torch, *slab).T, neg), k)}
+    seen = int(ref.visible_tiles_ref(mask).any(0).sum())
+    union = min(seen * kmod.BLOCK_N, n)
+    nbytes = b * d * 4 + union * slot_bytes + b * n + b * k * 8
+    row = _per_row_timing(torch, fns, reps, 2.0 * d * int(mask.sum()),
+                          nbytes, n * slot_bytes, dtype)
+    row["split"] = dict(zip(SPLIT_KEYS, kmod.split(
+        b, n, sms, groups, most * kmod.BLOCK_N, dense=True)))
+    row["distinct_keys"], row["most_tiles"] = groups, most
+    return row
+
+
+def _same_for_sorted_rows(torch, wrapper, perm, call, name) -> None:
+    """A per-row kernel on the rows as given (``wrapper()``) and on the same
+    rows permuted by ``perm`` (``call(perm)``): each row's top-k equal bit
+    for bit, or fail."""
     s1, i1 = wrapper()
-    s2, i2 = call(q[perm].contiguous(), starts[perm].contiguous(),
-                  sizes[perm].contiguous())
+    s2, i2 = call(perm)
     back = torch.argsort(perm)
     if not (torch.equal(s1.view(torch.int32), s2[back].view(torch.int32))
             and torch.equal(i1, i2[back])):

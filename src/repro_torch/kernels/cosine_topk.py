@@ -31,8 +31,16 @@ so a query tile holds rows of about one interval, and writes each row's
 top-k to its own place) and read back, in one host sync per call, the
 check ``starts + sizes <= N`` with the count of distinct intervals and the
 largest size, from which ``split`` picks the tile height and the chunks.
-They take CUDA tensors only: ``ops`` sends CPU tensors to the plain
-versions.
+The dense-mask wrappers do the same from a summary of the mask
+(``masked_plan``): pass 0 (``tile_summary``) writes, per row, the bitmap of
+the 128-key tiles in which the row sees a slot and a sort key, and a
+second kernel ranks the rows by key (a stable sort on the card) so that
+rows that see alike are side by side; the read-back
+gives the count of distinct keys and the most tiles a row sees. Pass 1
+then scores only the tiles that some row of its query tile sees.
+The wrappers take CUDA tensors only: ``ops`` sends CPU tensors to the plain
+versions. ``tile_summary`` (and so ``masked_plan``) runs its plain version on
+CPU tensors, so the plan is tested on the CPU.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ launches = {"cosine_topk": 0, "cosine_topk_interval": 0,
 MAX_K = 32      # one list entry per lane (MAX_K in csrc/warp_topk.cuh)
 BLOCK_Q = 64    # query rows per wide block of pass 1 (BQ_WIDE in the source)
 BLOCK_Q_NARROW = 4   # one warp per query row (BQ_NARROW in the source)
-BLOCK_Q_INTERVAL = (64, 32, 16)   # wide tile heights of the interval forms
+BLOCK_Q_INTERVAL = (64, 32, 16)   # wide tile heights of the grouped forms
 # the shared-mask forms' tensor-core tiles (tc::BQ in the source): a block
 # takes the serve path's whole batch of 128 queries, so each key is read once
 BLOCK_Q_TC = 128
@@ -66,10 +74,15 @@ TC_BLOCKS_PER_SM = 1   # the tensor-core block holds ~210 KB of shared memory
 # from 4,096, B=32 from 8,192; cosine_variants.py, PERF.md §6)
 TC_MIN_ROWS = 32
 TC_MIN_SCORES = 1 << 18
-# the interval forms' blocks each score up to a few 128-key tiles of their
-# union: one block an SM there beat two or four at the tenancy shape on an
-# H100 (PERF.md, PR 17)
-INTERVAL_BLOCKS_PER_SM = 1
+# the dense form's blocks list their 128-key tiles in shared memory, at most
+# this many (DENSE_LIST in the source): its chunks cover N in such lists
+DENSE_LIST = 1024
+# the grouped (interval and dense) forms' blocks an SM by tile height, the
+# best of 1, 2 and 4 for both forms in a sweep on an H100 (f32 and int8
+# keys; masked_variants.py, PERF.md §6): two for 64- and 32-row tiles
+# (126-128 registers a thread, so two fit an SM; one left the FMA loop
+# waiting on its loads), four for 16-row ones
+GROUPED_BLOCKS_PER_SM = {64: 2, 32: 2, 16: 4, BLOCK_Q_NARROW: BLOCKS_PER_SM}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -168,7 +181,9 @@ def check_interval_args(queries: torch.Tensor, keys: torch.Tensor,
         _refuse_outside(keys.shape[0])
 
 
-_EMPTY = torch.iinfo(torch.int64).max   # sort key of an empty interval
+# sort key of an empty interval, and of a row that sees nothing
+# (ref.EMPTY_KEY)
+_EMPTY = torch.iinfo(torch.int64).max
 
 
 def _sorted_intervals(starts: torch.Tensor, sizes: torch.Tensor
@@ -258,8 +273,62 @@ def check_quant_masked_args(queries: torch.Tensor, keys: torch.Tensor,
     _check_scales(keys, scales)
 
 
+def tile_summary(mask: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Pass 0 of the dense form: a contiguous (B, N) bool mask -> (tile
+    bitmaps (B, W) int32, sort keys (B,) int64, tiles seen (B,) int32), as
+    ``ref.tile_summary_ref`` defines them, and the rows' order (B,) int32,
+    a stable sort of the keys: rows with equal bitmaps side by side,
+    ordered by their first and last visible tile, rows that see nothing
+    last. A CUDA mask launches ``cosine_topk_tile_summary`` and
+    ``cosine_topk_rank_rows`` (no sync); a CPU mask takes the plain
+    versions."""
+    if mask.device.type != "cuda":
+        from repro_torch.kernels import ref   # ref imports this module
+        bits, key, tiles = ref.tile_summary_ref(mask)
+        order = torch.sort(key, stable=True).indices.to(torch.int32)
+        return bits, key, tiles, order
+    b, n = mask.shape
+    words = -(-(-(-n // BLOCK_N)) // 32)
+    bits = torch.empty((b, words), dtype=torch.int32, device=mask.device)
+    key = torch.empty(b, dtype=torch.int64, device=mask.device)
+    tiles = torch.empty(b, dtype=torch.int32, device=mask.device)
+    order = torch.empty(b, dtype=torch.int32, device=mask.device)
+    lib = _lib()
+    with torch.cuda.device(mask.device):
+        err = lib.cosine_topk_tile_summary_launch(
+            mask.data_ptr(), b, n, bits.data_ptr(), key.data_ptr(),
+            tiles.data_ptr(), order.data_ptr(),
+            torch.cuda.current_stream(mask.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("cosine_topk_tile_summary launch failed: "
+                           f"{lib.cosine_topk_error_string(err).decode()}")
+    return bits, key, tiles, order
+
+
+def masked_plan(queries: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
+                k: int, scales: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+    """What the dense-mask wrappers check and read back before a launch:
+    ``check_masked_args`` (with ``scales``, for an int8 slab with per-row
+    scales), then (``tile_summary``'s order and bitmaps, the number of
+    distinct keys of rows that see something, the most 128-key tiles a row
+    sees), one host sync in all."""
+    if scales is not None:
+        _check_scales(keys, scales)
+    check_masked_args(queries, keys, mask, k)
+    bits, key, tiles, order = tile_summary(mask)
+    skey = key[order.long()]
+    new = torch.ones_like(skey, dtype=torch.bool)
+    new[1:] = skey[1:] != skey[:-1]
+    groups, most = torch.stack([(new & (skey != _EMPTY)).sum(),
+                                tiles.max().long()]).tolist()
+    return order, bits, groups, most
+
+
 def split(b: int, n: int, num_sms: int, groups: int | None = None,
-          span: int | None = None, shared: bool = False
+          span: int | None = None, shared: bool = False, dense: bool = False
           ) -> tuple[int, int, int]:
     """(keys per chunk, chunks, query rows per block) of pass 1: 64-row
     query tiles, or 4-row ones where 64-row tiles over one 128-key tile each
@@ -279,10 +348,16 @@ def split(b: int, n: int, num_sms: int, groups: int | None = None,
     ``b / groups`` rows fill), so a tile covers about one interval; the
     kernel cuts each tile's union of intervals into ``chunks`` runs of whole
     128-key tiles, so chunks are counted over ``span`` keys, not N, for
-    about ``INTERVAL_BLOCKS_PER_SM`` blocks an SM."""
+    about ``GROUPED_BLOCKS_PER_SM[block_q]`` blocks an SM.
+
+    The dense forms (``dense``) pass the same from ``masked_plan``:
+    ``groups`` the distinct sort keys, ``span`` the most tiles a row sees
+    times ``BLOCK_N``, and take the same tile heights and chunks, at least
+    ceil(N / 128 / ``DENSE_LIST``) of them, so that a block's tiles fit its
+    list."""
+    all_tiles = -(-n // BLOCK_N)
     wide, per_sm = BLOCK_Q, BLOCKS_PER_SM
     if groups is not None:
-        per_sm = INTERVAL_BLOCKS_PER_SM
         rows = b // max(groups, 1)
         wide = next(h for h in BLOCK_Q_INTERVAL
                     if rows >= h or h == BLOCK_Q_INTERVAL[-1])
@@ -295,7 +370,14 @@ def split(b: int, n: int, num_sms: int, groups: int | None = None,
     else:
         block_q = wide if -(-b // wide) * n_tiles >= num_sms \
             else BLOCK_Q_NARROW
-    return chunking(b, n, num_sms, block_q, per_sm)
+    if groups is not None:
+        per_sm = GROUPED_BLOCKS_PER_SM[block_q]
+    per_chunk, chunks, block_q = chunking(b, n, num_sms, block_q, per_sm)
+    least = -(-all_tiles // DENSE_LIST)
+    if dense and chunks < least:
+        chunks = least
+        per_chunk = -(-n_tiles // chunks) * BLOCK_N
+    return per_chunk, chunks, block_q
 
 
 def chunking(b: int, n: int, num_sms: int, block_q: int, per_sm: int
@@ -316,11 +398,13 @@ def _lib() -> ctypes.CDLL:
         tail = [i] * 7 + [p] * 5   # B N d k kpc chunks block_q, outputs
         lib.cosine_topk_launch.argtypes = [p, p, i, p] + tail
         lib.cosine_topk_interval_launch.argtypes = [p, p, i, p, p, p, p] + tail
-        lib.cosine_topk_masked_launch.argtypes = [p, p, i, p] + tail
+        lib.cosine_topk_masked_launch.argtypes = [p, p, i, p, p, p] + tail
         # q keys scales, then the mask sources
         lib.quant_cosine_topk_launch.argtypes = [p, p, p, p] + tail
         lib.quant_cosine_topk_interval_launch.argtypes = [p] * 7 + tail
-        lib.quant_cosine_topk_masked_launch.argtypes = [p, p, p, p] + tail
+        lib.quant_cosine_topk_masked_launch.argtypes = [p] * 6 + tail
+        lib.cosine_topk_tile_summary_launch.argtypes = [p, i, i, p, p, p, p,
+                                                         p]
         for name in launches:
             getattr(lib, f"{name}_launch").restype = ctypes.c_int
         lib.cosine_topk_error_string.argtypes = [i]
@@ -335,9 +419,10 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel ``name`` on checked operands; ``masks`` are the
     mask-source pointers of its entry point, in order (the interval forms':
-    valid, starts, sizes, order). ``scales`` goes to the per-row-scale entry
-    points in place of the key type's code; ``intervals`` is the interval
-    forms' (distinct intervals, largest size) for ``split``."""
+    valid, starts, sizes, order; the dense forms': mask, order, tile
+    bitmaps). ``scales`` goes to the per-row-scale entry points in place of
+    the key type's code; ``intervals`` is the grouped forms' (distinct
+    intervals or sort keys, largest span in keys) for ``split``."""
     dev = queries.device
     if dev.type != "cuda":
         raise RuntimeError(f"the CUDA cosine top-k takes CUDA tensors, got "
@@ -349,7 +434,8 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_chunk, chunks, block_q = split(
         b, n, sms, *(intervals or ()),
-        shared=name in ("cosine_topk", "quant_cosine_topk"))
+        shared=name in ("cosine_topk", "quant_cosine_topk"),
+        dense=name.endswith("_masked"))
     # one chunk: pass 1 writes the output and pass 2 is not launched
     part_s = part_i = None
     if chunks > 1:
@@ -400,9 +486,11 @@ def cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,
                             mask: torch.Tensor, k: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k under a dense (B, N) ``mask``, aliveness folded in by the
-    caller."""
-    check_masked_args(queries, keys, mask, k)
-    return _launch("cosine_topk_masked", queries, keys, (mask,), k)
+    caller. Launches pass 0, the ranking of its keys, pass 1 and, over more
+    than one chunk, the merge."""
+    order, bits, groups, most = masked_plan(queries, keys, mask, k)
+    return _launch("cosine_topk_masked", queries, keys, (mask, order, bits),
+                   k, intervals=(groups, most * BLOCK_N))
 
 
 def quant_cosine_topk_cuda(queries: torch.Tensor, keys: torch.Tensor,
@@ -432,6 +520,7 @@ def quant_cosine_topk_masked_cuda(queries: torch.Tensor, keys: torch.Tensor,
                                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``cosine_topk_masked_cuda`` over int8 ``keys`` scaled by
     ``scales[n]``."""
-    check_quant_masked_args(queries, keys, scales, mask, k)
-    return _launch("quant_cosine_topk_masked", queries, keys, (mask,), k,
-                   scales)
+    order, bits, groups, most = masked_plan(queries, keys, mask, k, scales)
+    return _launch("quant_cosine_topk_masked", queries, keys,
+                   (mask, order, bits), k, scales,
+                   intervals=(groups, most * BLOCK_N))

@@ -7,7 +7,9 @@
 //                                [starts[b], starts[b] + sizes[b]), the
 //                                tenancy path (cosine_topk_interval_pallas)
 //   cosine_topk_masked_launch    dense (B, N) bool mask, aliveness folded in
-//                                by the caller (cosine_topk_masked_pallas)
+//                                by the caller (cosine_topk_masked_pallas),
+//                                after its pass 0,
+//                                cosine_topk_tile_summary_launch
 // and the same three over an int8 slab with a per-row (N,) f32 scale
 //   quant_cosine_topk_launch           (quant_cosine_topk_pallas)
 //   quant_cosine_topk_interval_launch  (quant_cosine_topk_interval_pallas)
@@ -74,8 +76,9 @@
 // with FMAs over d in the same two-level order; each score tile is masked
 // and offered to one warp-held list per query row, so the IVF probe's k=16
 // runs the same code as the main path's k=4. Its tile heights:
-//   wide, 64 rows (dense form): 256 threads in 16 x 16, a 4 x 8 patch each,
-//     8 rows a warp in the top-k.
+//   wide, 64, 32 or 16 rows (interval and dense forms): 256 threads in
+//     16 x 16, a 4, 2 or 1 x 8 patch each, 8, 4 or 2 rows a warp in the
+//     top-k.
 //   narrow, 4 rows: 128 threads, one warp per query row, each lane 4 keys
 //     (lane + 32 j) of its row, the next 32-dim slice of queries and keys
 //     loaded into registers while this one is multiplied. Taken where wider
@@ -107,10 +110,29 @@
 // (30 us at 3.35 TB/s), so its bound is set by bytes: the slab does not fit
 // the 50 MB L2. Before the grouping, a 64-row tile of round-robin tenants
 // spanned all four regions and scored all N for every row, four times the
-// visible work (PERF.md, PR 17). Dense form: one byte of the (B, N) mask per
-// score, read where the score tile is stored; grouping rows does not help
-// it (ROADMAP R4b).
+// visible work (PERF.md §6).
+//
+// Dense form. A (B, N) mask has no interval per row, but each row can be
+// summarized by the set of 128-key tiles in which it sees a slot. Pass 0
+// (cosine_topk_tile_summary, one block a row, 16-byte loads: the mask is
+// read once) writes that set as a bitmap and a sort key (first tile, last
+// tile, count of tiles) and cosine_topk_rank_rows the rows' stable
+// order by key; the wrapper (kernels/cosine_topk.py::masked_plan) reads back the
+// number of distinct keys and the largest set, from which split() picks the
+// tile height (64, 32 or 16, as for intervals) and the chunks. Pass 1 reads
+// its rows through the sorted order, ORs their bitmaps into the tile's
+// union, and chunk c takes the c-th run of the union's tiles into a list in
+// shared memory (at most DENSE_LIST), so no block scores a key tile that
+// none of its rows sees, and every block has work. Inside a tile one byte
+// of the mask per score, read where the score tile is stored, decides
+// visibility. The sums are the interval form's, so a dense search and an
+// interval search of one visibility agree bit for bit, in any row order.
+// At the timing shape (four regions, rows round robin) the dense form
+// scored every pair, four times the visible work, before rows were grouped
+// (PERF.md §6).
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "warp_topk.cuh"
 
@@ -125,6 +147,9 @@ constexpr int BQ_WIDE = 64, BQ_NARROW = 4;    // query rows per pass-1 block
 // the interval form's shorter wide tiles: a tile of rows grouped by interval
 // should cover about one interval
 constexpr int BQ_32 = 32, BQ_16 = 16;
+// the dense form: the most 128-key tiles one block scores (its list of them
+// sits in shared memory); the wrapper takes chunks >= ceil(tiles / this)
+constexpr int DENSE_LIST = 1024;
 
 // The thread layout of a pass-1 block of BQ query rows: TY x TX threads,
 // each TQ rows (ty + TY i) x TN keys (tx + TX j) of a score tile.
@@ -149,18 +174,46 @@ enum MaskSource { SHARED_MASK = 0, INTERVAL_MASK = 1, DENSE_MASK = 2 };
 // times its row's f32 scale (template parameter of pass 1)
 enum ScaleSource { TYPE_SCALE = 0, ROW_SCALE = 1 };
 
+// Exclusive prefix sum of v over the block's NT threads in thread order, and
+// the block's total. Every thread calls it; tmp holds NT / 32 ints.
+template <int NT>
+__device__ __forceinline__ int block_scan(int v, int& total, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    const int t = tmp[w];
+    before += w < warp ? t : 0;
+    total += t;
+  }
+  __syncthreads();   // tmp is written again by the next call
+  return before + x - v;
+}
+
 // scales: (N,) f32 (ROW_SCALE); valid: (N,) bytes (SHARED_MASK,
-// INTERVAL_MASK); starts/sizes: (B,) int32 and order: a (B,) int32
-// permutation of the rows (INTERVAL_MASK); mask: (B, N) bytes (DENSE_MASK).
-// Unused pointers may be null.
+// INTERVAL_MASK); starts/sizes: (B,) int32 (INTERVAL_MASK); order: a (B,)
+// int32 permutation of the rows (INTERVAL_MASK, DENSE_MASK); mask: (B, N)
+// bytes and tile_bits: (B, W) words, bit t of a row set where the row sees a
+// slot of 128-key tile t (DENSE_MASK, from cosine_topk_tile_summary). Unused
+// pointers may be null.
 template <typename KT, int MS, int SS, int BQ>
 __global__ void __launch_bounds__(Tile<BQ>::NT)
 cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
                     const float* __restrict__ scales,
                     const uint8_t* __restrict__ valid, const int* __restrict__ starts,
                     const int* __restrict__ sizes, const int* __restrict__ order,
-                    const uint8_t* __restrict__ mask, int B, int N, int d, int k,
-                    int keys_per_chunk, float* __restrict__ part_s, int* __restrict__ part_i) {
+                    const uint8_t* __restrict__ mask, const unsigned* __restrict__ tile_bits,
+                    int B, int N, int d, int k, int keys_per_chunk, float* __restrict__ part_s,
+                    int* __restrict__ part_i) {
   using L = Tile<BQ>;
   constexpr int NT = L::NT, TX = L::TX, TY = L::TY, TQ = L::TQ, TN = L::TN;
   constexpr int ROWS_PER_WARP = L::ROWS_PER_WARP;
@@ -173,6 +226,11 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   __shared__ int row_id[BQ], row_lo[BQ], row_hi[BQ];
   // ROW_SCALE: the scales of the tile's 128 keys
   __shared__ float row_scale[BN];
+  // DENSE_MASK: the 128-key tiles this block scores, in slot order; NT
+  // words of the union of its rows' bitmaps at a time
+  __shared__ int tile_list[MS == DENSE_MASK ? DENSE_LIST : 1];
+  __shared__ int scan_tmp[MS == DENSE_MASK ? NT / 32 : 1];
+  __shared__ unsigned union_words[MS == DENSE_MASK ? NT : 1];
   float* qs = smem;
   float* ks = smem + DK * (BQ + 1);
   float* sc = smem;
@@ -184,19 +242,19 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
   const int q0 = blockIdx.y * BQ;
   int n_begin = chunk * keys_per_chunk;
   int n_end = min(N, n_begin + keys_per_chunk);
-  // the query row of block row r, and whether it is one: the interval form
-  // reads its rows through the permutation `order`, so that a tile holds
-  // rows of about one interval, and writes each row's lists to the row's
-  // own place
+  // the query row of block row r, and whether it is one: the interval and
+  // dense forms read their rows through the permutation `order`, so that a
+  // tile holds rows that see about the same slots, and write each row's
+  // lists to the row's own place
   auto qrow = [=](int r) -> int {
-    if constexpr (MS == INTERVAL_MASK) {
+    if constexpr (MS != SHARED_MASK) {
       return row_id[r];
     } else {
       return q0 + r;
     }
   };
   auto is_row = [=](int gr) -> bool {
-    if constexpr (MS == INTERVAL_MASK) {
+    if constexpr (MS != SHARED_MASK) {
       return gr >= 0;
     } else {
       return gr < B;
@@ -237,17 +295,86 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
     n_end = min(hi, n_begin + span);
   }
 
+  if constexpr (MS == DENSE_MASK) {
+    if (tid < BQ) row_id[tid] = q0 + tid < B ? order[q0 + tid] : -1;
+    __syncthreads();
+    // the tiles some row of the block sees: words [w0, w0 + NT) of the
+    // union of its rows' bitmaps into union_words. A word's tpw threads (a
+    // power of two, within one warp) OR every tpw-th row's word, then
+    // combine by shuffles: no two threads write one word.
+    const int W = ((N + BN - 1) / BN + 31) / 32;
+    auto union_round = [&](int w0) {
+      const int words = min(NT, W - w0);
+      int tpw = 32;
+      while (tpw > 1 && tpw * words > NT) tpw >>= 1;
+      const int w = tid / tpw, j = tid % tpw;
+      union_words[tid] = 0;
+      unsigned u = 0;
+      if (w < words) {
+#pragma unroll 4
+        for (int r = j; r < BQ; r += tpw) {
+          const int row = row_id[r];
+          if (row >= 0) u |= tile_bits[(size_t)row * W + w0 + w];
+        }
+      }
+      for (int o = tpw / 2; o > 0; o >>= 1) u |= __shfl_xor_sync(FULL, u, o);
+      __syncthreads();
+      if (j == 0 && w < words) union_words[w] = u;
+      __syncthreads();
+    };
+    int mine = 0, seen = 0;
+    for (int w0 = 0; w0 < W; w0 += NT) {
+      if (w0 > 0) __syncthreads();   // union_words read before it is cleared
+      union_round(w0);
+      mine += __popc(union_words[tid]);
+    }
+    block_scan<NT>(mine, seen, scan_tmp);
+    // chunk c of the grid takes the c-th of `chunks` runs of the union's
+    // tiles, in slot order: at most DENSE_LIST, as the wrapper's chunks
+    // ensure (bad_split), so every block of a tile of rows that see alike
+    // has work, and none scores a tile that no row of it sees
+    const int per = (seen + chunks - 1) / chunks;
+    const int lo = min(seen, chunk * per), hi = min(seen, lo + per);
+    seen = 0;   // the union's tiles before this round's words
+    for (int w0 = 0; w0 < W && seen < hi; w0 += NT) {
+      // one round: union_words still holds it
+      if (W > NT) union_round(w0);
+      unsigned u = union_words[tid];
+      int round;
+      int rank = seen + block_scan<NT>(__popc(u), round, scan_tmp);
+      for (; u != 0; u &= u - 1, ++rank)
+        if (rank >= lo && rank < hi) tile_list[rank - lo] = (w0 + tid) * 32 + __ffs(u) - 1;
+      seen += round;
+    }
+    __syncthreads();
+    // positions v0 = 0, BN, ... of the loop below are the listed tiles
+    n_begin = 0;
+    n_end = (hi - lo) * BN;
+  }
+
+  // keys past key_end are not read: the chunk's end, or N where the
+  // positions of the loop are listed tiles
+  const int key_end = MS == DENSE_MASK ? N : n_end;
+  // the query row of each of this thread's loads of a slice (wide tiles),
+  // in registers: read through row_id at every load they cost the grouped
+  // forms 7-15% on an H100, and the interval form's 32-row tiles 154-164
+  // registers a thread, one block an SM (masked_variants.py, PERF.md §6)
+  int q_rows[BQ * DK / NT];
+#pragma unroll
+  for (int p = 0; p < BQ * DK / NT; ++p) q_rows[p] = qrow((tid + p * NT) / DK);
   const int blk_lo = n_begin, blk_hi = n_end;
-  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    // never true; without it nvcc schedules the dense and narrow forms'
-    // loop another way, 2-6% slower on an H100, and with it the interval
-    // form's 5-30% slower (PERF.md, PR 17)
-    if constexpr (MS != INTERVAL_MASK) {
+  for (int v0 = n_begin; v0 < n_end; v0 += BN) {
+    int n0 = v0;
+    if constexpr (MS == DENSE_MASK) n0 = tile_list[v0 / BN] * BN;
+    // never true; without it nvcc schedules the shared form's narrow loop
+    // (the IVF probe) another way, 2-6% slower on an H100, and with it the
+    // interval form's 5-30% slower (PERF.md §6)
+    if constexpr (MS == SHARED_MASK) {
       if (n0 + BN <= blk_lo || n0 >= blk_hi) continue;
     }
     if constexpr (SS == ROW_SCALE) {
       // the previous tile's last reads of row_scale precede its final barrier
-      if (tid < BN) row_scale[tid] = n0 + tid < n_end ? scales[n0 + tid] : 0.0f;
+      if (tid < BN) row_scale[tid] = n0 + tid < key_end ? scales[n0 + tid] : 0.0f;
       __syncthreads();
     }
     float acc[TQ][TN];
@@ -273,7 +400,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 #pragma unroll
       for (int p = 0; p < KL; ++p) {
         const int e = tid + p * NT, gn = n0 + e / DK, gc = c0 + e % DK;
-        if (gn < n_end && gc < d) k_next[p] = keys[(size_t)gn * d + gc];
+        if (gn < key_end && gc < d) k_next[p] = keys[(size_t)gn * d + gc];
       }
     };
     if constexpr (PREFETCH) fetch(0);
@@ -289,7 +416,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
         for (int p = 0; p < KL; ++p) {
           const int e = tid + p * NT, r = e / DK, c = e % DK;
           float v = 0.0f;
-          if (n0 + r < n_end && c0 + c < d) {
+          if (n0 + r < key_end && c0 + c < d) {
             if constexpr (SS == ROW_SCALE) {
               // a rounded product, never contracted into the FMAs below
               v = __fmul_rn(static_cast<float>(k_next[p]), row_scale[r]);
@@ -305,7 +432,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 #pragma unroll
         for (int p = 0; p < BQ * DK / NT; ++p) {
           const int e = tid + p * NT, r = e / DK, c = e % DK;
-          const int gr = qrow(r), gc = c0 + c;
+          const int gr = q_rows[p], gc = c0 + c;
           qs[c * (BQ + 1) + r] = (is_row(gr) && gc < d) ? q[(size_t)gr * d + gc] : 0.0f;
         }
 #pragma unroll
@@ -313,7 +440,7 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
           const int e = tid + p * NT, r = e / DK, c = e % DK;
           const int gn = n0 + r, gc = c0 + c;
           float v = 0.0f;
-          if (gn < n_end && gc < d) {
+          if (gn < key_end && gc < d) {
             if constexpr (SS == ROW_SCALE) {
               // a rounded product, never contracted into the FMAs below
               v = __fmul_rn(static_cast<float>(keys[(size_t)gn * d + gc]), row_scale[r]);
@@ -354,17 +481,17 @@ cosine_topk_partial(const float* __restrict__ q, const KT* __restrict__ keys,
 
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-      const int r = ty + TY * i, gr = q0 + r;
+      const int r = ty + TY * i, gr = qrow(r);
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int col = tx + TX * j, gn = n0 + col;
-        bool vis = gn < n_end;
+        bool vis = gn < key_end;
         if (MS == SHARED_MASK) {
           vis = vis && valid[gn];
         } else if (MS == INTERVAL_MASK) {
           vis = vis && valid[gn] && gn >= row_lo[r] && gn < row_hi[r];
         } else {
-          vis = vis && gr < B && mask[(size_t)gr * N + gn];
+          vis = vis && is_row(gr) && mask[(size_t)gr * N + gn];
         }
         sc[r * (BN + 1) + col] = vis ? acc[i][j] : -INFINITY;
       }
@@ -416,6 +543,111 @@ cosine_topk_merge(const float* __restrict__ part_s, const int* __restrict__ part
     out_s[(size_t)row * k + lane] = ls;
     out_i[(size_t)row * k + lane] = li;
   }
+}
+
+// Pass 0 of the dense form: the (B, N) mask summarized per row, one block a
+// row. Thread t reads bytes [16 t, 16 t + 16) of each 4,096-byte run of the
+// row (32 tiles, one bitmap word), SUMMARY_WORDS runs in flight; a warp's
+// ballot gives its 4 tiles' flags. Writes
+//   tile_bits (B, W): bit t % 32 of word t / 32 set where the row sees a slot
+//     of 128-key tile t (bytes past N count as not visible);
+//   tiles (B,): the number of such tiles;
+//   sort_key (B,): (first tile << 39) | (last tile << 15) | min(tiles,
+//     2^15 - 1), or INT64_MAX for a row that sees nothing. Rows with equal
+//     bitmaps get equal keys, so a stable sort of the keys
+//     (cosine_topk_rank_rows) puts them side by side, ordered by where
+//     they see, the empty rows last.
+// The plain version is repro_torch/kernels/ref.py::tile_summary_ref.
+constexpr int SUMMARY_NT = 256;   // 8 warps x 4 tiles: one bitmap word a run
+constexpr int SUMMARY_WORDS = 8;  // runs in flight per step
+
+__global__ void __launch_bounds__(SUMMARY_NT)
+cosine_topk_tile_summary(const uint8_t* __restrict__ mask, int N, int W, bool vec,
+                         unsigned* __restrict__ tile_bits, long long* __restrict__ sort_key,
+                         int* __restrict__ tiles) {
+  __shared__ unsigned flags[SUMMARY_WORDS][SUMMARY_NT / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = blockIdx.x;
+  const uint8_t* m = mask + row * N;
+  // thread j < SUMMARY_WORDS assembles word w0 + j of each step and keeps
+  // the first and last tile and the count of its words
+  int first = INT_MAX, last = -1, count = 0;
+  for (int w0 = 0; w0 < W; w0 += SUMMARY_WORDS) {
+    bool seen[SUMMARY_WORDS];
+#pragma unroll
+    for (int j = 0; j < SUMMARY_WORDS; ++j) {
+      const long long at = (long long)(w0 + j) * (32 * BN) + 16 * tid;
+      seen[j] = false;
+      if (at + 16 <= N && vec) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(m + at));
+        seen[j] = (v.x | v.y | v.z | v.w) != 0;
+      } else if (at < N) {
+        for (int e = 0; e < 16 && at + e < N; ++e) seen[j] = seen[j] || m[at + e] != 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SUMMARY_WORDS; ++j) {
+      const unsigned ballot = __ballot_sync(FULL, seen[j]);
+      // lanes 8i..8i+7 read tile i of the warp's four
+      unsigned nib = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) nib |= ((ballot >> (8 * i)) & 0xffu) != 0 ? 1u << i : 0u;
+      if (lane == 0) flags[j][warp] = nib;
+    }
+    __syncthreads();
+    const int w = w0 + tid;
+    if (tid < SUMMARY_WORDS && w < W) {
+      unsigned word = 0;
+#pragma unroll
+      for (int i = 0; i < SUMMARY_NT / 32; ++i) word |= flags[tid][i] << (4 * i);
+      tile_bits[row * W + w] = word;
+      if (word != 0) {
+        first = min(first, w * 32 + __ffs(word) - 1);
+        last = max(last, w * 32 + 31 - __clz(word));
+        count += __popc(word);
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      first = min(first, __shfl_xor_sync(FULL, first, o));
+      last = max(last, __shfl_xor_sync(FULL, last, o));
+      count += __shfl_xor_sync(FULL, count, o);
+    }
+    if (lane == 0) {
+      tiles[row] = count;
+      sort_key[row] = count == 0 ? LLONG_MAX
+                                 : ((long long)first << 39) | ((long long)last << 15) |
+                                       min(count, (1 << 15) - 1);
+    }
+  }
+}
+
+// The rows in the stable order of pass 0's sort keys: row i goes to place
+// #{j : (key[j], j) < (key[i], i)}, counted by thread i over the keys staged
+// in shared memory. O(B^2) comparisons, a few microseconds at B=128 where a
+// library sort takes several launches; the plain version is a stable sort.
+constexpr int RANK_NT = 256;
+__global__ void __launch_bounds__(RANK_NT)
+cosine_topk_rank_rows(const long long* __restrict__ sort_key, int B, int* __restrict__ order) {
+  __shared__ long long staged[RANK_NT];
+  const int i = blockIdx.x * RANK_NT + threadIdx.x;
+  const long long mine = i < B ? sort_key[i] : LLONG_MAX;
+  int rank = 0;
+  for (int j0 = 0; j0 < B; j0 += RANK_NT) {
+    const int j = j0 + threadIdx.x;
+    staged[threadIdx.x] = j < B ? sort_key[j] : LLONG_MAX;
+    __syncthreads();
+    const int m = min(RANK_NT, B - j0);
+    for (int t = 0; t < m; ++t) {
+      const long long other = staged[t];
+      rank += other < mine || (other == mine && j0 + t < i);
+    }
+    __syncthreads();
+  }
+  if (i < B) order[rank] = i;
 }
 
 // ---------------------------------------------------------------------------
@@ -888,6 +1120,7 @@ struct Args {
   const void* sizes;
   const void* order;
   const void* mask;
+  const void* tile_bits;
   int B, N, d, k, keys_per_chunk, chunks, block_q;
   void* part_s;
   void* part_i;
@@ -916,8 +1149,9 @@ cudaError_t launch_tiles(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const KT*>(a.keys),
       static_cast<const float*>(a.scales), static_cast<const uint8_t*>(a.valid),
       static_cast<const int*>(a.starts), static_cast<const int*>(a.sizes),
-      static_cast<const int*>(a.order), static_cast<const uint8_t*>(a.mask), a.B, a.N, a.d,
-      a.k, a.keys_per_chunk, pass1_scores(a), pass1_ids(a));
+      static_cast<const int*>(a.order), static_cast<const uint8_t*>(a.mask),
+      static_cast<const unsigned*>(a.tile_bits), a.B, a.N, a.d, a.k, a.keys_per_chunk,
+      pass1_scores(a), pass1_ids(a));
   return launch_merge(a, cudaGetLastError());
 }
 
@@ -955,30 +1189,31 @@ cudaError_t launch(const Args& a) {
     return a.block_q == tc::BQ ? launch_tc<KT, SS>(a)
                                : launch_tiles<KT, MS, SS, BQ_NARROW>(a);
   } else {
-    if constexpr (MS == INTERVAL_MASK) {
-      if (a.block_q == BQ_32) return launch_tiles<KT, MS, SS, BQ_32>(a);
-      if (a.block_q == BQ_16) return launch_tiles<KT, MS, SS, BQ_16>(a);
-    }
+    if (a.block_q == BQ_32) return launch_tiles<KT, MS, SS, BQ_32>(a);
+    if (a.block_q == BQ_16) return launch_tiles<KT, MS, SS, BQ_16>(a);
     return a.block_q == BQ_NARROW ? launch_tiles<KT, MS, SS, BQ_NARROW>(a)
                                   : launch_tiles<KT, MS, SS, BQ_WIDE>(a);
   }
 }
 
-// the interval form chunks each tile's union of intervals itself, so its
-// keys_per_chunk need not cover N; the shared form takes 128-row tiles on
-// tensor cores or 4-row ones, the others 64-row or 4-row ones (the interval
-// form also 32 and 16)
+// the interval and dense forms chunk each tile's union themselves, so their
+// keys_per_chunk need not cover N; the dense form's chunks must keep a
+// block's tiles within DENSE_LIST. The shared form takes 128-row tiles on
+// tensor cores or 4-row ones, the others 64-, 32-, 16- or 4-row ones.
 template <int MS>
 bool bad_split(const Args& a) {
-  const bool interval = MS == INTERVAL_MASK;
+  const bool grouped = MS != SHARED_MASK;
   const bool tile_ok =
       a.block_q == BQ_NARROW || (MS == SHARED_MASK ? a.block_q == tc::BQ : a.block_q == BQ_WIDE) ||
-      (interval && (a.block_q == BQ_32 || a.block_q == BQ_16));
+      (grouped && (a.block_q == BQ_32 || a.block_q == BQ_16));
+  const long long tiles = ((long long)a.N + BN - 1) / BN;
   return a.B < 1 || a.N < 1 || a.d < 1 || a.k < 1 || a.k > MAX_K || a.chunks < 1 ||
-         (!interval && (a.keys_per_chunk < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
-                        (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)) ||
-         (interval && a.order == nullptr) || !tile_ok ||
-         (a.chunks > 1 && (a.part_s == nullptr || a.part_i == nullptr));
+         (!grouped && (a.keys_per_chunk < 1 || (long long)a.chunks * a.keys_per_chunk < a.N ||
+                       (long long)(a.chunks - 1) * a.keys_per_chunk >= a.N)) ||
+         (grouped && a.order == nullptr) ||
+         (MS == DENSE_MASK &&
+          (a.tile_bits == nullptr || (long long)a.chunks * DENSE_LIST < tiles)) ||
+         !tile_ok || (a.chunks > 1 && (a.part_s == nullptr || a.part_i == nullptr));
 }
 
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (scaled by 1/127)
@@ -1011,18 +1246,17 @@ extern "C" {
 // Each entry point returns the cudaError_t of its launches (0 on success).
 // key_dtype: 0 = float32, 1 = bfloat16, 2 = int8. part_s/part_i hold
 // B * chunks * k entries, or may be null when chunks == 1; chunks *
-// keys_per_chunk must cover N (not read by the interval forms); block_q is
-// the query-tile height of pass 1: for the shared-mask forms 128 (tensor
-// cores) or 4, for the others 64 or 4, and for the interval forms also 32 or
-// 16.
+// keys_per_chunk must cover N (not read by the interval and dense forms);
+// block_q is the query-tile height of pass 1: for the shared-mask forms 128
+// (tensor cores) or 4, for the others 64, 32, 16 or 4.
 
 // shared (N,) mask
 int cosine_topk_launch(const void* q, const void* keys, int key_dtype, const void* valid,
                        int B, int N, int d, int k, int keys_per_chunk, int chunks,
                        int block_q, void* part_s, void* part_i, void* out_s, void* out_i,
                        void* stream) {
-  const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
+  const Args a{q, keys, nullptr, valid, nullptr, nullptr, nullptr, nullptr, nullptr, B, N, d,
+               k, keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<SHARED_MASK>(key_dtype, a);
 }
@@ -1036,19 +1270,43 @@ int cosine_topk_interval_launch(const void* q, const void* keys, int key_dtype,
                                 const void* order, int B, int N, int d, int k,
                                 int keys_per_chunk, int chunks, int block_q, void* part_s,
                                 void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, nullptr, valid, starts, sizes, order, nullptr, B, N, d, k,
+  const Args a{q, keys, nullptr, valid, starts, sizes, order, nullptr, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<INTERVAL_MASK>(key_dtype, a);
 }
 
-// dense (B, N) bool mask, row-major
+// Pass 0 of the dense form: mask (B, N) bool, row-major -> tile_bits (B, W)
+// int32 words, W = ceil(ceil(N / 128) / 32), sort_key (B,) int64, tiles (B,)
+// int32 (cosine_topk_tile_summary), then order (B,) int32, the rows in the
+// stable order of their keys (cosine_topk_rank_rows).
+int cosine_topk_tile_summary_launch(const void* mask, int B, int N, void* tile_bits,
+                                    void* sort_key, void* tiles, void* order, void* stream) {
+  if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int W = ((N + BN - 1) / BN + 31) / 32;
+  const bool vec = N % 16 == 0 && aligned16(mask);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cosine_topk_tile_summary<<<B, SUMMARY_NT, 0, st>>>(
+      static_cast<const uint8_t*>(mask), N, W, vec, static_cast<unsigned*>(tile_bits),
+      static_cast<long long*>(sort_key), static_cast<int*>(tiles));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cosine_topk_rank_rows<<<(B + RANK_NT - 1) / RANK_NT, RANK_NT, 0, st>>>(
+      static_cast<const long long*>(sort_key), B, static_cast<int*>(order));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dense (B, N) bool mask, row-major; order is a (B,) int32 permutation of
+// the rows (the stable sort of pass 0's sort_key) and tile_bits pass 0's
+// bitmaps: a block scores only the 128-key tiles that some row of its tile
+// sees; chunks >= ceil(ceil(N / 128) / 1024).
 int cosine_topk_masked_launch(const void* q, const void* keys, int key_dtype,
-                              const void* mask, int B, int N, int d, int k,
-                              int keys_per_chunk, int chunks, int block_q, void* part_s,
-                              void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
-               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
+                              const void* mask, const void* order, const void* tile_bits,
+                              int B, int N, int d, int k, int keys_per_chunk, int chunks,
+                              int block_q, void* part_s, void* part_i, void* out_s,
+                              void* out_i, void* stream) {
+  const Args a{q, keys, nullptr, nullptr, nullptr, nullptr, order, mask, tile_bits, B, N, d,
+               k, keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch<DENSE_MASK>(key_dtype, a);
 }
@@ -1059,8 +1317,8 @@ int quant_cosine_topk_launch(const void* q, const void* keys, const void* scales
                              const void* valid, int B, int N, int d, int k,
                              int keys_per_chunk, int chunks, int block_q, void* part_s,
                              void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, nullptr, B, N, d, k,
-               keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
+  const Args a{q, keys, scales, valid, nullptr, nullptr, nullptr, nullptr, nullptr, B, N, d,
+               k, keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<SHARED_MASK>(a);
 }
@@ -1071,17 +1329,18 @@ int quant_cosine_topk_interval_launch(const void* q, const void* keys, const voi
                                       int d, int k, int keys_per_chunk, int chunks, int block_q,
                                       void* part_s, void* part_i, void* out_s, void* out_i,
                                       void* stream) {
-  const Args a{q, keys, scales, valid, starts, sizes, order, nullptr, B, N, d, k,
+  const Args a{q, keys, scales, valid, starts, sizes, order, nullptr, nullptr, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<INTERVAL_MASK>(a);
 }
 
 int quant_cosine_topk_masked_launch(const void* q, const void* keys, const void* scales,
-                                    const void* mask, int B, int N, int d, int k,
+                                    const void* mask, const void* order,
+                                    const void* tile_bits, int B, int N, int d, int k,
                                     int keys_per_chunk, int chunks, int block_q, void* part_s,
                                     void* part_i, void* out_s, void* out_i, void* stream) {
-  const Args a{q, keys, scales, nullptr, nullptr, nullptr, nullptr, mask, B, N, d, k,
+  const Args a{q, keys, scales, nullptr, nullptr, nullptr, order, mask, tile_bits, B, N, d, k,
                keys_per_chunk, chunks, block_q, part_s, part_i, out_s, out_i,
                static_cast<cudaStream_t>(stream)};
   return dispatch_quant<DENSE_MASK>(a);

@@ -78,6 +78,46 @@ def quant_cosine_topk_interval_ref(queries: torch.Tensor, keys_q: torch.Tensor,
     return cosine_topk_interval_ref(queries, keys, valid, starts, sizes, k)
 
 
+TILE = 128                         # keys per tile of the dense form's pass 1
+EMPTY_KEY = torch.iinfo(torch.int64).max   # sort key of a row that sees nothing
+
+
+def visible_tiles_ref(mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) bool -> (B, T) bool, T = ceil(N / 128): whether row b sees a
+    slot of 128-key tile t (N padded with False). The plain version of the
+    dense form's pass 0 bitmap."""
+    b, n = mask.shape
+    t = -(-n // TILE)
+    padded = torch.zeros((b, t * TILE), dtype=torch.bool, device=mask.device)
+    padded[:, :n] = mask
+    return padded.view(b, t, TILE).any(-1)
+
+
+def tile_summary_ref(mask: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the dense form's pass 0
+    (``csrc/cosine_topk.cu::cosine_topk_tile_summary``): (B, N) bool mask ->
+      tile_bits (B, W) int32, W = ceil(T / 32): bit t % 32 of word t // 32
+        set where row b sees a slot of tile t (``visible_tiles_ref``);
+      sort_key (B,) int64: (first tile << 39) | (last tile << 15) |
+        min(tiles, 2**15 - 1); ``EMPTY_KEY`` for a row that sees nothing;
+      tiles (B,) int32: the number of tiles the row sees."""
+    flags = visible_tiles_ref(mask)
+    b, t = flags.shape
+    w = -(-t // 32)
+    padded = torch.zeros((b, w * 32), dtype=torch.int64, device=mask.device)
+    padded[:, :t] = flags
+    shifts = torch.arange(32, device=mask.device)
+    words = (padded.view(b, w, 32) << shifts).sum(-1)          # [0, 2**32)
+    count = flags.sum(-1)
+    first = flags.to(torch.uint8).argmax(-1)
+    last = t - 1 - flags.flip(-1).to(torch.uint8).argmax(-1)
+    key = (first << 39) | (last << 15) | count.clamp(max=(1 << 15) - 1)
+    key = torch.where(count > 0, key, EMPTY_KEY)
+    bits = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return bits.to(torch.int32), key, count.to(torch.int32)
+
+
 _IVF_ROWS_PER_CHUNK = 1 << 16   # slab rows gathered at a time (100 MB f32)
 
 

@@ -1,8 +1,10 @@
 """The port on the card: the CUDA cosine top-k kernels (shared mask, per-row
 interval, dense per-row mask; k up to the IVF probe's 16 and past it; the
 shared form's tensor-core tiles at their edges, and its hit decisions the
-same in a batch of 128 as one row at a time; the interval forms' outputs
-independent of how rows are laid out) and
+same in a batch of 128 as one row at a time; the interval and dense forms'
+outputs independent of how rows are laid out, the dense form under
+region-shaped, random and skewed masks, bit for bit the interval form's at
+an interval-shaped mask, and its pass 0 against its plain version) and
 the IVF candidate top-k (with and without the probe's grouping, a skewed
 bucket table among its cases) against their plain PyTorch versions, the three
 per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
@@ -570,6 +572,165 @@ def test_cuda_interval_kernels_ignore_the_row_layout(cuda_device, b, k,
     torch.testing.assert_close(got["round_robin"][0], rs, rtol=0, atol=1e-5)
     assert torch.equal(got["round_robin"][1], ri)
     assert bool(torch.all(ri[torch.from_numpy(sizes == 0)] == -1))
+
+
+DENSE_CASES = [  # (B, N, d, k)
+    (5, 1000, 64, 4),        # few rows: 4-row tiles
+    (37, 4133, 48, 8),       # N % 128 != 0
+    (128, 8192, 64, 4),      # four regions of 16 tiles
+    (200, 4096, 32, 32),     # B > 128
+]
+DENSE_LAYOUTS = ["tenancy", "random", "skewed"]
+
+
+def make_dense_inputs(b, n, d, layout, seed):
+    """Unit queries and keys and a dense (B, N) mask. ``tenancy``: four
+    equal regions, row r sees region r % 4 where 90% of the slots are
+    valid; ``random``: each row an independent random 30% of N;
+    ``skewed``: most rows the first region, every eighth row all of N.
+    Every fifth row sees nothing. Planted ties across a 128-key tile edge
+    and a region edge: slots 127, 128, e - 1 and e (e = N // 4) hold one
+    key row; query rows 0 and 1 are that row, row 0 sees all four slots
+    and row 1 only 128 and e. Returns (q, keys, mask, ties), ``ties[r]``
+    the tie slots row r must find, lowest first."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    e = n // 4
+    cols = np.arange(n)[None, :]
+    if layout == "random":
+        mask = rng.random((b, n)) < 0.3
+    else:
+        region = np.arange(b) % 4 if layout == "tenancy" else np.zeros(b, int)
+        lo = region * e
+        hi = np.where(region == 3, n, lo + e)
+        mask = (cols >= lo[:, None]) & (cols < hi[:, None]) & \
+            (rng.random(n) < 0.9)[None, :]
+        if layout == "skewed":
+            mask[::8] = True
+    mask[4::5] = False
+    tie_slots = np.array([127, 128, e - 1, e])
+    keys[tie_slots] = keys[tie_slots[0]]
+    q[:2] = keys[tie_slots[0]]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    mask[:2, tie_slots] = False
+    mask[0, tie_slots] = True
+    mask[1, [128, e]] = True
+    return q, keys, mask, {0: [127, 128, e - 1, e], 1: [128, e]}
+
+
+def _dense_on_card(dev, key_dtype, q, keys, mask, k):
+    """The dense wrapper of ``key_dtype`` ("quant": int8 keys with per-row
+    scales) on the card, and its plain version's top-(k+1) on the same
+    operands."""
+    qt = torch.from_numpy(q).to(dev)
+    mt = torch.from_numpy(mask).to(dev)
+    if key_dtype == "quant":
+        slab = kmod.quantize_keys(torch.from_numpy(keys).to(dev))
+        name = "quant_cosine_topk_masked"
+    else:
+        stored = keys if key_dtype != "int8" else np.clip(
+            np.round(keys * 127.0), -127, 127).astype(np.int8)
+        slab = (keys_to_torch(stored, key_dtype).to(dev),)
+        name = "cosine_topk_masked"
+    before = kmod.launches[name]
+    got = getattr(kmod, f"{name}_cuda")(qt, *slab, mt, k)
+    assert kmod.launches[name] == before + 1
+    plain = (tref.quant_cosine_topk_ref if key_dtype == "quant"
+             else tref.cosine_topk_ref)(qt, *slab, mt, k + 1)
+    return got, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8", "quant"])
+@pytest.mark.parametrize("layout", DENSE_LAYOUTS)
+@pytest.mark.parametrize("b,n,d,k", DENSE_CASES)
+def test_cuda_dense_kernel_matches_plain_version(cuda_device, b, n, d, k,
+                                                 layout, key_dtype):
+    """Region-shaped, random and skewed masks, rows that see nothing, and
+    planted ties across a tile edge and a region edge, to the lowest
+    slot."""
+    q, keys, mask, ties = make_dense_inputs(b, n, d, layout, seed=b + n + k)
+    (ks, ki), (rs1, ri1) = _dense_on_card(cuda_device, key_dtype, q, keys,
+                                          mask, k)
+    _hold_to_plain(ks, ki, rs1, ri1, k, EDGE_TOL)
+    blind = torch.from_numpy(~mask.any(1))
+    assert bool(torch.all(ki.cpu()[blind] == -1))
+    assert bool(torch.all(torch.isneginf(ks.cpu()[blind])))
+    for r, want in ties.items():
+        if r < b:
+            want = want[:k]
+            assert ki[r, :len(want)].cpu().tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "bf16", "int8", "quant"])
+@pytest.mark.parametrize("layout", DENSE_LAYOUTS)
+def test_cuda_dense_kernel_ignores_the_row_layout(cuda_device, layout,
+                                                  key_dtype):
+    """The same rows in their own order and permuted at random give each
+    row the same top-k, bit for bit."""
+    b, n, d, k = 128, 8192, 64, 4
+    q, keys, mask, _ = make_dense_inputs(b, n, d, layout, seed=7)
+    perm = np.random.default_rng(8).permutation(b)
+    (s1, i1), _ = _dense_on_card(cuda_device, key_dtype, q, keys, mask, k)
+    (s2, i2), _ = _dense_on_card(cuda_device, key_dtype,
+                                 np.ascontiguousarray(q[perm]), keys,
+                                 np.ascontiguousarray(mask[perm]), k)
+    back = torch.from_numpy(np.argsort(perm))
+    assert torch.equal(s1.cpu().view(torch.int32),
+                       s2.cpu()[back].view(torch.int32))
+    assert torch.equal(i1.cpu(), i2.cpu()[back])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b", [1, 37, 128])
+def test_cuda_dense_equals_interval_bit_for_bit(cuda_device, b, quant):
+    """At a mask that is one interval a row (and the shared ``valid``), the
+    dense and interval searches agree bit for bit: the same sums in the same
+    order."""
+    q, keys, valid, starts, sizes = make_layout_inputs(b, 4096, 64, 4,
+                                                       seed=b + 3)
+    dev = cuda_device
+    kt = torch.from_numpy(keys).to(dev)
+    slab = kmod.quantize_keys(kt) if quant else (kt,)
+    prefix = "quant_" if quant else ""
+    qt, vt, st, sz = (torch.from_numpy(x).to(dev)
+                      for x in (q, valid, starts, sizes))
+    mask = tref.interval_mask(st, sz, 4096) & vt[None, :]
+    ds, di = getattr(kmod, f"{prefix}cosine_topk_masked_cuda")(qt, *slab,
+                                                               mask, 4)
+    its, iti = getattr(kmod, f"{prefix}cosine_topk_interval_cuda")(
+        qt, *slab, vt, st, sz, 4)
+    assert torch.equal(ds.view(torch.int32), its.view(torch.int32))
+    assert torch.equal(di, iti)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 127), (5, 128), (7, 129),
+                                 (37, 4133), (4, 4096 * 3 + 16),
+                                 (128, 65536), (600, 1000)])
+def test_cuda_tile_summary_matches_plain_version(cuda_device, b, n):
+    """Pass 0 (bitmaps, sort keys, tiles seen) equals its plain version,
+    with an all-False row and a row whose only visible slot is the last, and
+    the rows' ranking a stable sort of the keys (600 rows: three blocks,
+    with ties)."""
+    rng = np.random.default_rng(n)
+    mask = rng.random((b, n)) < 0.002
+    mask[0] = False
+    if b > 1:
+        mask[1] = False
+        mask[1, -1] = True
+    mt = torch.from_numpy(mask).to(cuda_device)
+    *got, order = kmod.tile_summary(mt)
+    want = tref.tile_summary_ref(torch.from_numpy(mask))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert order.dtype == torch.int32
+    assert torch.equal(order.cpu().long(),
+                       torch.sort(want[1], stable=True).indices)
 
 
 @pytest.mark.cuda

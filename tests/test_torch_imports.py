@@ -17,7 +17,8 @@ def _port_files():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "flash_variants.py",
                                  "decode_variants.py", "cosine_variants.py",
-                                 "ivf_variants.py", "variant_harness.py")]
+                                 "ivf_variants.py", "masked_variants.py",
+                                 "variant_harness.py")]
     assert len(files) > 10
     return files
 

@@ -146,11 +146,11 @@ def test_interval_plan_reads_back_groups_and_span(layout, quant):
 
 @pytest.mark.parametrize("b,groups,span,expect", [
     # (keys per chunk, chunks, query rows per block)
-    (128, 4, 16384, (512, 32, 32)),    # the tenancy path: 32 rows a region
-    (128, 1, 65536, (1024, 64, 64)),   # one interval
-    (128, 2, 32768, (512, 64, 64)),
-    (128, 8, 8192, (512, 16, 16)),
-    (128, 40, 1000, (256, 4, 4)),      # few keys: one warp a row
+    (128, 4, 16384, (256, 64, 32)),    # the tenancy path: 32 rows a region
+    (128, 1, 65536, (512, 128, 64)),   # one interval
+    (128, 2, 32768, (256, 128, 64)),
+    (128, 8, 8192, (128, 64, 16)),
+    (128, 40, 1000, (128, 8, 4)),      # few keys: one warp a row
     (37, 3, 334, (128, 3, 4)),
     (5, 0, 0, (128, 1, 4)),            # every row empty
 ])
@@ -163,7 +163,7 @@ def test_split_from_grouped_intervals(b, groups, span, expect):
     if block_q != kmod.BLOCK_Q_NARROW:
         assert block_q in kmod.BLOCK_Q_INTERVAL
         assert b // max(groups, 1) >= block_q or block_q == 16
-    # about INTERVAL_BLOCKS_PER_SM blocks an SM, where the span allows
+    # about GROUPED_BLOCKS_PER_SM blocks an SM, where the span allows
     blocks = chunks * -(-b // block_q)
     if chunks < -(-max(span, 1) // kmod.BLOCK_N):
-        assert blocks >= kmod.INTERVAL_BLOCKS_PER_SM * SMS * 0.9
+        assert blocks >= kmod.GROUPED_BLOCKS_PER_SM[block_q] * SMS * 0.9

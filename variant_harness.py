@@ -1,6 +1,6 @@
 """Build-and-time harness of the kernel variant scripts
 (``flash_variants.py``, ``decode_variants.py``, ``cosine_variants.py``,
-``ivf_variants.py``).
+``ivf_variants.py``, ``masked_variants.py``).
 
 Each script rebuilds one CUDA source with one choice changed by a text
 edit; ``build`` compiles every variant with ``nvcc`` for ``sm_90a``, one
