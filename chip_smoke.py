@@ -49,6 +49,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
             through the shared, dense-mask and interval forms, held against
             the plain versions, with the hit decisions that differ from the
             f32 search of the same slab counted
+  serve_async
+            the async front end (``launch.serve --scheduler async``) on the
+            card at the main configuration, each engine after one warm-up
+            batch: lockstep waves of 128 without coalescing held against
+            the main phase's sync f32 run request by request (decisions,
+            answers, scores, backend calls, device counters, Table 1; 16
+            launches and the warm-up's); a closed loop of 32 clients with
+            coalescing and every request traced (all answered, span sum
+            within 10% of e2e at p50 and p95, every required family and
+            the slab counters in a ``/metrics`` scrape over loopback, one
+            ``/events`` line a batch); an open loop at half its rate;
+            ``--tenants 4`` in a closed loop under DRR (one interval launch
+            a batch) and in waves on the card and the CPU (same decisions
+            and per-tenant counters); a pipelined TCP burst (ids echoed,
+            all cached, coalesced, one error line for a malformed line);
+            throughput, e2e percentiles and the stage decomposition printed
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events; the
             shared-mask rows also from a CUDA graph of the wrapper's
@@ -679,11 +695,12 @@ def _same_decisions(a, b, where: str, tol: float) -> None:
             fail(f"{where}: request {i} score {x.score} vs {y.score}")
 
 
-def phase_main(torch) -> tuple[int, dict, tuple]:
+def phase_main(torch) -> tuple[int, dict, tuple, dict]:
     """The paper's serve loop on the card against the CPU. Returns the
-    cosine kernel's launches, the Table 1 hits of the f32 run and its
-    (engine, requests)."""
-    main_launches, hits, served = None, None, None
+    cosine kernel's launches, the Table 1 hits of the f32 run, its
+    (engine, requests), and its responses, device counters, backend calls
+    and per-category summary (the async phase's reference)."""
+    main_launches, hits, served, sync = None, None, None, None
     for key_dtype in ("f32", "int8"):
         eng, reqs, resp, launches, wall = _serve(torch, device="cuda",
                                                  key_dtype=key_dtype)
@@ -694,6 +711,9 @@ def phase_main(torch) -> tuple[int, dict, tuple]:
             served = (eng, reqs)
             hits = {c: m["cache_hits"] for c, m in
                     eng.metrics.summary()["categories"].items()}
+            sync = {"responses": resp, "stats": eng.stats.host(),
+                    "calls": eng.backend.calls,
+                    "categories": eng.metrics.summary()["categories"]}
             _batch_size_check(torch, resp)
         scores = [r.score for r in resp]
         if len(resp) != len(reqs) or not all(
@@ -729,7 +749,7 @@ def phase_main(torch) -> tuple[int, dict, tuple]:
     _expect_launches(sl, {"cosine_topk": 4}, "quick config, separate")
     emit("main", check="separate path equals fused", requests=len(fused),
          launches_fused=fl["cosine_topk"], launches_separate=sl["cosine_topk"])
-    return main_launches, hits, served
+    return main_launches, hits, served, sync
 
 
 def _batch_size_check(torch, served) -> None:
@@ -1216,6 +1236,309 @@ def phase_quant(torch, served=None) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+ASYNC_CLIENTS = 32         # launch.serve --concurrency default
+ASYNC_STAGES = ("queue_wait", "batch_form", "embed", "device_step",
+                "backend_call", "insert", "respond")
+SPAN_SUM_RATIO = (0.9, 1.1)   # span sum vs e2e at p50 and p95
+TCP_BURST = 16
+
+
+def _quiet(*_a) -> None:
+    pass
+
+
+class _PlainOnCard:
+    """Counts calls of a plain top-k with tensors on the card while it is
+    active (ops dispatch sends CUDA tensors to the kernels, so it must stay
+    0). A count, not a failure: the calls come from the scheduler's worker
+    thread."""
+
+    NAMES = ("cosine_topk_ref", "cosine_topk_interval_ref",
+             "quant_cosine_topk_ref", "quant_cosine_topk_interval_ref",
+             "ivf_topk_ref")
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.ref, self.saved, self.calls = ref, {}, 0
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(ref, name)
+            setattr(ref, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        def counted(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                self.calls += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ref, name, fn)
+
+
+def _drive_async(eng, requests, *, coalesce=True, wave=None, rate_qps=None,
+                 scrape=False):
+    """Serve ``requests`` through an ``AsyncCacheServer`` at the
+    ``launch.serve --scheduler async`` settings (flush at the engine's
+    batch size or after 5 ms, DRR weights from the registry): lockstep
+    ``wave``s, an open loop at ``rate_qps``, else ASYNC_CLIENTS closed-loop
+    clients. Returns the LoadResult, the batches served and, with
+    ``scrape``, the bodies of ``/metrics`` and ``/events`` read over
+    loopback after the run, the server still up."""
+    import asyncio
+    from repro_torch.serving import (AsyncCacheServer, SchedulerConfig,
+                                     run_closed_loop, run_open_loop,
+                                     run_waves)
+    sched = SchedulerConfig(
+        max_batch=eng.batcher.batch_size, max_wait_ms=5.0, coalesce=coalesce,
+        tenant_weights=None if eng.registry is None
+        else eng.registry.weights())
+
+    async def get(port, path):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        await writer.drain()
+        raw = (await asyncio.wait_for(reader.read(), 60)).decode()
+        writer.close()
+        await writer.wait_closed()
+        head, body = raw.split("\r\n\r\n", 1)
+        if not head.startswith("HTTP/1.1 200"):
+            fail(f"GET {path}: {head.splitlines()[0]}")
+        return body
+
+    async def drive():
+        async with AsyncCacheServer(eng, sched) as server:
+            port = await server.serve_metrics(port=0) if scrape else None
+            submit = server.submit_request
+            if wave:
+                res = await run_waves(submit, requests, wave=wave)
+            elif rate_qps:
+                res = await run_open_loop(submit, requests, rate_qps)
+            else:
+                res = await run_closed_loop(submit, requests,
+                                            concurrency=ASYNC_CLIENTS)
+            pages = {path: await get(port, path)
+                     for path in ("/metrics", "/events")} if scrape else {}
+            return res, server.scheduler.batches_served, pages
+    return asyncio.run(drive())
+
+
+def _tcp_burst(eng, query: str) -> list:
+    """TCP_BURST pipelined lines of ``query`` and one malformed line to
+    ``serve_tcp`` on loopback; returns the response lines."""
+    import asyncio
+    from repro_torch.serving import AsyncCacheServer, SchedulerConfig
+
+    async def client():
+        sched = SchedulerConfig(max_batch=eng.batcher.batch_size,
+                                max_wait_ms=5.0)
+        async with AsyncCacheServer(eng, sched) as server:
+            port = await server.serve_tcp("127.0.0.1", 0)
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            for i in range(TCP_BURST):
+                writer.write(json.dumps({"id": i, "query": query}).encode()
+                             + b"\n")
+            writer.write(b"not json\n")
+            await writer.drain()
+            lines = [json.loads(await asyncio.wait_for(reader.readline(), 60))
+                     for _ in range(TCP_BURST + 1)]
+            writer.close()
+            await writer.wait_closed()
+            return lines
+    return asyncio.run(client())
+
+
+def _scraped(body: str) -> tuple[set, dict]:
+    """Families and unlabeled samples of one exposition."""
+    fams, samples = set(), {}
+    for line in body.splitlines():
+        if line.startswith("# TYPE "):
+            fams.add(line.split()[2])
+        elif line and not line.startswith("#") and "{" not in line:
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    return fams, samples
+
+
+def _async_numbers(eng, res, batches: int, where: str) -> dict:
+    """Throughput, e2e percentiles, the stage decomposition and the span
+    sum against e2e over the run's traces (every request traced)."""
+    from repro_torch.serving.metrics import percentiles
+    traces = eng.tracer.traces()
+    if len(traces) != len(res.responses):
+        fail(f"{where}: {len(traces)} traces for {len(res.responses)} "
+             "requests")
+    e2e = percentiles([t.e2e_s for t in traces])
+    sums = percentiles([t.span_sum_s for t in traces])
+    decomp = eng.tracer.stage_decomposition()
+    return {
+        "requests": len(res.responses), "wall_s": res.wall_s,
+        "sustained_qps": res.achieved_qps,
+        "e2e_s": {k: e2e[k] for k in ("p50_s", "p95_s", "p99_s")},
+        "stages_s": {name: {"p50": decomp[name]["p50_s"],
+                            "p95": decomp[name]["p95_s"],
+                            "count": decomp[name]["count"]}
+                     for name in ASYNC_STAGES if name in decomp},
+        "span_sum_ratio": {"p50": sums["p50_s"] / e2e["p50_s"],
+                           "p95": sums["p95_s"] / e2e["p95_s"]},
+        "batches": batches, "mean_rows": eng.metrics.queries / batches,
+        "coalesced": eng.metrics.coalesced_calls}
+
+
+def _all_answered(res, n: int, eng, where: str) -> None:
+    if len(res.responses) != n or not all(
+            r is not None and r.answer and not r.error
+            for r in res.responses):
+        fail(f"{where}: not every request was answered")
+    if eng.metrics.queries + eng.metrics.coalesced_calls != n:
+        fail(f"{where}: {eng.metrics.queries} queries + "
+             f"{eng.metrics.coalesced_calls} coalesced != {n}")
+
+
+def _traced_engine(torch, **kw):
+    """A warmed engine with one warm-up batch served and its metrics reset
+    (``launch.serve.warm_serve_path``), then tracing every request into a
+    ring that holds them all and logging every batch."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import EventLog, TraceConfig, Tracer
+    eng, reqs = serve.build(device="cuda", log=_quiet, **kw)
+    serve.warm_serve_path(eng)
+    torch.cuda.synchronize()
+    eng.tracer = Tracer(TraceConfig(sample_rate=1.0, head=0,
+                                    max_traces=len(reqs)))
+    eng.events = EventLog(capacity=len(reqs))
+    return eng, reqs
+
+
+def phase_serve_async(torch, sync: dict) -> dict:
+    """The async front end (``launch.serve --scheduler async``) on the
+    card at the main configuration: lockstep waves held against the main
+    phase's sync run request by request; a traced closed loop of
+    ASYNC_CLIENTS clients with its /metrics scrape; an open loop at half
+    the closed loop's rate; ``--tenants 4`` closed loop and waves against
+    the CPU; a TCP burst. Every engine serves one warm-up batch first."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import REQUIRED_FAMILIES
+    plain = _PlainOnCard()
+    out = {}
+    with plain:
+        # 1. waves of 128 without coalescing against the sync card run
+        eng, reqs = serve.build(device="cuda", log=_quiet)
+        _reset_launches()
+        before = eng.stats.host()
+        serve.warm_serve_path(eng)
+        warm = {k: v - before[k] for k, v in eng.stats.host().items()}
+        warm_calls = eng.backend.calls
+        res, batches, _ = _drive_async(eng, reqs, coalesce=False, wave=128)
+        torch.cuda.synchronize()
+        _expect_launches(_launches(), {"cosine_topk": MAIN_BATCHES + 1},
+                         "async waves (16 batches and the warm-up)")
+        if batches != MAIN_BATCHES:
+            fail(f"async waves: {batches} batches, not {MAIN_BATCHES}")
+        _same_decisions(res.responses, sync["responses"],
+                        "async waves vs the sync card run", SCORE_TOL["f32"])
+        stats = {k: v - warm[k] for k, v in eng.stats.host().items()}
+        if stats != sync["stats"]:
+            fail(f"async waves: counters {stats} vs sync {sync['stats']}")
+        if eng.backend.calls - warm_calls != sync["calls"]:
+            fail(f"async waves: {eng.backend.calls - warm_calls} backend "
+                 f"calls vs sync {sync['calls']}")
+        if eng.metrics.summary()["categories"] != sync["categories"]:
+            fail("async waves: Table 1 differs from the sync run")
+        out["waves"] = {"requests": len(res.responses), "batches": batches,
+                        "wall_s": res.wall_s, "qps": res.achieved_qps}
+        emit("serve_async", check="waves of 128 equal the sync card run",
+             launches=_launches()["cosine_topk"], **out["waves"])
+
+        # 5. a pipelined TCP burst of one served query, on the same slab
+        lines = _tcp_burst(eng, reqs[0].query)
+        answers = [ln for ln in lines if "answer" in ln]
+        errors = [ln for ln in lines if "error" in ln]
+        coalesced = sum(ln["coalesced"] for ln in answers)
+        ids = sorted(ln["id"] for ln in answers)
+        if ids != list(range(TCP_BURST)) or len(errors) != 1 \
+                or not all(ln["cached"] for ln in answers) \
+                or coalesced < TCP_BURST - 1:
+            fail(f"TCP burst: {lines}")
+        out["tcp"] = {"lines": len(lines), "coalesced": coalesced}
+        emit("serve_async", check="TCP burst on loopback", **out["tcp"])
+        del eng
+
+        # 2. closed loop, coalescing on, every request traced
+        eng, reqs = _traced_engine(torch)
+        _reset_launches()
+        res, batches, pages = _drive_async(eng, reqs, scrape=True)
+        torch.cuda.synchronize()
+        _expect_launches(_launches(), {"cosine_topk": batches},
+                         "async closed loop (a launch a batch)")
+        _all_answered(res, len(reqs), eng, "async closed loop")
+        closed = _async_numbers(eng, res, batches, "async closed loop")
+        for q, ratio in closed["span_sum_ratio"].items():
+            if not SPAN_SUM_RATIO[0] <= ratio <= SPAN_SUM_RATIO[1]:
+                fail(f"async closed loop: span sum / e2e at {q} = {ratio}")
+        fams, samples = _scraped(pages["/metrics"])
+        if not set(REQUIRED_FAMILIES) <= fams:
+            fail(f"/metrics lacks {set(REQUIRED_FAMILIES) - fams}")
+        host = eng.stats.host()
+        scraped = {k: int(samples[f"repro_slab_{k}_total"])
+                   for k in ("lookups", "hits", "inserts",
+                             "expired_evictions")}
+        if scraped != {k: host[k] for k in scraped}:
+            fail(f"/metrics slab counters {scraped} vs the engine's {host}")
+        if len(pages["/events"].splitlines()) != batches:
+            fail("/events: not one event a batch")
+        out["closed"] = closed
+        emit("serve_async", check="closed loop, traced, /metrics scraped",
+             clients=ASYNC_CLIENTS, **closed)
+
+        # 3. open loop, Poisson arrivals at half the closed loop's rate
+        eng, reqs = _traced_engine(torch)
+        rate = closed["sustained_qps"] / 2
+        _reset_launches()
+        res, batches, _ = _drive_async(eng, reqs, rate_qps=rate)
+        torch.cuda.synchronize()
+        _expect_launches(_launches(), {"cosine_topk": batches},
+                         "async open loop (a launch a batch)")
+        _all_answered(res, len(reqs), eng, "async open loop")
+        out["open"] = _async_numbers(eng, res, batches, "async open loop")
+        emit("serve_async", check="open loop", rate_qps=rate, **out["open"])
+        del eng
+
+        # 4. four tenants: closed loop under DRR, then waves card vs CPU
+        eng, reqs = _traced_engine(torch, tenants=TENANTS)
+        _reset_launches()
+        res, batches, _ = _drive_async(eng, reqs)
+        torch.cuda.synchronize()
+        _expect_launches(_launches(), {"cosine_topk_interval": batches},
+                         "async four tenants (a launch a batch)")
+        _all_answered(res, len(reqs), eng, "async four tenants")
+        out["tenants"] = _async_numbers(eng, res, batches,
+                                        "async four tenants")
+        del eng
+        waves = {}
+        for device in ("cuda", "cpu"):
+            e, r = serve.build(device=device, tenants=TENANTS, log=_quiet)
+            serve.warm_serve_path(e)
+            wres, _, _ = _drive_async(e, r, coalesce=False, wave=128)
+            waves[device] = (wres.responses, e.tenant_stats(),
+                             e.stats.host())
+            del e
+        _same_decisions(waves["cuda"][0], waves["cpu"][0],
+                        "async four-tenant waves, card vs CPU",
+                        SCORE_TOL["f32"])
+        if waves["cuda"][1:] != waves["cpu"][1:]:
+            fail("async four-tenant waves: per-tenant counters differ from "
+                 f"the CPU: {waves['cuda'][1]} vs {waves['cpu'][1]}")
+        out["tenants"]["tenant_stats"] = waves["cuda"][1]
+        emit("serve_async", check="four tenants, closed loop; waves equal "
+             "the CPU's per-tenant counters", **out["tenants"])
+    if plain.calls:
+        fail(f"a plain top-k ran {plain.calls} times on card tensors")
+    return out
+
+
 def _time(torch, fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -2222,7 +2545,7 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     max_err = phase_kernel(torch)
-    main_launches, hits, main_served = phase_main(torch)
+    main_launches, hits, main_served, sync = phase_main(torch)
     tenancy_launches, tenancy_served = phase_tenancy(torch)
     launches = {"cosine_topk": main_launches, **tenancy_launches}
     with tempfile.TemporaryDirectory() as scratch:
@@ -2233,6 +2556,8 @@ def main() -> None:
     launches.update(quant_launches)
     for name, err in quant_err.items():
         max_err[name] = max(max_err[name], err)
+    phase_serve_async(torch, sync)
+    del sync
     timing = phase_timing(torch, card)
     model = phase_model(torch, card, hits)
     for mod in ("jax", "repro"):

@@ -138,6 +138,13 @@ class CacheStats:
             inserts=self.inserts,
         )
 
+    def host(self) -> dict[str, int]:
+        """The five counters as Python ints, read in one device-to-host
+        copy: each copy waits for the device."""
+        names = ("lookups", "hits", "misses", "inserts", "expired_evictions")
+        vals = torch.stack([getattr(self, n) for n in names]).cpu().tolist()
+        return dict(zip(names, vals))
+
     @staticmethod
     def zeros(device: torch.device) -> "CacheStats":
         def z():

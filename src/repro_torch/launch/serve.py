@@ -20,6 +20,18 @@ with the whole corpus, then a Zipf-skewed stream of ``4 * queries``
 requests (``--tenant-skew``); the device-side per-tenant counters are
 printed after the metrics.
 
+``--scheduler async`` routes the workload through the continuous
+micro-batching scheduler (``AsyncCacheServer``, DESIGN.md §12) instead of
+the sync batch loop, as ``repro.launch.serve --scheduler async`` does:
+open-loop Poisson arrivals at ``--rate-qps``, or ``--concurrency``
+closed-loop clients when no rate is given, with in-flight duplicate
+coalescing (``--no-coalesce`` turns it off) and DRR admission over the
+tenants. One warm-up batch is served and the metrics reset before the
+clock starts, so the kernel's build at first use enters no percentile.
+``--metrics-port`` serves ``/metrics``, ``/traces`` and ``/events`` over
+HTTP for the run's duration; ``--trace-sample`` / ``--trace-slow-ms``
+turn on request tracing and print the per-stage decomposition.
+
 ``--backend model`` answers the misses with a real decoder instead of the
 simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
 (default ``yi-6b``, dense family only) at its reduced width, weights drawn
@@ -29,6 +41,7 @@ takes ``reduced=False`` for the full published width.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 
 import torch
@@ -40,9 +53,15 @@ from repro_torch.core.types import CacheConfig
 from repro_torch.data.qa_dataset import build_corpus, build_test_queries
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models.model import Model
+from repro_torch.obs.trace import TraceConfig, Tracer
 from repro_torch.serving.engine import CachedEngine, Request, Response
 from repro_torch.serving.llm_backend import ModelBackend, SimulatedLLMBackend
-from repro_torch.serving.loadgen import build_multi_tenant_workload
+from repro_torch.serving.loadgen import (LoadResult,
+                                         build_multi_tenant_workload,
+                                         run_closed_loop, run_open_loop)
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.scheduler import SchedulerConfig
+from repro_torch.serving.server import AsyncCacheServer
 from repro_torch.tenancy import TenantRegistry
 
 KEY_DTYPES = {"f32": torch.float32, "int8": torch.int8}
@@ -62,13 +81,15 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
           fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
           tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
           backend: str = "sim", arch: str = "yi-6b", reduced: bool = True,
-          log=print) -> tuple[CachedEngine, list[Request]]:
+          tracer: Tracer | None = None, log=print
+          ) -> tuple[CachedEngine, list[Request]]:
     """The warmed engine and the requests to serve. ``tenants > 0``
     partitions the slab into that many uniform tenant regions and builds a
     multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``.
     ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``)
     behind the cache, its weights drawn from a generator on ``device``
-    seeded with 0 (``repro.launch.serve`` draws them from ``PRNGKey(0)``)."""
+    seeded with 0 (``repro.launch.serve`` draws them from ``PRNGKey(0)``).
+    ``tracer`` goes to the engine."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -102,6 +123,7 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         policy=AdaptiveThreshold(init=threshold) if policy == "adaptive"
         else None,
         use_fused_step=fused, registry=registry, device=device,
+        tracer=tracer,
         index=IVFIndex(ncentroids=128, nprobe=16, bucket_cap=1024)
         if index == "ivf" else None)
     if registry is None:
@@ -119,6 +141,41 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
             pairs, len(tests), tenants=list(registry.names),
             skew=tenant_skew, seed=1)
     return engine, requests
+
+
+def warm_serve_path(engine: CachedEngine) -> None:
+    """Serve one batch, then zero the engine's metrics. On the card the
+    first batch builds the kernels (nvcc) on the scheduler's worker thread
+    while requests queue; that build must enter no percentile."""
+    tenant = "default" if engine.registry is None \
+        else engine.registry.names[0]
+    engine.serve_batch([Request(query="serve-path compile warmup",
+                                tenant=tenant)])
+    engine.metrics = ServingMetrics()
+
+
+async def serve_async(engine: CachedEngine, requests: list[Request], *,
+                      max_wait_ms: float = 5.0, coalesce: bool = True,
+                      rate_qps: float | None = None, concurrency: int = 32,
+                      metrics_port: int | None = None,
+                      log=print) -> LoadResult:
+    """Drive ``requests`` through an ``AsyncCacheServer`` whose flush size
+    is the engine's batch size: open loop at ``rate_qps``, else closed
+    loop with ``concurrency`` clients. ``metrics_port`` serves the
+    exposition over HTTP while the run lasts."""
+    sched = SchedulerConfig(
+        max_batch=engine.batcher.batch_size, max_wait_ms=max_wait_ms,
+        coalesce=coalesce, tenant_weights=None if engine.registry is None
+        else engine.registry.weights())
+    async with AsyncCacheServer(engine, sched) as server:
+        if metrics_port is not None:
+            port = await server.serve_metrics(port=metrics_port)
+            log(f"/metrics exposition on http://127.0.0.1:{port}/metrics")
+        if rate_qps:
+            return await run_open_loop(server.submit_request, requests,
+                                       rate_qps)
+        return await run_closed_loop(server.submit_request, requests,
+                                     concurrency=concurrency)
 
 
 def main(argv=None):
@@ -152,13 +209,60 @@ def main(argv=None):
                          "serve a multi-tenant workload (0 = single-tenant)")
     ap.add_argument("--tenant-skew", type=float, default=1.0,
                     help="Zipf skew of tenant popularity (0 = uniform)")
+    ap.add_argument("--scheduler", choices=("sync", "async"),
+                    default="sync",
+                    help="sync batch loop vs async continuous micro-batching "
+                         "with in-flight coalescing")
+    ap.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="async admission deadline per micro-batch")
+    ap.add_argument("--rate-qps", type=float, default=None,
+                    help="async: open-loop Poisson arrival rate; omit for "
+                         "closed-loop")
+    ap.add_argument("--concurrency", type=int, default=32,
+                    help="async closed-loop client count")
+    ap.add_argument("--no-coalesce", dest="coalesce", action="store_false",
+                    help="disable in-flight duplicate coalescing")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="async: serve the Prometheus-style /metrics (+ "
+                         "/traces, /events) exposition on this HTTP port "
+                         "for the run's duration")
+    ap.add_argument("--trace-sample", type=float, default=0.0,
+                    help="request-trace retention rate in [0,1] "
+                         "(0 = tracing off, the default)")
+    ap.add_argument("--trace-slow-ms", type=float, default=None,
+                    help="always retain traces slower than this many ms, "
+                         "even when the rate sampler would drop them")
     args = ap.parse_args(argv)
-    engine, _, _ = run(corpus=args.corpus, queries=args.queries,
-                       threshold=args.threshold, ttl=args.ttl,
-                       batch=args.batch, policy=args.policy, fused=args.fused,
-                       device=args.device, key_dtype=args.key_dtype,
-                       tenants=args.tenants, tenant_skew=args.tenant_skew,
-                       index=args.index, backend=args.backend, arch=args.arch)
+    tracer = None
+    if args.trace_sample > 0.0 or args.trace_slow_ms is not None:
+        tracer = Tracer(TraceConfig(
+            sample_rate=args.trace_sample,
+            slow_threshold_s=None if args.trace_slow_ms is None
+            else args.trace_slow_ms / 1000.0))
+    engine, requests = build(
+        corpus=args.corpus, queries=args.queries, threshold=args.threshold,
+        ttl=args.ttl, batch=args.batch, policy=args.policy, fused=args.fused,
+        device=args.device, key_dtype=args.key_dtype, tenants=args.tenants,
+        tenant_skew=args.tenant_skew, index=args.index, backend=args.backend,
+        arch=args.arch, tracer=tracer)
+    if args.scheduler == "sync":
+        print(f"serving {len(requests)} queries (sync batches) ...")
+        engine.process(requests)
+    else:
+        mode = (f"open-loop {args.rate_qps:.0f} qps" if args.rate_qps
+                else f"closed-loop x{args.concurrency}")
+        print(f"serving {len(requests)} queries (async scheduler, {mode}) "
+              "...")
+        warm_serve_path(engine)
+        res = asyncio.run(serve_async(
+            engine, requests, max_wait_ms=args.max_wait_ms,
+            coalesce=args.coalesce, rate_qps=args.rate_qps,
+            concurrency=args.concurrency, metrics_port=args.metrics_port))
+        print(f"sustained {res.achieved_qps:.1f} qps "
+              f"({res.wall_s:.2f}s wall)")
+        if tracer is not None and tracer.retained:
+            print("trace stage decomposition (retained traces):")
+            print(json.dumps(tracer.stage_decomposition(), indent=1))
     print(json.dumps(engine.metrics.summary(), indent=1))
     if args.tenants > 0:
         print("device-side per-tenant counters:")

@@ -1,4 +1,5 @@
-"""Serving runtime: the paper's cached query-handling system."""
+"""Serving runtime: the paper's cached query-handling system, plus the
+async continuous-batching layer in front of it (DESIGN.md §12)."""
 from repro_torch.serving.engine import (PAD_REQUEST, Batcher, CachedEngine,
                                         Request, Response)
 from repro_torch.serving.llm_backend import (BackendError, BackendResult,
@@ -6,9 +7,22 @@ from repro_torch.serving.llm_backend import (BackendError, BackendResult,
                                              BackendUnavailable,
                                              ModelBackend,
                                              SimulatedLLMBackend)
+from repro_torch.serving.loadgen import (LoadResult, availability,
+                                         build_multi_tenant_workload,
+                                         build_workload, run_closed_loop,
+                                         run_open_loop, run_waves,
+                                         tenant_rng, zipf_weights)
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.resilience import Overloaded
+from repro_torch.serving.scheduler import (AsyncScheduler, SchedulerConfig,
+                                           coalesce_key, normalize_query)
+from repro_torch.serving.server import AsyncCacheServer
 
 __all__ = ["PAD_REQUEST", "Batcher", "CachedEngine", "Request", "Response",
            "BackendError", "BackendResult", "BackendTimeout",
            "BackendUnavailable", "ModelBackend", "SimulatedLLMBackend",
-           "ServingMetrics"]
+           "ServingMetrics", "Overloaded", "AsyncScheduler",
+           "SchedulerConfig", "coalesce_key", "normalize_query",
+           "AsyncCacheServer", "LoadResult", "availability",
+           "build_workload", "build_multi_tenant_workload", "tenant_rng",
+           "zipf_weights", "run_closed_loop", "run_open_loop", "run_waves"]

@@ -29,12 +29,23 @@ through the same peek and step: lookups see only their tenant's region,
 misses go into their tenant's own ring, and both ``ServingMetrics`` and the
 device-side ``TenancyState`` keep per-tenant accounting.
 
-Sessions (``fusion``), near-hit synthesis (``synthesizer``), tracing
-(``tracer``, ``events``, ``explain_responses``), resilience (including
-per-row containment of a failed backend call) and the sharded cache
-(``mesh``) arrive with later slices; each raises NotImplementedError until
-then. Without them, responses and ``metrics.summary()`` match the JAX
-engine's request by request.
+Observability (DESIGN.md §18): ``tracer`` threads per-request stage
+spans through ``serve_batch`` (embed, device_step, near_synthesis,
+backend_call, insert, respond; each device span ends with the host read
+that waits for its work, so the spans tile the wall clock), ``events``
+records one structured event per batch with its ``CacheStats`` delta, and
+``explain()`` / ``Request.explain`` / ``explain_responses`` attach a
+``why`` record, built from host copies taken before the step updates the
+slab in place.
+
+A failed backend call marks only its own rows (DESIGN.md §20.2): they get
+``Response.error`` and stay out of the slab and every counter, and hit rows
+of the same batch are served. Sessions (``fusion``), near-hit synthesis
+(``synthesizer``), the rest of resilience (``resilience``: retries, the
+breaker, degraded serving) and the sharded cache (``mesh``) arrive with
+later slices; each raises NotImplementedError until then. Without them,
+responses and ``metrics.summary()`` match the JAX engine's request by
+request.
 """
 from __future__ import annotations
 
@@ -50,6 +61,8 @@ from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.embedding.hash_embedder import HashEmbedder
+from repro_torch.obs.explain import build_why, effective_edges
+from repro_torch.obs.trace import Tracer
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.training import checkpoint
 
@@ -62,6 +75,14 @@ class Request:
     semantic_key: str = ""
     tenant: str = "default"      # isolation domain; ignored without a
                                  # registry
+    session: str = ""            # conversation id; "" = stateless request;
+                                 # ignored without a fusion strategy
+    explain: bool = False        # attach a decision-attribution ``why``
+                                 # record to the Response
+    deadline_ms: float | None = None
+                                 # remaining latency budget in ms; the
+                                 # scheduler decrements queue wait before
+                                 # dispatch. None = no deadline.
 
 
 @dataclasses.dataclass
@@ -70,6 +91,20 @@ class Response:
     cached: bool
     score: float
     latency_s: float
+    coalesced: bool = False   # served by attaching to an in-flight duplicate
+                              # (async scheduler)
+    context: bool = False     # looked up under a non-empty session window
+    near_hit: bool = False    # synthesized from top-k neighbours
+    trace_id: str = ""        # RequestTrace id when tracing retained this
+                              # request's journey ("" when tracing is off)
+    why: dict | None = None   # decision attribution; only set when the
+                              # request opted in via Request.explain or the
+                              # engine forces explain_responses=True
+    degraded: bool = False    # served from a cached neighbour because the
+                              # backend was unavailable (resilience slice)
+    error: str = ""           # non-empty when this row's backend call
+                              # failed; the async scheduler turns it into
+                              # a per-row BackendError
 
 
 #: Row used to right-pad a partial batch up to the engine's fixed batch
@@ -102,8 +137,6 @@ class Batcher:
 _LATER = {
     "fusion": "the sessions slice",
     "synthesizer": "the near-hit slice",
-    "tracer": "the observability slice",
-    "events": "the observability slice",
     "resilience": "the resilience slice",
     "mesh": "the sharded-cache slice",
 }
@@ -122,7 +155,7 @@ class CachedEngine:
                  registry=None,
                  fusion=None,
                  synthesizer=None,
-                 tracer=None,
+                 tracer: Tracer | None = None,
                  events=None,
                  explain_responses: bool = False,
                  resilience=None,
@@ -135,18 +168,21 @@ class CachedEngine:
         # inserts are absorbed into the init centroids, and the first
         # served batch refits, as in the JAX engine. ``registry``: optional
         # TenantRegistry partitioning the slab into per-tenant regions.
+        # ``tracer``: optional repro_torch.obs.Tracer; None = a disabled
+        # Tracer, whose hooks allocate nothing. ``events``: optional
+        # repro_torch.obs.EventLog, one event per serve step.
+        # ``explain_responses``: a ``why`` record on every response.
         # ``device``: where the slab lives and the search runs; "cuda"
         # raises when CUDA is absent.
         given = dict(fusion=fusion, synthesizer=synthesizer,
-                     tracer=tracer, events=events, resilience=resilience,
-                     mesh=mesh)
+                     resilience=resilience, mesh=mesh)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"CachedEngine({name}=...) arrives with {_LATER[name]}")
-        if explain_responses:
-            raise NotImplementedError(
-                "explained responses arrive with the observability slice")
+        # read by the scheduler, the server and the exporter
+        self.synthesizer = None
+        self.resilience = None
         self.registry = registry
         partition = None
         if registry is not None:
@@ -182,6 +218,9 @@ class CachedEngine:
         self.judge = judge
         self.batcher = Batcher(batch_size)
         self.metrics = ServingMetrics()
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.events = events
+        self.explain_all = explain_responses
         self._now = 0.0
 
     # -- runtime views (read-only conveniences) ------------------------- #
@@ -204,8 +243,10 @@ class CachedEngine:
         if t is None:
             return {}
         t = t.reduced()
-        cols = {n: getattr(t, n).cpu().tolist()
-                for n in ("lookups", "hits", "inserts", "evictions")}
+        names = ("lookups", "hits", "inserts", "evictions")
+        # one device-to-host copy: each copy waits for the device
+        cols = dict(zip(names, torch.stack(
+            [getattr(t, n) for n in names]).cpu().tolist()))
         part = self.cache.partition
         return {
             name: {
@@ -346,6 +387,7 @@ class CachedEngine:
             out.extend(self.serve_batch(batch))
         return out
 
+
     def _generate_misses(self, batch, miss_idx):
         """Backend call + tokenizer round-trip for the missed rows.
 
@@ -363,21 +405,125 @@ class CachedEngine:
                    for j, i in enumerate(miss_idx)}
         return toks, lens, answers, res.latency_s, res.cost_usd
 
-    def serve_batch(self, batch: list[Request]) -> list[Response]:
+    def _resolve_misses(self, batch, miss_idx):
+        """One backend call for the miss rows, its failure contained to
+        them (DESIGN.md §20.2). Returns ``(result_tuple, None)`` on success
+        or ``(None, err_msg)`` when the call raised: the caller turns
+        ``err_msg`` into per-row error responses instead of failing the
+        whole batch, and counts the failure."""
+        try:
+            return self._generate_misses(batch, miss_idx), None
+        except Exception as exc:
+            self.metrics.resilience_seen = True
+            self.metrics.resilience.backend_failures += 1
+            return None, f"{type(exc).__name__}: {exc}"
+
+    def _why_snapshot(self, result):
+        """Decision-time attribution snapshot: the policy state and the
+        top-k neighbours' slots, scores and source ids, copied to the host
+        BEFORE the step. The step updates the slab in place and the judged
+        feedback replaces the policy state, so a device reference kept
+        from here would show the values after the insert, not the ones the
+        decision was made under. ``np.array`` copies, also where the
+        tensor already lies on the CPU."""
+        payload = self.cache.gather_topk(self.runtime, result)
+        return (np.array(self.runtime.policy_state.cpu()),
+                {"slots": np.array(result.topk_index.cpu()),
+                 "scores": np.array(result.topk_score.cpu()),
+                 "source_ids": np.array(payload["source_id"].cpu())})
+
+    def _build_whys(self, batch, n_valid, hit, scores, matched_idx,
+                    matched_sid, near_row, why_ps, why_topk):
+        """Per-row ``why`` records for the rows that opted in."""
+        edges_by_tenant: dict = {}
+        whys: list = [None] * n_valid
+        for i in range(n_valid):
+            if not (self.explain_all or batch[i].explain):
+                continue
+            tix = None if self.registry is None \
+                else self._tenant_index[batch[i].tenant]
+            if tix not in edges_by_tenant:
+                edges_by_tenant[tix] = effective_edges(
+                    self.cache.policy, why_ps, self.cache.partition, tix)
+            whys[i] = build_why(
+                i, request=batch[i], hit=bool(hit[i]), near_served=False,
+                score=float(scores[i]), matched_slot=int(matched_idx[i]),
+                matched_source_id=int(matched_sid[i]),
+                topk_slots=why_topk["slots"][i],
+                topk_scores=why_topk["scores"][i],
+                topk_source_ids=why_topk["source_ids"][i],
+                edges=edges_by_tenant[tix], session_fused=False,
+                synthesizer_present=False, near_band=bool(near_row[i]),
+                synthesis_source_id=None)
+        return whys
+
+    def explain(self, query: str, *, tenant: str = "default",
+                session: str = "") -> dict:
+        """Offline decision attribution: what WOULD the cache do with
+        ``query`` right now, and why? A pure peek: no counter moves,
+        nothing is inserted, no backend call is made (``dry_run`` marks
+        the record as a what-if)."""
+        req = Request(query=query, tenant=tenant, session=session,
+                      explain=True)
+        batch, _ = self.batcher.pad([req])
+        peek, _ = self.cache.lookup(
+            self.runtime, self._embed([r.query for r in batch]),
+            np.float32(self._now), update_counters=False,
+            tenant_id=self._tenant_ids(batch))
+        why_ps, why_topk = self._why_snapshot(peek)
+        tix = None if self.registry is None else self._tenant_index[tenant]
+        why = build_why(
+            0, request=req, hit=bool(peek.hit[0]), near_served=False,
+            score=float(peek.score[0]), matched_slot=int(peek.index[0]),
+            matched_source_id=int(peek.source_id[0]),
+            topk_slots=why_topk["slots"][0],
+            topk_scores=why_topk["scores"][0],
+            topk_source_ids=why_topk["source_ids"][0],
+            edges=effective_edges(self.cache.policy, why_ps,
+                                  self.cache.partition, tix),
+            session_fused=False, synthesizer_present=False,
+            near_band=bool(peek.near[0]), synthesis_source_id=None)
+        why["dry_run"] = True
+        return why
+
+    def serve_batch(self, batch: list[Request], *,
+                    record_path_latency: bool = True,
+                    traces: list | None = None) -> list[Response]:
         """Serve ONE admission batch: peek -> backend -> fused step commit.
 
+        Both the sync ``process()`` loop and the async scheduler drive it.
         On the fused path a partial batch is right-padded to the fixed
         batch size; the ``valid`` mask keeps pad rows out of every counter,
-        the judge, the metrics and the slab.
+        the judge, the metrics and the slab. Rows whose backend call failed
+        get ``Response.error`` and are kept out the same way.
+
+        ``record_path_latency=False`` skips the per-request hit/miss
+        latency samples: the async scheduler records end-to-end (queue
+        wait + service) latencies itself.
+
+        ``traces`` is an optional per-row list of ``RequestTrace``s (the
+        scheduler passes its entries' traces, already carrying their
+        queue-side spans); the engine's stage spans are appended to each
+        and the CALLER finishes them. When ``traces`` is None and the
+        tracer is collecting, serve_batch starts one trace per real row
+        and finishes it with the batch wall time. When tracing is off there
+        is no stage clock and no per-request allocation.
         """
         n_valid = len(batch)
+        clock = self.tracer.stage_clock()
+        own_traces = False
+        if clock is not None and traces is None:
+            traces = [self.tracer.start() for _ in range(n_valid)]
+            own_traces = True
+        ev_stats0 = None if self.events is None else self.stats.host()
         if self.registry is not None and len(batch) > self.batcher.batch_size:
             # the per-tenant ring gives distinct slots only for batches up
             # to the batch size the constructor checked against the regions
             raise ValueError(
                 f"tenant-partitioned engine got a {len(batch)}-row batch "
                 f"but batch_size={self.batcher.batch_size}; align the "
-                "scheduler's max_batch with the engine batch size")
+                "scheduler's max_batch with the engine batch size "
+                "(AsyncCacheServer's default config does)")
         if self.use_fused_step:
             batch, n_valid = self.batcher.pad(batch)
         cfg = self.cache.config
@@ -385,31 +531,52 @@ class CachedEngine:
         tid = self._tenant_ids(batch)
         t0 = time.perf_counter()
         emb = self._embed([r.query for r in batch])
+        if clock is not None:
+            clock.tick("embed")
         now = np.float32(self._now)
         self._maybe_refit()
 
         llm_time = 0.0
         llm_cost = 0.0
         answers: dict[int, str] = {}
+        failed: dict[int, str] = {}
+        want_why = self.explain_all or any(
+            batch[i].explain for i in range(n_valid))
+        why_ps = why_topk = None
 
         if self.use_fused_step:
             # 1. pure peek: learn the miss set without committing any state
             #    (the only slab search this batch — step commits it, §7)
             peek, _ = self.cache.lookup(self.runtime, emb, now,
                                         update_counters=False, tenant_id=tid)
-            peek_hit = peek.hit.cpu().numpy()
+            peek_hit = peek.hit.cpu().numpy()   # waits for the search
             cache_time = time.perf_counter() - t0
+            if clock is not None:
+                clock.tick("device_step")
+            if want_why:
+                why_ps, why_topk = self._why_snapshot(peek)
+            if clock is not None:
+                clock.tick("near_synthesis")    # no synthesizer: empty
             miss_idx = [i for i in range(n_valid) if not peek_hit[i]]
-            # 2. backend answers the misses (paper §2.5 step 2)
+            # 2. backend answers the misses (paper §2.5 step 2); a failed
+            #    call marks only its own rows
             miss_values = np.zeros((n, cfg.value_len), dtype=np.int32)
             miss_lens = np.zeros((n,), dtype=np.int32)
             if miss_idx:
-                toks, lens, answers, llm_time, llm_cost = \
-                    self._generate_misses(batch, miss_idx)
-                miss_values[miss_idx] = np.asarray(toks)
-                miss_lens[miss_idx] = np.asarray(lens)
+                out, err = self._resolve_misses(batch, miss_idx)
+                if err is None:
+                    toks, lens, answers, llm_time, llm_cost = out
+                    miss_values[miss_idx] = np.asarray(toks)
+                    miss_lens[miss_idx] = np.asarray(lens)
+                else:
+                    failed = dict.fromkeys(miss_idx, err)
+            if clock is not None:
+                clock.tick("backend_call")
+            # failed rows are never admitted: a cleared valid bit drops
+            # them from the insert mask and every counter, like pad rows
             valid = np.zeros((n,), dtype=bool)
             valid[:n_valid] = True
+            valid[list(failed)] = False
             # 3. one fused step: commit the peek + masked insert
             t1 = time.perf_counter()
             result, self.runtime = self.cache.step(
@@ -421,17 +588,33 @@ class CachedEngine:
                 tenant_id=tid)
             hit = result.hit.cpu().numpy()   # waits for the step
             cache_time += time.perf_counter() - t1
-            self._inserts_since_rebuild += len(miss_idx)
+            if clock is not None:
+                clock.tick("insert")
+            self._inserts_since_rebuild += len(miss_idx) - len(failed)
         else:
             # reference path: counted lookup, then a subset insert
             result, self.runtime = self.cache.lookup(self.runtime, emb, now,
                                                      tenant_id=tid)
             hit = result.hit.cpu().numpy()
             cache_time = time.perf_counter() - t0
+            if clock is not None:
+                clock.tick("device_step")
+            if want_why:
+                why_ps, why_topk = self._why_snapshot(result)
+            if clock is not None:
+                clock.tick("near_synthesis")
             miss_idx = [i for i in range(n) if not hit[i]]
+            out = None
             if miss_idx:
-                toks, lens, answers, llm_time, llm_cost = \
-                    self._generate_misses(batch, miss_idx)
+                out, err = self._resolve_misses(batch, miss_idx)
+                if err is not None:
+                    # the counted lookup above already counted these rows;
+                    # they only stay out of the insert (as in the JAX engine)
+                    failed = dict.fromkeys(miss_idx, err)
+            if clock is not None:
+                clock.tick("backend_call")
+            if out is not None:
+                toks, lens, answers, llm_time, llm_cost = out
                 # one subset insert in row order — the same slot order the
                 # fused step's masked full-batch insert produces
                 idx = torch.as_tensor(miss_idx, device=self.device)
@@ -442,6 +625,8 @@ class CachedEngine:
                         [batch[i].source_id for i in miss_idx], torch.int32),
                     tenant_id=None if tid is None else tid[idx])
                 self._inserts_since_rebuild += len(miss_idx)
+            if clock is not None:
+                clock.tick("insert")
 
         scores = result.score.cpu().numpy()
         matched_sid = result.source_id.cpu().numpy()
@@ -465,27 +650,84 @@ class CachedEngine:
                 was_positive=self._tensor(positives & hit, torch.bool),
                 was_hit=self._tensor(hit, torch.bool))
 
-        # metrics: baseline = every query pays the LLM call; pad rows move
-        # no counter
-        rows = list(range(n_valid))
+        # metrics: baseline = every query pays the LLM call; pad rows and
+        # failed rows move no counter (the fault path has its own)
+        rows = [i for i in range(n_valid) if i not in failed]
         per_call = getattr(self.backend, "latency_per_call_s", None)
         baseline_time = (per_call or (llm_time / max(len(miss_idx), 1))) \
-            * n_valid
+            * len(rows)
         per_cost = getattr(self.backend, "cost_per_call_usd", 0.0)
         self.metrics.record_batch(
             [batch[i].category for i in rows], hit[rows], positives[rows],
             judged=[self.judge is not None and bool(hit[i]) for i in rows],
             cache_time_s=cache_time, llm_time_s=llm_time,
-            llm_cost=llm_cost, baseline_cost=per_cost * n_valid,
+            llm_cost=llm_cost, baseline_cost=per_cost * len(rows),
             baseline_time=baseline_time,
             tenants=None if self.registry is None else
             [batch[i].tenant for i in rows])
 
+        whys = None
+        if want_why:
+            whys = self._build_whys(
+                batch, n_valid, hit, scores, result.index.cpu().numpy(),
+                matched_sid, result.near.cpu().numpy(), why_ps, why_topk)
+
         per_q_latency = (cache_time + llm_time) / max(n_valid, 1)
-        for i in rows:
-            self.metrics.record_latency(
-                "hit" if hit[i] else "miss", per_q_latency,
-                tenant=None if self.registry is None else batch[i].tenant)
-        return [Response(answer=answers[i], cached=bool(hit[i]),
-                         score=float(scores[i]), latency_s=per_q_latency)
-                for i in rows]
+
+        def _path_of(i: int) -> str:
+            if i in failed:
+                return "error"
+            return "hit" if hit[i] else "miss"
+
+        if record_path_latency:
+            for i in range(n_valid):
+                self.metrics.record_latency(
+                    _path_of(i), per_q_latency,
+                    tenant=None if self.registry is None else batch[i].tenant)
+
+        def _mk_response(i: int) -> Response:
+            tr_id = "" if traces is None or i >= len(traces) \
+                else traces[i].trace_id
+            w = None if whys is None else whys[i]
+            if i in failed:
+                return Response(answer="", cached=False,
+                                score=float(scores[i]),
+                                latency_s=per_q_latency, error=failed[i],
+                                trace_id=tr_id, why=w)
+            return Response(answer=answers[i], cached=bool(hit[i]),
+                            score=float(scores[i]), latency_s=per_q_latency,
+                            trace_id=tr_id, why=w)
+
+        responses = [_mk_response(i) for i in range(n_valid)]
+        if clock is not None:
+            clock.tick("respond")
+            if traces is not None:
+                # engine spans tile serve_batch's wall time contiguously, so
+                # on the sync path span-sum == e2e by construction; the
+                # scheduler prepends its queue-side spans and finishes with
+                # the true arrival->resolve e2e
+                batch_wall = sum(s.duration_s for s in clock.spans)
+                for i in range(min(n_valid, len(traces))):
+                    tr = traces[i]
+                    if not tr:
+                        continue
+                    tr.spans.extend(clock.spans)
+                    tr.annotate(row=i, batch_rows=n_valid,
+                                path=_path_of(i))
+                    if whys is not None and whys[i] is not None:
+                        tr.why = whys[i]
+                    if own_traces:
+                        self.tracer.finish(tr, e2e_s=batch_wall)
+        if self.events is not None:
+            stats1 = self.stats.host()
+            fault_kw = {} if not failed else {
+                "failed": len(failed), "degraded": 0}
+            self.events.emit(
+                "serve_batch", rows=n_valid,
+                hits=int(hit[:n_valid].sum()), near_hits=0,
+                backend_calls=len(miss_idx),
+                cache_time_s=round(cache_time, 6),
+                llm_time_s=round(llm_time, 6),
+                stats_delta={k: stats1[k] - ev_stats0[k] for k in ev_stats0},
+                **fault_kw)
+        return responses

@@ -24,9 +24,12 @@ from repro_torch.data.tokenizer import HashTokenizer
 
 
 class BackendError(RuntimeError):
-    """A backend ``generate`` call failed for the rows that needed it. The
-    JAX engine contains it to those rows; in the port that containment
-    arrives with the resilience slice, and until then the batch fails."""
+    """A backend ``generate`` call failed for the rows that needed it.
+
+    The serving stack resolves it *per row* (DESIGN.md §20.2): cache-hit
+    rows in the same micro-batch are served normally, and only the
+    true-miss rows whose call failed see it (``Response.error`` from the
+    engine, this exception from the async scheduler)."""
 
 
 class BackendUnavailable(BackendError):
@@ -53,11 +56,17 @@ class SimulatedLLMBackend:
 
     def __init__(self, pairs: Sequence[QAPair], *,
                  latency_per_call_s: float = 0.8,
-                 cost_per_call_usd: float = 0.002):
+                 cost_per_call_usd: float = 0.002,
+                 block: bool = False):
+        # ``block=True`` sleeps one API round-trip per generate() call (a
+        # batch of misses shares one RTT, like a batched API call), so the
+        # async scheduler's measured latencies are real wall time and a
+        # miss leader stays in flight long enough for duplicates to attach
         self.by_key = {p.semantic_key: p.answer for p in pairs}
         self.by_question = {p.question: p.answer for p in pairs}
         self.latency_per_call_s = latency_per_call_s
         self.cost_per_call_usd = cost_per_call_usd
+        self.block = block
         self.calls = 0
 
     def generate(self, queries: Sequence[str],
@@ -71,6 +80,8 @@ class SimulatedLLMBackend:
             else:
                 answers.append(f"Here is a detailed answer to: {q}")
         self.calls += len(queries)
+        if self.block:
+            time.sleep(self.latency_per_call_s)
         return BackendResult(
             answers=answers,
             latency_s=self.latency_per_call_s * len(queries),

@@ -11,13 +11,17 @@ per-row-scale int8 forms and ``quantize_keys`` against theirs, and the serve
 loop, single- and multi-tenant and through the IVF index, on CUDA against
 the same loop on the CPU; the prefill flash-attention and decode-attention
 kernels against their plain versions, their wrappers' refusals, and the
-model-backed miss path's launches and answers on CUDA against the CPU. Every test here needs a CUDA device and skips without one. The file imports
+model-backed miss path's launches and answers on CUDA against the CPU; the
+async front end's lockstep waves on CUDA against the sync card run and the
+CPU, and the tracing engine's spans on CUDA. Every test here needs a CUDA
+device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 It also holds the seeded kernel inputs that ``test_torch_kernels.py`` feeds
 to the JAX package on the CPU."""
+import asyncio
 import math
 
 import numpy as np
@@ -36,7 +40,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve
 from repro_torch.models.model import Model
-from repro_torch.serving import ModelBackend
+from repro_torch.obs import TraceConfig, Tracer
+from repro_torch.serving import (AsyncCacheServer, ModelBackend,
+                                 SchedulerConfig, run_waves)
 
 CASES = [  # (B, N, d, k, mask)
     (4, 100, 32, 1, "random"),
@@ -1165,3 +1171,64 @@ def test_model_backend_launches_and_answers_on_cuda(cuda_device):
         dg, _ = card.decode_step(caches, nt.to(cuda_device))
         dc, _ = cpu.decode_step(cc, nt)
         torch.testing.assert_close(dg.cpu(), dc, rtol=0, atol=1e-4)
+
+
+def _waves(eng, requests, batch):
+    async def drive():
+        sched = SchedulerConfig(max_batch=batch, max_wait_ms=50.0,
+                                coalesce=False)
+        async with AsyncCacheServer(eng, sched) as server:
+            return await run_waves(server.submit_request, requests,
+                                   wave=batch)
+    return asyncio.run(drive()).responses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tenants", [0, 3])
+def test_async_waves_on_cuda_match_sync_and_cpu(cuda_device, tenants):
+    """Lockstep waves through the scheduler (its single worker thread
+    launches the kernels): one launch a wave, and the sync card run's and
+    the CPU waves' decisions, answers, counters."""
+    kw = dict(corpus=30, queries=15, batch=16, tenants=tenants,
+              log=lambda *a: None)
+    name = "cosine_topk_interval" if tenants else "cosine_topk"
+    runs = {}
+    for device in (str(cuda_device), "cpu"):
+        eng, requests = serve.build(device=device, **kw)
+        kmod.reset_launches()
+        runs[device] = (eng, _waves(eng, requests, 16))
+        if device != "cpu":
+            assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                                     name: -(-len(requests) // 16)}
+    _, _, sync = serve.run(device=str(cuda_device), **kw)
+    (card, on_card), (cpu, on_cpu) = runs[str(cuda_device)], runs["cpu"]
+    for other in (sync, on_cpu):
+        assert [(r.answer, r.cached) for r in on_card] == \
+            [(r.answer, r.cached) for r in other]
+        np.testing.assert_allclose([r.score for r in on_card],
+                                   [r.score for r in other], rtol=0,
+                                   atol=1e-5)
+    assert card.stats.host() == cpu.stats.host()
+    assert card.tenant_stats() == cpu.tenant_stats()
+    assert card.backend.calls == cpu.backend.calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_tracing_engine_on_cuda(cuda_device, fused):
+    """Each device span ends with the host read that waits for its work:
+    the spans tile the batch's wall time and equal the CPU run's names."""
+    kw = dict(corpus=30, queries=15, batch=16, fused=fused,
+              log=lambda *a: None)
+    traces = {}
+    for device in (str(cuda_device), "cpu"):
+        tracer = Tracer(TraceConfig(sample_rate=1.0, head=0))
+        eng, requests = serve.build(device=device, tracer=tracer, **kw)
+        eng.process(requests)
+        traces[device] = tracer.traces()
+        assert len(traces[device]) == len(requests)
+    for a, b in zip(traces[str(cuda_device)], traces["cpu"]):
+        assert [s.name for s in a.spans] == [s.name for s in b.spans]
+        assert a.meta == b.meta
+        assert a.span_sum_s == pytest.approx(a.e2e_s, rel=1e-9)
+        assert a.stage_seconds()["device_step"] > 0

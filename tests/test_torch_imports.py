@@ -68,6 +68,15 @@ def test_quant_slice_files_are_checked():
             "kernels/build.py"} <= names
 
 
+def test_async_serving_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"obs/__init__.py", "obs/trace.py", "obs/explain.py",
+            "obs/export.py", "embedding/lsh.py", "serving/resilience.py",
+            "serving/scheduler.py", "serving/server.py",
+            "serving/loadgen.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -90,6 +99,9 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.kernels.ops import quant_cosine_topk\n"
         "from repro_torch.kernels.ref import (quant_cosine_topk_ref,\n"
         "    quant_cosine_topk_interval_ref)\n"
+        "import repro_torch.obs, repro_torch.embedding.lsh\n"
+        "from repro_torch.serving import (AsyncCacheServer, AsyncScheduler,\n"
+        "    Overloaded, run_waves)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
