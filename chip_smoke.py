@@ -65,6 +65,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
             and per-tenant counters); a pipelined TCP burst (ids echoed,
             all cached, coalesced, one error line for a malformed line);
             throughput, e2e percentiles and the stage decomposition printed
+  serve_context
+            sessions, the near-hit band and resilience at the main
+            configuration, each engine on the card and on the CPU, held
+            request by request (decisions, answers, flags, scores within
+            1e-5, counters, summaries; one launch a batch): stateless
+            traffic through ``DecayMeanFusion`` equal to the main run bit
+            for bit; 16 record/replay conversations of 3 turns, each turn
+            level's rows in a batch of 128 filled with the main workload,
+            with decay and attention fusion (fused keys card vs CPU within
+            1e-5) and without (fused replays hit, stateless ones not); the
+            same conversations through ``run_sessions`` (16 clients; the
+            sync run's replay hits) and one TCP session line; sessions over
+            ``--tenants 4`` (the interval kernel); ``BandPolicy(0.75,
+            0.8)`` with ``TemplateSplice(0.12)`` (exact rows equal to the
+            main run, band state card vs CPU within 1e-6); and resilience
+            off and on behind ``paper_tables``' fault schedule
+            (availability on above off) and on with no faults (the main
+            run byte for byte); wall per batch and the slice's host
+            seconds (windows, canonical keys, synthesis) printed
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events; the
             shared-mask rows also from a CUDA graph of the wrapper's
@@ -1539,6 +1558,444 @@ def phase_serve_async(torch, sync: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+CTX_CORPUS = 2000          # launch.serve defaults: QA pairs a category ...
+CTX_QUERIES = 500          # ... and test queries a category
+CTX_GROUPS = 16            # 16 groups x 2 follow-ups: the 32-entity pool
+CTX_TURNS = 3
+CTX_CLIENTS = 16           # run_sessions concurrency
+BAND_TOL = 1e-6            # band state, card vs CPU
+CTX_HOST = ("_session_windows", "_maybe_fuse", "_canonical_keys",
+            "_append_turns", "_synthesize_near",
+            "_serve_degraded")                      # the slice's host work
+CTX_TIMED = CTX_HOST + ("_embed",)                    # and host embedding
+
+
+def _ctx_workload():
+    """The main configuration's pairs and requests (``launch.serve``
+    defaults), its record/replay conversations, and two judges: the main
+    path's (``serve.build``'s) and one that also knows the follow-ups'
+    source ids (``paper_tables.context_table``'s)."""
+    from repro_torch.data.qa_dataset import build_corpus, build_test_queries
+    from repro_torch.serving import Request, build_multi_turn_workload
+    pairs = build_corpus(CTX_CORPUS, seed=0)
+    reqs = [Request(query=q.query, category=q.category,
+                    source_id=q.source_id, semantic_key=q.semantic_key)
+            for q in build_test_queries(pairs, n_per_category=CTX_QUERIES,
+                                        seed=1)]
+    convs = build_multi_turn_workload(pairs, CTX_GROUPS, turns=CTX_TURNS,
+                                      seed=23)
+    by_id = {p.qa_id: p for p in pairs}
+
+    def judge(req, sid):
+        return sid >= 0 and sid in by_id and \
+            by_id[sid].semantic_key == req.semantic_key
+    return {"pairs": pairs, "reqs": reqs, "convs": convs, "judge": judge,
+            "ctx_judge": _ctx_judge(pairs, convs)}
+
+
+def _ctx_judge(pairs, convs):
+    """``paper_tables.context_table``'s judge: the corpus's and the
+    follow-ups' semantic keys by source id."""
+    key_by_sid = {p.qa_id: p.semantic_key for p in pairs}
+    for conv in convs:
+        for r in conv:
+            key_by_sid.setdefault(r.source_id, r.semantic_key)
+
+    def judge(req, sid):
+        return key_by_sid.get(sid, "") == req.semantic_key
+    return judge
+
+
+def _ctx_engine(torch, wl, device, *, judge=None, backend=None, tenants=0,
+                **kw):
+    """A warmed engine at the main configuration (``serve.build``'s slab,
+    batch, threshold and sim backend) with this slice's features in
+    ``kw``; with ``tenants``, ``--tenants`` regions each warmed with the
+    corpus. The slice's host helpers and the embedding are timed
+    (``eng.ctx_host_s``); on the card ``_maybe_fuse`` is the host time
+    of launching the pooling, not its device time."""
+    from repro_torch.core.types import CacheConfig
+    from repro_torch.serving import CachedEngine, SimulatedLLMBackend
+    from repro_torch.tenancy import TenantRegistry
+    registry = None
+    if tenants:
+        registry = TenantRegistry.uniform(
+            [f"tenant-{i}" for i in range(tenants)])
+    cfg = CacheConfig(dim=384, capacity=max(16384, 8 * CTX_CORPUS)
+                      * max(1, tenants), value_len=48, threshold=THRESHOLD)
+    eng = CachedEngine(cfg, backend or SimulatedLLMBackend(wl["pairs"]),
+                       judge=judge or wl["judge"], batch_size=128,
+                       registry=registry, device=device, **kw)
+    for name in (registry.names if registry else [None]):
+        eng.warm(wl["pairs"], tenant=name)
+    spent = eng.ctx_host_s = dict.fromkeys(CTX_TIMED, 0.0)
+    for name in CTX_TIMED:
+        owner = eng.cache if name == "_maybe_fuse" else eng
+
+        def timed(*a, _fn=getattr(owner, name), _name=name, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            spent[_name] += time.perf_counter() - t0
+            return out
+        object.__setattr__(owner, name, timed)    # the cache is frozen
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return eng
+
+
+def _ctx_serve(torch, eng, batches, warmup=None) -> dict:
+    """Serve ``batches`` (each <= 128 rows, one ``serve_batch`` each) after
+    an optional warm-up request; returns the responses, the kernels'
+    launches over the run, its wall and the slice's host seconds."""
+    from repro_torch.serving import Request
+    if warmup is not None:
+        eng.serve_batch([Request(query=warmup)])
+    _reset_launches()
+    for k in eng.ctx_host_s:
+        eng.ctx_host_s[k] = 0.0
+    t0 = time.perf_counter()
+    resp = []
+    for b in batches:
+        resp += eng.serve_batch(b)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"eng": eng, "resp": resp, "launches": _launches(),
+            "batches": len(batches), "wall_s": wall,
+            "wall_per_batch_s": wall / len(batches),
+            "host_s": dict(eng.ctx_host_s)}
+
+
+def _flags(r) -> tuple:
+    return (r.cached, r.answer, r.context, r.near_hit, r.degraded,
+            bool(r.error))
+
+
+def _ctx_twins(torch, wl, batches, where: str, make_kw, *,
+               kernel="cosine_topk", warmup=None) -> tuple[dict, dict]:
+    """One engine on the card and its twin on the CPU over ``batches``,
+    each built with ``make_kw()``'s features: decisions, answers and flags
+    identical, scores within 1e-5, device counters and summaries equal;
+    ``kernel`` launched once a batch on the card, nothing on the CPU."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = _ctx_engine(torch, wl, device, **make_kw())
+        runs[device] = _ctx_serve(torch, eng, batches, warmup)
+    card, cpu = runs["cuda"], runs["cpu"]
+    _expect_launches(card["launches"], {kernel: card["batches"]},
+                     f"{where} on the card")
+    _expect_launches(cpu["launches"], {}, f"{where} on the CPU")
+    for i, (x, y) in enumerate(zip(card["resp"], cpu["resp"])):
+        if _flags(x) != _flags(y):
+            fail(f"{where}: request {i} differs card vs CPU: {x} vs {y}")
+        if not (x.score == y.score or abs(x.score - y.score) <= 1e-5):
+            fail(f"{where}: request {i} score {x.score} vs {y.score}")
+    ce, pe = card["eng"], cpu["eng"]
+    if ce.stats.host() != pe.stats.host():
+        fail(f"{where}: counters {ce.stats.host()} vs CPU {pe.stats.host()}")
+    cs, ps = ce.metrics.summary(), pe.metrics.summary()
+    for key in ("categories", "context", "near", "resilience"):
+        if cs[key] != ps[key]:
+            fail(f"{where}: summary[{key!r}] differs from the CPU")
+    return card, cpu
+
+
+def _ctx_numbers(run) -> dict:
+    host = run["host_s"]
+    return {"batches": run["batches"], "wall_s": run["wall_s"],
+            "wall_per_batch_s": run["wall_per_batch_s"], "host_s": host,
+            "slice_host_s_per_batch": sum(host[k] for k in CTX_HOST)
+            / run["batches"],
+            "embed_s_per_batch": host["_embed"] / run["batches"],
+            "launches": {k: v for k, v in run["launches"].items() if v}}
+
+
+def _rings_within(card_eng, cpu_eng, tol, where) -> float:
+    """The session rings (canonical fused keys) card vs CPU."""
+    import numpy as np
+    a, b = card_eng.sessions._sessions, cpu_eng.sessions._sessions
+    if list(a) != list(b):
+        fail(f"{where}: the session stores differ card vs CPU")
+    err = max((float(np.abs(a[k].ring - b[k].ring).max()) for k in a),
+              default=0.0)
+    if not err <= tol:
+        fail(f"{where}: fused keys differ card vs CPU by {err}")
+    return err
+
+
+def _mixed_batches(wl):
+    """Record then replay, turn level by turn level: each level's 16
+    session rows in one batch of 128 filled with the next stateless
+    requests of the main workload; the rest of it in batches of 128."""
+    from repro_torch.serving import turn_levels
+    convs, reqs = wl["convs"], wl["reqs"]
+    levels = turn_levels(convs[:CTX_GROUPS]) + turn_levels(convs[CTX_GROUPS:])
+    batches, k = [], 0
+    for level in levels:
+        fill = 128 - len(level)
+        batches.append(list(level) + reqs[k:k + fill])
+        k += fill
+    batches += [reqs[i:i + 128] for i in range(k, len(reqs), 128)]
+    return batches
+
+
+def _session_tcp_line(eng) -> dict:
+    """One TCP line with a ``session`` to ``serve_tcp`` on loopback."""
+    import asyncio
+    from repro_torch.serving import AsyncCacheServer, SchedulerConfig
+
+    async def client():
+        sched = SchedulerConfig(max_batch=128, max_wait_ms=5.0)
+        async with AsyncCacheServer(eng, sched) as server:
+            port = await server.serve_tcp("127.0.0.1", 0)
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(json.dumps({"id": 1, "query": "and what about it",
+                                     "session": "tcp-session"}).encode()
+                         + b"\n")
+            await writer.drain()
+            line = json.loads(await asyncio.wait_for(reader.readline(), 60))
+            writer.close()
+            await writer.wait_closed()
+            return line
+    return asyncio.run(client())
+
+
+def _sessions_async(torch, wl, device) -> dict:
+    """The conversations through ``AsyncCacheServer`` by ``run_sessions``
+    (CTX_CLIENTS clients): all recordings, then all replays."""
+    import asyncio
+    from repro_torch.context import DecayMeanFusion
+    from repro_torch.serving import (AsyncCacheServer, SchedulerConfig,
+                                     run_sessions)
+    eng = _ctx_engine(torch, wl, device, judge=wl["ctx_judge"],
+                      fusion=DecayMeanFusion(window=4))
+    convs = wl["convs"]
+
+    async def drive():
+        sched = SchedulerConfig(max_batch=128, max_wait_ms=5.0)
+        async with AsyncCacheServer(eng, sched) as server:
+            out = []
+            for part in (convs[:CTX_GROUPS], convs[CTX_GROUPS:]):
+                res = await run_sessions(server.submit_request, part,
+                                         concurrency=CTX_CLIENTS)
+                out += res.responses
+            return out, server.scheduler.batches_served
+    _reset_launches()
+    t0 = time.perf_counter()
+    resp, batches = asyncio.run(drive())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"eng": eng, "resp": resp, "batches": batches,
+            "launches": _launches(), "wall_s": wall,
+            "wall_per_batch_s": wall / batches,
+            "host_s": dict(eng.ctx_host_s)}
+
+
+def phase_serve_context(torch, sync: dict) -> dict:
+    """Sessions, the near-hit band and resilience at the main configuration
+    (``launch.serve`` defaults), each engine on the card and again on the
+    CPU, compared request by request. Returns the card's launches of the
+    cosine kernels over the phase."""
+    import numpy as np
+    from repro_torch.context import AttentionFusion, DecayMeanFusion
+    from repro_torch.generative import BandPolicy, TemplateSplice
+    from repro_torch.serving import (CircuitBreaker, FaultSchedule,
+                                     FaultWindow, FaultyBackend,
+                                     ResilienceConfig, RetryPolicy,
+                                     SimulatedLLMBackend, availability,
+                                     build_multi_turn_workload, turn_levels)
+    wl = _ctx_workload()
+    reqs = wl["reqs"]
+    main_batches = [reqs[i:i + 128] for i in range(0, len(reqs), 128)]
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(run):
+        for name, n in run["launches"].items():
+            launches[name] += n
+
+    # 1a. stateless traffic through a fusion engine: the main run, bit for
+    #     bit (every window is empty, so every key passes through)
+    card, cpu = _ctx_twins(torch, wl, main_batches, "sessions, stateless",
+                           lambda: dict(fusion=DecayMeanFusion(window=4)))
+    count(card)
+    for i, (x, y) in enumerate(zip(card["resp"], sync["responses"])):
+        if (x.cached, x.answer, x.score) != (y.cached, y.answer, y.score) \
+                or x.context:
+            fail(f"sessions, stateless: request {i} differs from the main "
+                 f"run: {x} vs {y}")
+    if card["eng"].stats.host() != sync["stats"] or \
+            card["eng"].metrics.summary()["categories"] != sync["categories"]:
+        fail("sessions, stateless: counters or Table 1 differ from the "
+             "main run")
+    emit("serve_context", check="stateless traffic through DecayMeanFusion "
+         "equals the main run bit for bit", **_ctx_numbers(card))
+
+    # 1b. mixed traffic: the turn levels in batches filled with the main
+    #     workload, fused (two strategies) and stateless
+    mixed = _mixed_batches(wl)
+    rates, sync_ctx = {}, None
+    for tag, fusion in (("decay", DecayMeanFusion(window=4)),
+                        ("attention", AttentionFusion(window=4)),
+                        ("stateless", None)):
+        card, cpu = _ctx_twins(torch, wl, mixed, f"sessions, {tag}",
+                               lambda: dict(judge=wl["ctx_judge"],
+                                            fusion=fusion))
+        count(card)
+        cats = card["eng"].metrics.summary()["categories"]
+        rep = cats["ctx/followup_repeat"]
+        rates[tag] = {"hits": rep["cache_hits"], "lookups": rep["lookups"],
+                      "hit_rate": rep["hit_rate"],
+                      "positive_rate": rep["positive_rate"]}
+        err = None
+        if fusion is not None:
+            err = _rings_within(card["eng"], cpu["eng"], 1e-5,
+                                f"sessions, {tag}")
+        if tag == "decay":
+            sync_ctx = rep["cache_hits"]
+        emit("serve_context", check=f"mixed traffic, {tag}",
+             followup_repeat=rates[tag], fused_key_max_err=err,
+             context=card["eng"].metrics.summary()["context"],
+             **_ctx_numbers(card))
+        del card, cpu
+    if rates["stateless"]["hits"] != 0 or not all(
+            rates[t]["hits"] > 0 for t in ("decay", "attention")):
+        fail(f"sessions: fused replays must hit where stateless ones do "
+             f"not: {rates}")
+
+    # 1c. the same conversations through the async front end
+    runs = {d: _sessions_async(torch, wl, d) for d in ("cuda", "cpu")}
+    a, b = runs["cuda"], runs["cpu"]
+    _expect_launches(a["launches"], {"cosine_topk": a["batches"]},
+                     "sessions, async (a launch a batch)")
+    for i, (x, y) in enumerate(zip(a["resp"], b["resp"])):
+        if _flags(x) != _flags(y) or (
+                x.cached and abs(x.score - y.score) > 1e-5):
+            fail(f"sessions, async: request {i} differs card vs CPU")
+    hits = a["eng"].metrics.summary()["categories"][
+        "ctx/followup_repeat"]["cache_hits"]
+    if hits != sync_ctx:
+        fail(f"sessions, async: {hits} follow-up replay hits, the sync "
+             f"turn-level run {sync_ctx}")
+    line = _session_tcp_line(a["eng"])
+    if "context" not in line or "answer" not in line:
+        fail(f"sessions, TCP: {line}")
+    count(a)
+    emit("serve_context", check="sessions through run_sessions equal the "
+         "sync run's replay hits; a TCP session line", followup_repeat_hits=
+         hits, tcp_line=line, **_ctx_numbers(a))
+    del runs, a, b
+
+    # 1d. sessions over four tenants (the interval kernel)
+    names = [f"tenant-{i}" for i in range(TENANTS)]
+    tconvs = build_multi_turn_workload(wl["pairs"], CTX_GROUPS,
+                                       turns=CTX_TURNS, tenants=names,
+                                       seed=23)
+    levels = turn_levels(tconvs[:CTX_GROUPS]) + \
+        turn_levels(tconvs[CTX_GROUPS:])
+    twl = dict(wl, convs=tconvs)
+    card, cpu = _ctx_twins(
+        torch, twl, levels, "sessions, four tenants",
+        lambda: dict(judge=_ctx_judge(wl["pairs"], tconvs), tenants=TENANTS,
+                     fusion=DecayMeanFusion(window=4)),
+        kernel="cosine_topk_interval")
+    count(card)
+    err = _rings_within(card["eng"], cpu["eng"], 1e-5,
+                        "sessions, four tenants")
+    rep = card["eng"].metrics.summary()["categories"]["ctx/followup_repeat"]
+    if card["eng"].tenant_stats() != cpu["eng"].tenant_stats() or \
+            rep["cache_hits"] == 0:
+        fail(f"sessions, four tenants: {rep}")
+    emit("serve_context", check="sessions over four tenants",
+         followup_repeat=rep, fused_key_max_err=err, **_ctx_numbers(card))
+    del card, cpu
+
+    # 2. the near-hit band against the main run
+    card, cpu = _ctx_twins(
+        torch, wl, main_batches, "near-hit band",
+        lambda: dict(synthesizer=TemplateSplice(rival_margin=0.12),
+                     policy=BandPolicy(tau_lo=0.75, tau_hi=0.8)))
+    count(card)
+    for i, (x, y) in enumerate(zip(card["resp"], sync["responses"])):
+        if y.cached and (x.answer, x.score, x.cached) != \
+                (y.answer, y.score, y.cached):
+            fail(f"near-hit band: exact row {i} differs from the main run: "
+                 f"{x} vs {y}")
+    ce, pe = card["eng"], cpu["eng"]
+    band = np.abs(ce.policy_state.cpu().numpy()
+                  - pe.policy_state.numpy()).max()
+    if not band <= BAND_TOL:
+        fail(f"near-hit band: band state card vs CPU differs by {band}")
+    near = ce.metrics.summary()["near"]
+    emit("serve_context", check="near-hit band; exact rows equal the main "
+         "run", near=near, backend_calls=ce.backend.calls,
+         backend_calls_saved=sync["calls"] - ce.backend.calls,
+         band_state=ce.policy_state.cpu().tolist(), band_state_err=float(
+             band), **_ctx_numbers(card))
+    del card, cpu, ce, pe
+
+    # 3. resilience behind the fault schedule of paper_tables'
+    #    resilience_table, then with an empty schedule
+    def schedule():
+        return FaultSchedule(windows=(
+            FaultWindow("error", 2, 7),
+            FaultWindow("brownout", 8, 11, error_rate=0.5),
+            FaultWindow("latency_spike", 11, 13, extra_latency_s=0.02),
+        ), seed=5)
+
+    def config():
+        return ResilienceConfig(
+            retry=RetryPolicy(max_attempts=3, base_backoff_s=0.001,
+                              max_backoff_s=0.002, seed=3),
+            breaker=CircuitBreaker(failure_threshold=3, window=8,
+                                   cooldown_s=0.0),
+            sleep=lambda s: None)
+
+    avail = {}
+    for tag, on in (("off", False), ("on", True)):
+        card, cpu = _ctx_twins(
+            torch, wl, main_batches, f"resilience {tag}",
+            lambda: dict(backend=FaultyBackend(
+                SimulatedLLMBackend(wl["pairs"]), schedule()),
+                policy=BandPolicy(0.70, 0.80, degraded_lo=0.60),
+                resilience=config() if on else None),
+            warmup="resilience warmup")
+        count(card)
+        ce = card["eng"]
+        avail[tag] = availability(card["resp"])
+        br = ce.resilience.breaker if ce.resilience else None
+        emit("serve_context", check=f"resilience {tag}",
+             availability=avail[tag],
+             faults_injected=ce.backend.faults_injected,
+             degraded=sum(r.degraded for r in card["resp"]),
+             errors=sum(bool(r.error) for r in card["resp"]),
+             resilience=ce.metrics.summary()["resilience"],
+             breaker=None if br is None else {
+                 "trips": br.trips, "recoveries": br.recoveries,
+                 "short_circuits": br.short_circuits, "state": br.state},
+             **_ctx_numbers(card))
+        del card, cpu, ce
+    if not avail["on"] > avail["off"]:
+        fail(f"resilience: availability on {avail['on']} is not above off "
+             f"{avail['off']}")
+    card, cpu = _ctx_twins(
+        torch, wl, main_batches, "resilience, no faults",
+        lambda: dict(backend=FaultyBackend(SimulatedLLMBackend(wl["pairs"]),
+                                           FaultSchedule()),
+                     resilience=config()))
+    count(card)
+    for i, (x, y) in enumerate(zip(card["resp"], sync["responses"])):
+        if _flags(x) != _flags(y) or x.score != y.score:
+            fail(f"resilience, no faults: request {i} differs from the main "
+                 f"run: {x} vs {y}")
+    if card["eng"].stats.host() != sync["stats"]:
+        fail("resilience, no faults: counters differ from the main run")
+    emit("serve_context", check="resilience on, no faults: the main run "
+         "byte for byte", **_ctx_numbers(card))
+    return launches
+
+
 def _time(torch, fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -2557,7 +3014,10 @@ def main() -> None:
     for name, err in quant_err.items():
         max_err[name] = max(max_err[name], err)
     phase_serve_async(torch, sync)
+    ctx_launches = phase_serve_context(torch, sync)
     del sync
+    for name in ("cosine_topk", "cosine_topk_interval"):
+        launches[name] += ctx_launches[name]
     timing = phase_timing(torch, card)
     model = phase_model(torch, card, hits)
     for mod in ("jax", "repro"):

@@ -25,8 +25,19 @@ PartitionMap``) splits the slab into disjoint per-tenant regions. A per-row
 ``tenant_id`` tensor restricts every lookup to its row's own region (per-row
 interval operands, the interval kernel on CUDA) and routes every insert
 into its row's own ring, so cross-tenant hits are impossible by
-construction and one batch may mix tenants freely. Context fusion arrives
-with the sessions slice.
+construction and one batch may mix tenants freely.
+
+Multi-turn context: an optional ``fusion`` plugin (``repro_torch.context.
+ContextFusion``) pools each row's session turn window — a ``(B, W, d)``
+tensor and a ``(B,)`` length vector — into the lookup key before the
+search and before the insert, so the slab keys are dialogue-state
+embeddings. Rows with an empty window pass through bit-identically.
+Fusion weights live in the runtime's ``fusion`` leaf group.
+
+Near-hit band: a policy with a ``near`` method (``repro_torch.generative.
+BandPolicy``) marks the rows scoring in [τ_lo, τ_hi) in
+``LookupResult.near``; a tenant's ``band_lo`` override replaces τ_lo for
+its rows, and ``update_band`` feeds judged near-hit outcomes back.
 """
 from __future__ import annotations
 
@@ -92,7 +103,7 @@ class SemanticCache:
     index: Any = None          # Index protocol plugin (None -> ExactIndex)
     policy: Any = None         # Policy protocol plugin (None -> FixedThreshold)
     partition: Any = None      # PartitionMap for multi-tenant regions
-    fusion: Any = None         # context fusion: the sessions slice
+    fusion: Any = None         # ContextFusion plugin for session windows
 
     def __post_init__(self):
         if self.partition is not None:
@@ -106,9 +117,6 @@ class SemanticCache:
                 raise ValueError(
                     "tenant partitioning currently supports ring eviction "
                     f"only (got {self.config.eviction!r})")
-        if self.fusion is not None:
-            raise NotImplementedError(
-                "context fusion arrives with the sessions slice")
         if self.index is None:
             object.__setattr__(self, "index", ExactIndex(topk=self.config.topk))
         if self.policy is None:
@@ -119,7 +127,7 @@ class SemanticCache:
     def init(self, device: str | torch.device = "cuda") -> CacheRuntime:
         """Fresh runtime on ``device``: empty slab, zero counters, initial
         policy and index state (and per-tenant ring pointers and counters
-        when partitioned)."""
+        when partitioned, fusion weights when context-fused)."""
         dev = resolve_device(device)
         return CacheRuntime(
             state=init_cache_state(self.config, dev),
@@ -128,7 +136,25 @@ class SemanticCache:
             index_state=self.index.init(self.config, dev),
             tenancy=None if self.partition is None
             else TenancyState.zeros(len(self.partition), dev),
+            fusion=None if self.fusion is None
+            else self.fusion.init_state(dev),
         )
+
+    # -- context fusion (no-op when fusion is None) ------------------------
+    def _maybe_fuse(self, runtime: CacheRuntime, queries: torch.Tensor,
+                    window: torch.Tensor | None,
+                    window_len: torch.Tensor | None) -> torch.Tensor:
+        """Pool each row's turn window into its lookup key.
+        ``window=None`` (or a fusion-less cache) is the stateless path:
+        queries unchanged."""
+        if self.fusion is None or window is None:
+            return queries
+        if window_len is None:
+            raise ValueError("window without window_len")
+        return self.fusion.fuse(
+            runtime.fusion, queries, window,
+            torch.as_tensor(window_len, dtype=torch.int32,
+                            device=queries.device))
 
     # -- tenancy helpers (no-ops when partition is None) -------------------
     def _require_tenants(self, tenant_id, device: torch.device
@@ -179,24 +205,38 @@ class SemanticCache:
 
     # -- near-hit band (all-False unless the policy defines one) -----------
     def _near_mask(self, hit: torch.Tensor, score: torch.Tensor,
-                   pstate: torch.Tensor) -> torch.Tensor:
-        """[τ_lo, τ_hi) band membership per row; all-False on a band-less
-        policy, which is every policy ported so far."""
+                   tenant_id: torch.Tensor | None, pstate: torch.Tensor
+                   ) -> torch.Tensor:
+        """[τ_lo, τ_hi) band membership per row, or all-False on a band-less
+        policy. ``& ~hit`` makes the upper edge the effective hit edge,
+        per-tenant τ_hi overrides included, and a per-tenant ``band_lo``
+        override (negative = none) replaces the lower edge."""
         if not hasattr(self.policy, "near"):
             return torch.zeros_like(hit)
-        return self.policy.near(score, pstate) & ~hit & (score > float("-inf"))
+        near = self.policy.near(score, pstate)
+        if tenant_id is not None:
+            lo = self.partition.band_lo_array(tenant_id.device)[
+                tenant_id.to(torch.int64)]
+            near = torch.where(lo >= 0.0, score >= lo, near)
+        return near & ~hit & (score > float("-inf"))
 
     # -- lookup (paper §2.5 step 1) ----------------------------------------
     def lookup(self, runtime: CacheRuntime, queries: torch.Tensor, now, *,
                update_counters: bool = True,
                tenant_id: torch.Tensor | None = None,
+               window: torch.Tensor | None = None,
+               window_len: torch.Tensor | None = None,
                comm: _LocalComm = LOCAL_COMM
                ) -> tuple[LookupResult, CacheRuntime]:
         """Search + threshold decision. ``update_counters=False`` is a pure
         peek (no LRU touch, no stats, no policy-state commit): the engine
         uses it to learn the miss set before the fused ``step``. On a
         partitioned cache ``tenant_id`` (B,) is required and each row
-        searches only its tenant's region."""
+        searches only its tenant's region. On a context-fused cache
+        ``window`` (B, W, d) and ``window_len`` (B,) carry each row's
+        session turns and the search key is the fused embedding; rows with
+        ``window_len == 0`` search on the raw query."""
+        queries = self._maybe_fuse(runtime, queries, window, window_len)
         state, stats = runtime.state, runtime.stats
         tenant_id = self._require_tenants(tenant_id, state.keys.device)
         b = queries.shape[0]
@@ -216,7 +256,8 @@ class SemanticCache:
         if tenant_id is not None:
             hit = self._apply_threshold_overrides(hit, best_score, tenant_id)
         hit = hit & (best_score > float("-inf"))
-        near = self._near_mask(hit, best_score, runtime.policy_state)
+        near = self._near_mask(hit, best_score, tenant_id,
+                               runtime.policy_state)
 
         values, value_lens, src = comm.fetch_best(state, top_i[:, 0])
         result = LookupResult(
@@ -318,6 +359,19 @@ class SemanticCache:
                                     was_positive=was_positive, was_hit=was_hit)
         return runtime.replace(policy_state=pstate)
 
+    def update_band(self, runtime: CacheRuntime, *,
+                    was_positive: torch.Tensor, was_near: torch.Tensor
+                    ) -> CacheRuntime:
+        """Judged synthesized-answer outcomes into the band edge, the
+        near-hit analogue of ``update_policy``; a no-op on a band-less
+        policy."""
+        if not hasattr(self.policy, "update_band"):
+            return runtime
+        pstate = self.policy.update_band(
+            runtime.policy_state, was_positive=was_positive,
+            was_near=was_near)
+        return runtime.replace(policy_state=pstate)
+
     # -- fused serve-side step (DESIGN.md §7) -------------------------------
     def commit(self, runtime: CacheRuntime, peeked: LookupResult, now, *,
                valid: torch.Tensor | None = None,
@@ -336,7 +390,8 @@ class SemanticCache:
             hit = self._apply_threshold_overrides(hit, peeked.score,
                                                   tenant_id)
         hit = hit & (peeked.score > float("-inf"))
-        near = self._near_mask(hit, peeked.score, runtime.policy_state)
+        near = self._near_mask(hit, peeked.score, tenant_id,
+                               runtime.policy_state)
         if valid is None:
             n_lookups = peeked.score.shape[0]
         else:
@@ -358,6 +413,8 @@ class SemanticCache:
              peeked: LookupResult | None = None,
              valid: torch.Tensor | None = None,
              tenant_id: torch.Tensor | None = None,
+             window: torch.Tensor | None = None,
+             window_len: torch.Tensor | None = None,
              comm: _LocalComm = LOCAL_COMM
              ) -> tuple[LookupResult, CacheRuntime]:
         """Lookup, then insert exactly the missed queries' fresh responses.
@@ -368,7 +425,10 @@ class SemanticCache:
         search: the slab is searched once per batch. ``valid`` marks the
         real rows of a padded batch: padding rows neither count nor get
         inserted. ``tenant_id`` (required when partitioned) may mix tenants
-        in any proportion."""
+        in any proportion. ``window``/``window_len`` (context-fused cache)
+        pool each row's session turns into its key once here: the same
+        fused key searches the slab and, on a miss, is the inserted key."""
+        queries = self._maybe_fuse(runtime, queries, window, window_len)
         if peeked is None and valid is None:
             result, runtime = self.lookup(runtime, queries, now,
                                           tenant_id=tenant_id, comm=comm)

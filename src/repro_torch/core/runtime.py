@@ -6,7 +6,8 @@ index state, so a serve step is a function ``runtime -> runtime`` and a
 checkpoint is ``save(runtime)``. Index and policy implementations are
 interchangeable behind the ``Index`` / ``Policy`` protocols; a stateless
 index (``ExactIndex``) carries an empty state, ``IVFIndex`` an ``IVFState``
-(centroids and bucket tables).
+(centroids and bucket tables); a context-fused cache adds its fusion
+weights.
 """
 from __future__ import annotations
 
@@ -73,16 +74,18 @@ class CacheRuntime:
 
     Leaves: ``state`` (the slab), ``stats`` (counters), ``policy_state``
     (threshold-policy state), ``index_state`` (empty for ExactIndex, an
-    ``IVFState`` for IVFIndex) and
+    ``IVFState`` for IVFIndex),
     ``tenancy`` (per-tenant ring pointers and counters, a
-    ``TenancyState``; ``None`` for a single-tenant cache). The JAX
-    runtime's ``fusion`` group arrives with the sessions slice."""
+    ``TenancyState``; ``None`` for a single-tenant cache) and ``fusion``
+    (context-fusion weights, a ``FusionState``; ``None`` for a single-turn
+    cache)."""
 
     state: CacheState
     stats: CacheStats
     policy_state: torch.Tensor
     index_state: Any
     tenancy: Any = None
+    fusion: Any = None
 
     def replace(self, **kw) -> "CacheRuntime":
         return dataclasses.replace(self, **kw)

@@ -113,8 +113,8 @@ class LookupResult:
     source_id: torch.Tensor   # (B,) int32 provenance of the matched entry
     topk_index: torch.Tensor  # (B, k) int32
     topk_score: torch.Tensor  # (B, k) float32
-    near: torch.Tensor        # (B,) bool near-hit band — always False until
-                              # a band policy is ported
+    near: torch.Tensor        # (B,) bool near-hit band [τ_lo, τ_hi) — all
+                              # False on a band-less policy
 
 
 @dataclasses.dataclass

@@ -38,29 +38,49 @@ records one structured event per batch with its ``CacheStats`` delta, and
 ``why`` record, built from host copies taken before the step updates the
 slab in place.
 
-A failed backend call marks only its own rows (DESIGN.md §20.2): they get
-``Response.error`` and stay out of the slab and every counter, and hit rows
-of the same batch are served. Sessions (``fusion``), near-hit synthesis
-(``synthesizer``), the rest of resilience (``resilience``: retries, the
-breaker, degraded serving) and the sharded cache (``mesh``) arrive with
-later slices; each raises NotImplementedError until then. Without them,
-responses and ``metrics.summary()`` match the JAX engine's request by
-request.
+Multi-turn sessions (DESIGN.md §16): with a ``ContextFusion`` strategy
+the engine keeps a ``SessionStore`` and pools each session row's window of
+prior turn keys into its lookup key. The window is built in numpy and moved
+to the device once a batch; the key is fused once a batch, and that one
+fused key is searched, inserted and appended to the session (the canonical
+key: the matched entry's stored key on a hit, the fused key on a miss).
+Sessionless and pad rows pass through bit-identically.
+
+Generative near-hits (DESIGN.md §17): with a ``Synthesizer`` (and a band
+policy, ``BandPolicy(tau_hi=threshold)`` by default) rows scoring in
+[τ_lo, τ_hi) are offered their top-k neighbours (one device-to-host copy a
+batch) instead of a backend call. Converted rows are inserted under their
+own key with the dominant neighbour's provenance, judged like hits, and
+fed back into the band's lower edge.
+
+Resilience (DESIGN.md §20): a failed backend call marks only its own rows:
+they get ``Response.error`` and stay out of the slab and every counter, and
+hit rows of the same batch are served. With a ``ResilienceConfig`` the miss
+path gains deadline budgets, retries with deterministic backoff, a circuit
+breaker, and degraded serving of the best cached neighbour above a relaxed
+floor (never admitted to the slab, never fed to the threshold or band).
+The sharded cache (``mesh``) arrives with a later slice and raises
+NotImplementedError until then. Responses and ``metrics.summary()`` match
+the JAX engine's request by request.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.context.session import SessionStore
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.embedding.hash_embedder import HashEmbedder
+from repro_torch.generative.policy import BandPolicy
+from repro_torch.generative.synthesize import Neighbour
 from repro_torch.obs.explain import build_why, effective_edges
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving.metrics import ServingMetrics
@@ -100,11 +120,14 @@ class Response:
     why: dict | None = None   # decision attribution; only set when the
                               # request opted in via Request.explain or the
                               # engine forces explain_responses=True
-    degraded: bool = False    # served from a cached neighbour because the
-                              # backend was unavailable (resilience slice)
+    degraded: bool = False    # served from the best cached neighbour under
+                              # the relaxed degraded floor because the
+                              # backend was unavailable or the budget spent;
+                              # never admitted to the slab
     error: str = ""           # non-empty when this row's backend call
-                              # failed; the async scheduler turns it into
-                              # a per-row BackendError
+                              # failed and no degraded answer was servable;
+                              # the async scheduler turns it into a per-row
+                              # BackendError
 
 
 #: Row used to right-pad a partial batch up to the engine's fixed batch
@@ -134,14 +157,6 @@ class Batcher:
         return list(batch) + [PAD_REQUEST] * (self.batch_size - n), n
 
 
-_LATER = {
-    "fusion": "the sessions slice",
-    "synthesizer": "the near-hit slice",
-    "resilience": "the resilience slice",
-    "mesh": "the sharded-cache slice",
-}
-
-
 class CachedEngine:
     def __init__(self, cache_config: CacheConfig, backend, *,
                  embedder: HashEmbedder | None = None,
@@ -154,6 +169,8 @@ class CachedEngine:
                  use_fused_step: bool = True,
                  registry=None,
                  fusion=None,
+                 session_ttl_s: float | None = 1800.0,
+                 max_sessions: int = 4096,
                  synthesizer=None,
                  tracer: Tracer | None = None,
                  events=None,
@@ -172,17 +189,23 @@ class CachedEngine:
         # Tracer, whose hooks allocate nothing. ``events``: optional
         # repro_torch.obs.EventLog, one event per serve step.
         # ``explain_responses``: a ``why`` record on every response.
+        # ``fusion``: optional ContextFusion strategy; attaches a
+        # SessionStore (TTL ``session_ttl_s`` on the engine's tick clock,
+        # LRU-capped at ``max_sessions``). ``synthesizer``: optional
+        # near-hit Synthesizer; without a ``policy`` the policy becomes
+        # BandPolicy(tau_hi=threshold). ``resilience``: optional
+        # ResilienceConfig (retries, breaker, degraded serving); None = one
+        # backend attempt whose failure marks only its own rows.
         # ``device``: where the slab lives and the search runs; "cuda"
         # raises when CUDA is absent.
-        given = dict(fusion=fusion, synthesizer=synthesizer,
-                     resilience=resilience, mesh=mesh)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"CachedEngine({name}=...) arrives with {_LATER[name]}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "CachedEngine(mesh=...) arrives with the sharded-cache slice")
+        if synthesizer is not None and policy is None:
+            policy = BandPolicy(tau_hi=cache_config.threshold)
         # read by the scheduler, the server and the exporter
-        self.synthesizer = None
-        self.resilience = None
+        self.synthesizer = synthesizer
+        self.resilience = resilience
         self.registry = registry
         partition = None
         if registry is not None:
@@ -204,8 +227,17 @@ class CachedEngine:
                 f"size ({batch_size}); grow the slab")
         self.device = resolve_device(device)
         self.cache = SemanticCache(cache_config, policy=policy, index=index,
-                                   partition=partition)
+                                   partition=partition, fusion=fusion)
+        self.fusion = fusion
+        self.sessions = None
+        if fusion is not None:
+            self.sessions = SessionStore(
+                window=fusion.window, dim=cache_config.dim,
+                ttl=session_ttl_s, max_sessions=max_sessions)
         self.runtime: CacheRuntime = self.cache.init(self.device)
+        # int8 slab keys dequantize by a device-tensor divisor: CUDA turns a
+        # division by a Python scalar into a reciprocal multiply
+        self._int8_unit = torch.full((), 127.0, device=self.device)
         self.use_fused_step = use_fused_step
         self.rebuild_every = rebuild_every
         self._inserts_since_rebuild = 0
@@ -266,8 +298,8 @@ class CachedEngine:
 
     # ------------------------------------------------------------------ #
     def save_cache(self, path: str) -> None:
-        """Persist the whole runtime (slab, counters, policy, index and
-        tenancy state) in the JAX package's snapshot format. The manifest
+        """Persist the whole runtime (slab, counters, policy, index, tenancy
+        and fusion state) in the JAX package's snapshot format. The manifest
         records the partition map, which a restore must match."""
         part = self.cache.partition
         checkpoint.save_checkpoint(
@@ -279,21 +311,24 @@ class CachedEngine:
                       "policy": type(self.cache.policy).__name__,
                       "partition": None if part is None
                       else part.manifest(),
-                      "fusion": None,
+                      "fusion": None if self.fusion is None
+                      else type(self.fusion).__name__,
                       "shard_layout": None})
 
     def load_cache(self, path: str) -> None:
         """Restore a snapshot taken by this engine or by the JAX one, and
         resume its TTL clock (expiries are absolute deadlines). A snapshot
         taken under another tenant layout is refused: its regions and ring
-        pointers would land on the wrong slots."""
+        pointers would land on the wrong slots. A snapshot with fusion
+        weights needs a fusion engine; a snapshot without them loads into a
+        fusion engine, which keeps its fresh fusion weights (raw
+        single-turn keys still match bit-identically)."""
         flat = checkpoint.open_checkpoint(path)
         meta = checkpoint.read_metadata(path)
-        for key in ("fusion", "shard_layout"):
-            if meta.get(key) is not None:
-                raise NotImplementedError(
-                    f"snapshot {path!r} carries {key} state, which this "
-                    "port does not restore yet")
+        if meta.get("shard_layout") is not None:
+            raise NotImplementedError(
+                f"snapshot {path!r} carries shard_layout state, which this "
+                "port does not restore yet")
         part = self.cache.partition
         current = None if part is None else part.manifest()
         if meta and meta.get("partition") != current:
@@ -304,7 +339,9 @@ class CachedEngine:
         restored = checkpoint.runtime_from_numpy(
             flat, self.cache.config, self.device,
             num_tenants=None if part is None else len(part),
-            index=self.cache.index)
+            index=self.cache.index, fused=self.fusion is not None)
+        if restored.fusion is None and self.runtime.fusion is not None:
+            restored = restored.replace(fusion=self.runtime.fusion)
         want = tuple(self.runtime.policy_state.shape)
         if tuple(restored.policy_state.shape) != want:
             raise ValueError(
@@ -387,7 +424,55 @@ class CachedEngine:
             out.extend(self.serve_batch(batch))
         return out
 
+    # -- sessions ------------------------------------------------------- #
+    def _session_windows(self, batch):
+        """Per-row session turn windows of a (possibly padded) batch.
 
+        Returns ``(window (B, W, d), window_len (B,), has_ctx)`` on the
+        engine's device, built in numpy and moved once; or
+        ``(None, None, [False]*B)`` on a fusion-less engine. Sessionless
+        and pad rows get a zero window of length 0, which the fusion op
+        passes through bit-identically."""
+        if self.sessions is None:
+            return None, None, [False] * len(batch)
+        win = np.zeros((len(batch), self.sessions.window_size,
+                        self.sessions.dim), dtype=np.float32)
+        wlen = np.zeros((len(batch),), dtype=np.int32)
+        for i, r in enumerate(batch):
+            if r is PAD_REQUEST or not r.session:
+                continue
+            win[i], wlen[i] = self.sessions.window_for(r.tenant, r.session,
+                                                        self._now)
+        return (self._tensor(win, torch.float32),
+                self._tensor(wlen, torch.int32), [bool(c) for c in wlen])
+
+    def _canonical_keys(self, result, keys: torch.Tensor) -> np.ndarray:
+        """(B, d) canonical slab key per row (§16.1), in one device-to-host
+        copy: the matched entry's stored key on a hit, the row's own fused
+        key ``keys`` (the very key the step inserted) on a miss. Read after
+        the step, as the reference does. Appending these, not raw
+        embeddings, makes two conversations in the same dialogue state
+        converge to identical turn windows."""
+        slab = self.runtime.state.keys
+        matched = slab[result.index.to(torch.int64)].to(torch.float32)
+        if slab.dtype == torch.int8:
+            matched = matched / self._int8_unit   # symmetric unit-row quant
+        return torch.where(result.hit[:, None], matched,
+                           keys).cpu().numpy()
+
+    def _append_turns(self, batch, n_valid: int, keys_np: np.ndarray,
+                      skip=()) -> None:
+        """Push each served session row's canonical turn key, after the
+        batch, so a turn never fuses into its own lookup. ``skip`` holds the
+        failed and degraded rows: they were not answered from the slab, so
+        their keys must not advance the session window."""
+        for i in range(n_valid):
+            r = batch[i]
+            if r.session and i not in skip:
+                self.sessions.append(r.tenant, r.session, keys_np[i],
+                                     self._now)
+
+    # -- the miss path -------------------------------------------------- #
     def _generate_misses(self, batch, miss_idx):
         """Backend call + tokenizer round-trip for the missed rows.
 
@@ -405,35 +490,196 @@ class CachedEngine:
                    for j, i in enumerate(miss_idx)}
         return toks, lens, answers, res.latency_s, res.cost_usd
 
+    def _split_expired(self, batch, miss_idx):
+        """Split the miss set into rows whose deadline budget is already
+        spent (straight to degraded serving) and rows still worth a backend
+        call. No-op without a resilience config."""
+        if self.resilience is None:
+            return {}, list(miss_idx)
+        failed: dict[int, str] = {}
+        gen_idx: list[int] = []
+        for i in miss_idx:
+            d = batch[i].deadline_ms
+            if d is not None and d <= 0.0:
+                self.metrics.resilience.deadline_exhausted += 1
+                failed[i] = ("DeadlineExhausted: budget spent before the "
+                             "backend call")
+            else:
+                gen_idx.append(i)
+        return failed, gen_idx
+
     def _resolve_misses(self, batch, miss_idx):
-        """One backend call for the miss rows, its failure contained to
-        them (DESIGN.md §20.2). Returns ``(result_tuple, None)`` on success
-        or ``(None, err_msg)`` when the call raised: the caller turns
-        ``err_msg`` into per-row error responses instead of failing the
-        whole batch, and counts the failure."""
-        try:
-            return self._generate_misses(batch, miss_idx), None
-        except Exception as exc:
-            self.metrics.resilience_seen = True
-            self.metrics.resilience.backend_failures += 1
-            return None, f"{type(exc).__name__}: {exc}"
+        """One backend resolution for the miss rows: containment + retries.
 
-    def _why_snapshot(self, result):
+        Returns ``(result_tuple, None)`` on success or ``(None, err_msg)``;
+        the caller turns ``err_msg`` into per-row degraded or error
+        responses instead of failing the whole batch. With a resilience
+        config the call is gated by the circuit breaker and retried under
+        the backoff and deadline-budget rules; without one it is a single
+        attempt whose failure is still contained to its own rows."""
+        r = self.resilience
+        rm = self.metrics.resilience
+        if r is None:
+            try:
+                return self._generate_misses(batch, miss_idx), None
+            except Exception as exc:
+                self.metrics.resilience_seen = True
+                rm.backend_failures += 1
+                return None, f"{type(exc).__name__}: {exc}"
+        budget_s = None
+        deadlines = [batch[i].deadline_ms for i in miss_idx
+                     if batch[i].deadline_ms is not None]
+        if deadlines:
+            # one call serves every miss row, so the tightest row's budget
+            # bounds the retry schedule of the whole set
+            budget_s = min(deadlines) / 1000.0
+        key = batch[miss_idx[0]].query
+        start = r.clock()
+        attempt = 0
+        while True:
+            if r.breaker is not None and not r.breaker.allow():
+                rm.breaker_short_circuits += 1
+                return None, ("BreakerOpen: circuit breaker is open; "
+                              "backend call short-circuited")
+            attempt += 1
+            try:
+                out = self._generate_misses(batch, miss_idx)
+            except Exception as exc:
+                if r.breaker is not None:
+                    r.breaker.record_failure()
+                rm.backend_failures += 1
+                delay = r.retry.backoff_s(attempt, key=key)
+                elapsed = r.clock() - start
+                if not r.retry.allows(attempt, elapsed_s=elapsed,
+                                      next_backoff_s=delay,
+                                      budget_s=budget_s):
+                    if (budget_s is not None
+                            and attempt < r.retry.max_attempts):
+                        rm.deadline_exhausted += 1
+                    return None, f"{type(exc).__name__}: {exc}"
+                rm.retries += 1
+                r.sleep(delay)
+                continue
+            if r.breaker is not None:
+                r.breaker.record_success()
+            if attempt > 1:
+                rm.retry_successes += 1
+            return out, None
+
+    def _degraded_floor(self) -> float:
+        """Relaxed score floor for degraded serving: the config's
+        ``degraded_band_lo`` wins, else the band policy's ``degraded_lo``,
+        else 0.55."""
+        r = self.resilience
+        if r is not None and r.degraded_band_lo is not None:
+            return float(r.degraded_band_lo)
+        dl = getattr(self.cache.policy, "degraded_lo", None)
+        return 0.55 if dl is None else float(dl)
+
+    def _neighbours(self, payload: dict, i: int, cols) -> list[Neighbour]:
+        return [Neighbour(slot=int(payload["slot"][i, j]),
+                          score=float(payload["score"][i, j]),
+                          source_id=int(payload["source_id"][i, j]),
+                          answer=self.tokenizer.decode(payload["values"][i, j]))
+                for j in cols]
+
+    def _serve_degraded(self, batch, failed, payload):
+        """Degraded-mode serving (§20.4): each failed miss row is offered
+        the best cached neighbour at or above the relaxed degraded floor —
+        synthesis first when a synthesizer is installed, else the dominant
+        neighbour's stored answer verbatim. Returns row -> (answer, score,
+        source_id). ``payload()`` gives the top-k neighbours on the host.
+        Served rows stay out of the slab (the caller clears their ``valid``
+        bits): a degraded answer is another entry's answer under the wrong
+        key."""
+        r = self.resilience
+        if r is None or not r.degraded_serving or not failed:
+            return {}
+        floor = self._degraded_floor()
+        rm = self.metrics.resilience
+        nb = payload()
+        out: dict[int, tuple[str, float, int]] = {}
+        for i in sorted(failed):
+            cand = [j for j in range(nb["slot"].shape[1])
+                    if nb["slot"][i, j] >= 0 and nb["score"][i, j] >= floor]
+            if not cand:
+                rm.degraded_failed += 1
+                continue
+            served = None
+            if self.synthesizer is not None:
+                syn = self.synthesizer.synthesize(
+                    batch[i].query, self._neighbours(nb, i, cand))
+                if syn is not None:
+                    served = (syn.answer, float(nb["score"][i, cand[0]]),
+                              int(syn.source_id))
+            if served is None:
+                j = cand[0]      # neighbours arrive score-descending
+                served = (self.tokenizer.decode(nb["values"][i, j]),
+                          float(nb["score"][i, j]),
+                          int(nb["source_id"][i, j]))
+            out[i] = served
+            rm.degraded_served += 1
+        return out
+
+    # -- near hits ------------------------------------------------------ #
+    def _topk_payload(self, result) -> dict[str, np.ndarray]:
+        """The top-k neighbours of every row on the host — slots, scores
+        (-inf where none), source ids and cached answers — in one
+        device-to-host copy. Taken before the step, which updates the slab
+        in place."""
+        p = self.cache.gather_topk(self.runtime, result)
+        vlen = p["values"].shape[-1]
+        packed = torch.cat(
+            [p["values"], p["source_id"][..., None],
+             result.topk_index.to(torch.int32)[..., None],
+             p["score"].view(torch.int32)[..., None]], dim=-1).cpu().numpy()
+        return {"values": packed[..., :vlen],
+                "source_id": packed[..., vlen],
+                "slot": packed[..., vlen + 1],
+                "score": np.ascontiguousarray(
+                    packed[..., vlen + 2]).view(np.float32)}
+
+    def _synthesize_near(self, batch, n_valid: int, near: np.ndarray,
+                         payload):
+        """Host-side near-hit synthesis (§17.3), shared by both serve paths.
+
+        Every band row ([τ_lo, τ_hi) score) is offered its visible top-k
+        neighbours (``payload()``). Returns ``(syn_by_row, syn_time,
+        syn_cost)``: row -> ``Synthesis`` for the rows converted; abstained
+        rows fall back to the backend call like any miss."""
+        if self.synthesizer is None or not near[:n_valid].any():
+            return {}, 0.0, 0.0
+        nb = payload()
+        syn_by_row: dict[int, object] = {}
+        syn_time = syn_cost = 0.0
+        for i in range(n_valid):
+            if not near[i]:
+                continue
+            cols = [j for j in range(nb["slot"].shape[1])
+                    if nb["slot"][i, j] >= 0]
+            syn = self.synthesizer.synthesize(
+                batch[i].query, self._neighbours(nb, i, cols))
+            if syn is not None:
+                syn_by_row[i] = syn
+                syn_time += syn.latency_s
+                syn_cost += syn.cost_usd
+        return syn_by_row, syn_time, syn_cost
+
+    # -- attribution ---------------------------------------------------- #
+    def _why_snapshot(self, payload):
         """Decision-time attribution snapshot: the policy state and the
-        top-k neighbours' slots, scores and source ids, copied to the host
-        BEFORE the step. The step updates the slab in place and the judged
-        feedback replaces the policy state, so a device reference kept
-        from here would show the values after the insert, not the ones the
-        decision was made under. ``np.array`` copies, also where the
-        tensor already lies on the CPU."""
-        payload = self.cache.gather_topk(self.runtime, result)
+        top-k neighbours' slots, scores and source ids, on the host BEFORE
+        the step. The step updates the slab in place and the judged
+        feedback replaces the policy state, so a device reference kept from
+        here would show the values after the insert."""
+        nb = payload()
         return (np.array(self.runtime.policy_state.cpu()),
-                {"slots": np.array(result.topk_index.cpu()),
-                 "scores": np.array(result.topk_score.cpu()),
-                 "source_ids": np.array(payload["source_id"].cpu())})
+                {"slots": nb["slot"], "scores": nb["score"],
+                 "source_ids": nb["source_id"]})
 
-    def _build_whys(self, batch, n_valid, hit, scores, matched_idx,
-                    matched_sid, near_row, why_ps, why_topk):
+    def _build_whys(self, batch, n_valid, hit, near_served, scores,
+                    matched_idx, matched_sid, near_row, has_ctx,
+                    syn_by_row, why_ps, why_topk):
         """Per-row ``why`` records for the rows that opted in."""
         edges_by_tenant: dict = {}
         whys: list = [None] * n_valid
@@ -446,31 +692,39 @@ class CachedEngine:
                 edges_by_tenant[tix] = effective_edges(
                     self.cache.policy, why_ps, self.cache.partition, tix)
             whys[i] = build_why(
-                i, request=batch[i], hit=bool(hit[i]), near_served=False,
-                score=float(scores[i]), matched_slot=int(matched_idx[i]),
+                i, request=batch[i], hit=bool(hit[i]),
+                near_served=bool(near_served[i]), score=float(scores[i]),
+                matched_slot=int(matched_idx[i]),
                 matched_source_id=int(matched_sid[i]),
                 topk_slots=why_topk["slots"][i],
                 topk_scores=why_topk["scores"][i],
                 topk_source_ids=why_topk["source_ids"][i],
-                edges=edges_by_tenant[tix], session_fused=False,
-                synthesizer_present=False, near_band=bool(near_row[i]),
-                synthesis_source_id=None)
+                edges=edges_by_tenant[tix],
+                session_fused=bool(has_ctx[i]),
+                synthesizer_present=self.synthesizer is not None,
+                near_band=bool(near_row[i]),
+                synthesis_source_id=(syn_by_row[i].source_id
+                                     if i in syn_by_row else None))
         return whys
 
     def explain(self, query: str, *, tenant: str = "default",
                 session: str = "") -> dict:
         """Offline decision attribution: what WOULD the cache do with
         ``query`` right now, and why? A pure peek: no counter moves,
-        nothing is inserted, no backend call is made (``dry_run`` marks
-        the record as a what-if)."""
+        nothing is inserted, no synthesis or backend call is made
+        (``in_band`` tells the near-hit story; ``dry_run`` marks the record
+        as a what-if). A ``session`` is looked up under its turn window,
+        as the reference does (which creates or touches the session)."""
         req = Request(query=query, tenant=tenant, session=session,
                       explain=True)
         batch, _ = self.batcher.pad([req])
+        win, wlen, has_ctx = self._session_windows(batch)
         peek, _ = self.cache.lookup(
             self.runtime, self._embed([r.query for r in batch]),
             np.float32(self._now), update_counters=False,
-            tenant_id=self._tenant_ids(batch))
-        why_ps, why_topk = self._why_snapshot(peek)
+            tenant_id=self._tenant_ids(batch), window=win, window_len=wlen)
+        why_ps, why_topk = self._why_snapshot(
+            lambda: self._topk_payload(peek))
         tix = None if self.registry is None else self._tenant_index[tenant]
         why = build_why(
             0, request=req, hit=bool(peek.hit[0]), near_served=False,
@@ -481,11 +735,12 @@ class CachedEngine:
             topk_source_ids=why_topk["source_ids"][0],
             edges=effective_edges(self.cache.policy, why_ps,
                                   self.cache.partition, tix),
-            session_fused=False, synthesizer_present=False,
+            session_fused=has_ctx[0], synthesizer_present=False,
             near_band=bool(peek.near[0]), synthesis_source_id=None)
         why["dry_run"] = True
         return why
 
+    # -- the serve path ------------------------------------------------- #
     def serve_batch(self, batch: list[Request], *,
                     record_path_latency: bool = True,
                     traces: list | None = None) -> list[Response]:
@@ -495,11 +750,11 @@ class CachedEngine:
         On the fused path a partial batch is right-padded to the fixed
         batch size; the ``valid`` mask keeps pad rows out of every counter,
         the judge, the metrics and the slab. Rows whose backend call failed
-        get ``Response.error`` and are kept out the same way.
+        (and degraded rows) are kept out the same way.
 
-        ``record_path_latency=False`` skips the per-request hit/miss
-        latency samples: the async scheduler records end-to-end (queue
-        wait + service) latencies itself.
+        ``record_path_latency=False`` skips the per-request path latency
+        samples: the async scheduler records end-to-end (queue wait +
+        service) latencies itself.
 
         ``traces`` is an optional per-row list of ``RequestTrace``s (the
         scheduler passes its entries' traces, already carrying their
@@ -510,6 +765,10 @@ class CachedEngine:
         is no stage clock and no per-request allocation.
         """
         n_valid = len(batch)
+        if self.resilience is not None:
+            # the resilience section shows in summaries before any fault
+            # (callers replace engine.metrics, so not in __init__)
+            self.metrics.resilience_seen = True
         clock = self.tracer.stage_clock()
         own_traces = False
         if clock is not None and traces is None:
@@ -529,107 +788,182 @@ class CachedEngine:
         cfg = self.cache.config
         n = len(batch)
         tid = self._tenant_ids(batch)
+        if self.sessions is not None:
+            # TTL sweep on every batch: an abandoned session dies on the
+            # next admission, not only when it is touched again
+            self.sessions.expire(self._now)
         t0 = time.perf_counter()
         emb = self._embed([r.query for r in batch])
+        win, wlen, has_ctx = self._session_windows(batch)
         if clock is not None:
             clock.tick("embed")
         now = np.float32(self._now)
         self._maybe_refit()
+        # the one fused key of this batch: searched, inserted and appended
+        keys = self.cache._maybe_fuse(self.runtime, emb, win, wlen)
 
         llm_time = 0.0
         llm_cost = 0.0
         answers: dict[int, str] = {}
-        failed: dict[int, str] = {}
         want_why = self.explain_all or any(
             batch[i].explain for i in range(n_valid))
         why_ps = why_topk = None
+        # the neighbours' one host copy, taken on first use and shared by
+        # attribution, synthesis and degraded serving; the slab does not
+        # change between the search and the step
+        payload = functools.cache(lambda: self._topk_payload(looked_up))
 
         if self.use_fused_step:
             # 1. pure peek: learn the miss set without committing any state
             #    (the only slab search this batch — step commits it, §7)
-            peek, _ = self.cache.lookup(self.runtime, emb, now,
-                                        update_counters=False, tenant_id=tid)
-            peek_hit = peek.hit.cpu().numpy()   # waits for the search
+            looked_up, _ = self.cache.lookup(self.runtime, keys, now,
+                                             update_counters=False,
+                                             tenant_id=tid)
+            # one copy; waits for the search
+            peek_hit, peek_near = torch.stack(
+                [looked_up.hit, looked_up.near]).cpu().numpy()
             cache_time = time.perf_counter() - t0
             if clock is not None:
                 clock.tick("device_step")
             if want_why:
-                why_ps, why_topk = self._why_snapshot(peek)
+                why_ps, why_topk = self._why_snapshot(payload)
+            # 1b. near-hit synthesis: band rows the synthesizer converts
+            #     skip the backend; abstained rows stay misses
+            syn_by_row, syn_time, syn_cost = self._synthesize_near(
+                batch, n_valid, peek_near, payload)
             if clock is not None:
-                clock.tick("near_synthesis")    # no synthesizer: empty
-            miss_idx = [i for i in range(n_valid) if not peek_hit[i]]
+                clock.tick("near_synthesis")
+            miss_idx = [i for i in range(n_valid)
+                        if not peek_hit[i] and i not in syn_by_row]
             # 2. backend answers the misses (paper §2.5 step 2); a failed
-            #    call marks only its own rows
+            #    call marks only its own rows, which fall to degraded
+            #    serving or an error row
             miss_values = np.zeros((n, cfg.value_len), dtype=np.int32)
             miss_lens = np.zeros((n,), dtype=np.int32)
-            if miss_idx:
-                out, err = self._resolve_misses(batch, miss_idx)
+            failed, gen_idx = self._split_expired(batch, miss_idx)
+            if gen_idx:
+                out, err = self._resolve_misses(batch, gen_idx)
                 if err is None:
                     toks, lens, answers, llm_time, llm_cost = out
-                    miss_values[miss_idx] = np.asarray(toks)
-                    miss_lens[miss_idx] = np.asarray(lens)
+                    miss_values[gen_idx] = np.asarray(toks)
+                    miss_lens[gen_idx] = np.asarray(lens)
                 else:
-                    failed = dict.fromkeys(miss_idx, err)
+                    failed.update(dict.fromkeys(gen_idx, err))
+            degraded = self._serve_degraded(batch, failed, payload)
             if clock is not None:
                 clock.tick("backend_call")
-            # failed rows are never admitted: a cleared valid bit drops
-            # them from the insert mask and every counter, like pad rows
+            # synthesized rows ride the same masked insert (the insert mask
+            # is ~hit, band rows included): the near-hit answer goes in
+            # under the query's own key with the dominant neighbour's
+            # source_id as provenance
+            sid_np = np.asarray([r.source_id for r in batch], dtype=np.int32)
+            if syn_by_row:
+                rows = sorted(syn_by_row)
+                stoks, slens = self.tokenizer.encode_batch(
+                    [syn_by_row[i].answer for i in rows], cfg.value_len)
+                miss_values[rows] = np.asarray(stoks)
+                miss_lens[rows] = np.asarray(slens)
+                for j, i in enumerate(rows):
+                    answers[i] = self.tokenizer.decode(stoks[j])
+                    sid_np[i] = syn_by_row[i].source_id
+            # failed and degraded rows are never admitted: a cleared valid
+            # bit drops them from the insert mask and every counter, like
+            # pad rows
             valid = np.zeros((n,), dtype=bool)
             valid[:n_valid] = True
             valid[list(failed)] = False
             # 3. one fused step: commit the peek + masked insert
             t1 = time.perf_counter()
             result, self.runtime = self.cache.step(
-                self.runtime, emb, self._tensor(miss_values, torch.int32),
+                self.runtime, keys, self._tensor(miss_values, torch.int32),
                 self._tensor(miss_lens, torch.int32), now,
-                source_id=self._tensor([r.source_id for r in batch],
-                                       torch.int32),
-                peeked=peek, valid=self._tensor(valid, torch.bool),
+                source_id=self._tensor(sid_np, torch.int32),
+                peeked=looked_up, valid=self._tensor(valid, torch.bool),
                 tenant_id=tid)
-            hit = result.hit.cpu().numpy()   # waits for the step
+            # one copy; waits for the step
+            hit, near_row = torch.stack(
+                [result.hit, result.near]).cpu().numpy()
             cache_time += time.perf_counter() - t1
             if clock is not None:
                 clock.tick("insert")
-            self._inserts_since_rebuild += len(miss_idx) - len(failed)
+            self._inserts_since_rebuild += \
+                len(miss_idx) - len(failed) + len(syn_by_row)
         else:
-            # reference path: counted lookup, then a subset insert
-            result, self.runtime = self.cache.lookup(self.runtime, emb, now,
-                                                     tenant_id=tid)
-            hit = result.hit.cpu().numpy()
+            # reference path: counted lookup, then a subset insert of the
+            # same fused keys
+            looked_up, self.runtime = self.cache.lookup(
+                self.runtime, keys, now, tenant_id=tid)
+            result = looked_up
+            hit, near_row = torch.stack(
+                [result.hit, result.near]).cpu().numpy()
             cache_time = time.perf_counter() - t0
             if clock is not None:
                 clock.tick("device_step")
             if want_why:
-                why_ps, why_topk = self._why_snapshot(result)
+                why_ps, why_topk = self._why_snapshot(payload)
+            syn_by_row, syn_time, syn_cost = self._synthesize_near(
+                batch, n, near_row, payload)
             if clock is not None:
                 clock.tick("near_synthesis")
-            miss_idx = [i for i in range(n) if not hit[i]]
-            out = None
-            if miss_idx:
-                out, err = self._resolve_misses(batch, miss_idx)
-                if err is not None:
+            miss_idx = [i for i in range(n)
+                        if not hit[i] and i not in syn_by_row]
+            # per-row insert payload: backend answers for misses, admitted
+            # syntheses for converted band rows
+            row_toks: dict[int, np.ndarray] = {}
+            row_lens: dict[int, int] = {}
+            row_sid: dict[int, int] = {}
+            failed, gen_idx = self._split_expired(batch, miss_idx)
+            if gen_idx:
+                out, err = self._resolve_misses(batch, gen_idx)
+                if err is None:
+                    toks, lens, answers, llm_time, llm_cost = out
+                    for j, i in enumerate(gen_idx):
+                        row_toks[i] = np.asarray(toks[j])
+                        row_lens[i] = int(lens[j])
+                        row_sid[i] = batch[i].source_id
+                else:
                     # the counted lookup above already counted these rows;
                     # they only stay out of the insert (as in the JAX engine)
-                    failed = dict.fromkeys(miss_idx, err)
+                    failed.update(dict.fromkeys(gen_idx, err))
+            degraded = self._serve_degraded(batch, failed, payload)
             if clock is not None:
                 clock.tick("backend_call")
-            if out is not None:
-                toks, lens, answers, llm_time, llm_cost = out
-                # one subset insert in row order — the same slot order the
-                # fused step's masked full-batch insert produces
-                idx = torch.as_tensor(miss_idx, device=self.device)
+            if syn_by_row:
+                rows = sorted(syn_by_row)
+                stoks, slens = self.tokenizer.encode_batch(
+                    [syn_by_row[i].answer for i in rows], cfg.value_len)
+                for j, i in enumerate(rows):
+                    row_toks[i] = np.asarray(stoks[j])
+                    row_lens[i] = int(slens[j])
+                    row_sid[i] = syn_by_row[i].source_id
+                    answers[i] = self.tokenizer.decode(np.asarray(stoks[j]))
+            # one subset insert in row order — the same slot order the
+            # fused step's masked full-batch insert produces
+            ins = sorted(row_toks)
+            if ins:
+                idx = torch.as_tensor(ins, device=self.device)
                 self.runtime = self.cache.insert(
-                    self.runtime, emb[idx], self._tensor(toks, torch.int32),
-                    self._tensor(lens, torch.int32), now,
-                    source_id=self._tensor(
-                        [batch[i].source_id for i in miss_idx], torch.int32),
+                    self.runtime, keys[idx],
+                    self._tensor(np.stack([row_toks[i] for i in ins]),
+                                 torch.int32),
+                    self._tensor([row_lens[i] for i in ins], torch.int32),
+                    now,
+                    source_id=self._tensor([row_sid[i] for i in ins],
+                                           torch.int32),
                     tenant_id=None if tid is None else tid[idx])
-                self._inserts_since_rebuild += len(miss_idx)
+                self._inserts_since_rebuild += len(ins)
             if clock is not None:
                 clock.tick("insert")
 
+        if self.sessions is not None:
+            self._append_turns(batch, n_valid,
+                               self._canonical_keys(result, keys),
+                               skip=failed)
+
         scores = result.score.cpu().numpy()
         matched_sid = result.source_id.cpu().numpy()
+        near_served = np.zeros((n,), dtype=bool)
+        near_served[list(syn_by_row)] = True
 
         # hit path: detokenize cached responses (real rows only)
         vals = result.values.cpu().numpy()
@@ -638,46 +972,80 @@ class CachedEngine:
                 answers[i] = self.tokenizer.decode(vals[i])
 
         # judge hits (ground-truth oracle replaces GPT-4o-mini); pad rows
-        # are never hits (valid-masked), so they contribute no feedback
+        # are never hits (valid-masked), so they contribute no feedback.
+        # Synthesized near-hits are judged against their synthesis
+        # provenance, the dominant neighbour's source_id
         positives = np.zeros((n,), dtype=bool)
         if self.judge is not None:
             for i in range(n_valid):
                 if hit[i]:
                     positives[i] = self.judge(batch[i], int(matched_sid[i]))
+                elif near_served[i]:
+                    positives[i] = self.judge(
+                        batch[i], int(syn_by_row[i].source_id))
+            # one host-to-device copy of the feedback masks
+            fb = self._tensor(np.stack([positives & hit, hit, positives,
+                                        near_served]), torch.bool)
             # adaptive-threshold feedback (paper §2.10)
             self.runtime = self.cache.update_policy(
-                self.runtime,
-                was_positive=self._tensor(positives & hit, torch.bool),
-                was_hit=self._tensor(hit, torch.bool))
+                self.runtime, was_positive=fb[0], was_hit=fb[1])
+            if self.synthesizer is not None:
+                # judged near-hit outcomes nudge the band's lower edge
+                self.runtime = self.cache.update_band(
+                    self.runtime, was_positive=fb[2], was_near=fb[3])
+        if self.judge is not None and degraded:
+            # degraded answers are judged for observation only: an outage
+            # must not move the edges the healthy path serves under
+            rm = self.metrics.resilience
+            for i, d in degraded.items():
+                rm.degraded_judged += 1
+                if self.judge(batch[i], int(d[2])):
+                    rm.degraded_positives += 1
 
         # metrics: baseline = every query pays the LLM call; pad rows and
-        # failed rows move no counter (the fault path has its own)
-        rows = [i for i in range(n_valid) if i not in failed]
+        # failed or degraded rows move no counter (the fault path has its
+        # own)
+        ok_rows = [i for i in range(n_valid) if i not in failed]
         per_call = getattr(self.backend, "latency_per_call_s", None)
         baseline_time = (per_call or (llm_time / max(len(miss_idx), 1))) \
-            * len(rows)
+            * len(ok_rows)
         per_cost = getattr(self.backend, "cost_per_call_usd", 0.0)
         self.metrics.record_batch(
-            [batch[i].category for i in rows], hit[rows], positives[rows],
-            judged=[self.judge is not None and bool(hit[i]) for i in rows],
-            cache_time_s=cache_time, llm_time_s=llm_time,
-            llm_cost=llm_cost, baseline_cost=per_cost * len(rows),
+            [batch[i].category for i in ok_rows],
+            hit[ok_rows], positives[ok_rows],
+            judged=[self.judge is not None
+                    and (bool(hit[i]) or bool(near_served[i]))
+                    for i in ok_rows],
+            cache_time_s=cache_time, llm_time_s=llm_time + syn_time,
+            llm_cost=llm_cost + syn_cost,
+            baseline_cost=per_cost * len(ok_rows),
             baseline_time=baseline_time,
             tenants=None if self.registry is None else
-            [batch[i].tenant for i in rows])
+            [batch[i].tenant for i in ok_rows],
+            contexts=None if self.sessions is None else
+            [has_ctx[i] for i in ok_rows],
+            nears=None if self.synthesizer is None else near_row[ok_rows],
+            near_served=None if self.synthesizer is None
+            else near_served[ok_rows],
+            syn_cost=syn_cost, syn_time=syn_time)
 
         whys = None
         if want_why:
             whys = self._build_whys(
-                batch, n_valid, hit, scores, result.index.cpu().numpy(),
-                matched_sid, result.near.cpu().numpy(), why_ps, why_topk)
+                batch, n_valid, hit, near_served, scores,
+                result.index.cpu().numpy(), matched_sid, near_row, has_ctx,
+                syn_by_row, why_ps, why_topk)
 
-        per_q_latency = (cache_time + llm_time) / max(n_valid, 1)
+        per_q_latency = (cache_time + llm_time + syn_time) / max(n_valid, 1)
 
         def _path_of(i: int) -> str:
+            if i in degraded:
+                return "degraded"
             if i in failed:
                 return "error"
-            return "hit" if hit[i] else "miss"
+            if hit[i]:
+                return "hit"
+            return "near" if near_served[i] else "miss"
 
         if record_path_latency:
             for i in range(n_valid):
@@ -689,13 +1057,20 @@ class CachedEngine:
             tr_id = "" if traces is None or i >= len(traces) \
                 else traces[i].trace_id
             w = None if whys is None else whys[i]
+            if i in degraded:
+                ans, sc, _sid = degraded[i]
+                return Response(answer=ans, cached=False, score=sc,
+                                latency_s=per_q_latency, context=has_ctx[i],
+                                degraded=True, trace_id=tr_id, why=w)
             if i in failed:
                 return Response(answer="", cached=False,
                                 score=float(scores[i]),
-                                latency_s=per_q_latency, error=failed[i],
-                                trace_id=tr_id, why=w)
+                                latency_s=per_q_latency, context=has_ctx[i],
+                                error=failed[i], trace_id=tr_id, why=w)
             return Response(answer=answers[i], cached=bool(hit[i]),
                             score=float(scores[i]), latency_s=per_q_latency,
+                            context=has_ctx[i],
+                            near_hit=bool(near_served[i]),
                             trace_id=tr_id, why=w)
 
         responses = [_mk_response(i) for i in range(n_valid)]
@@ -721,13 +1096,14 @@ class CachedEngine:
         if self.events is not None:
             stats1 = self.stats.host()
             fault_kw = {} if not failed else {
-                "failed": len(failed), "degraded": 0}
+                "failed": len(failed), "degraded": len(degraded)}
             self.events.emit(
                 "serve_batch", rows=n_valid,
-                hits=int(hit[:n_valid].sum()), near_hits=0,
+                hits=int(hit[:n_valid].sum()),
+                near_hits=len(syn_by_row),
                 backend_calls=len(miss_idx),
                 cache_time_s=round(cache_time, 6),
-                llm_time_s=round(llm_time, 6),
+                llm_time_s=round(llm_time + syn_time, 6),
                 stats_delta={k: stats1[k] - ev_stats0[k] for k in ev_stats0},
                 **fault_kw)
         return responses

@@ -95,6 +95,11 @@ class PartitionMap:
         """(T,) float32; negative entries mean "no override"."""
         return _constant(self.thresholds, torch.float32, torch.device(device))
 
+    def band_lo_array(self, device) -> torch.Tensor:
+        """(T,) float32 near-band lower-edge overrides; negative entries
+        mean "no override" (use the band policy's τ_lo)."""
+        return _constant(self.band_lo, torch.float32, torch.device(device))
+
 
 @functools.lru_cache(maxsize=64)
 def _slot_owner(starts: tuple[int, ...], sizes: tuple[int, ...],

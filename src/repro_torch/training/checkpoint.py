@@ -3,9 +3,10 @@
 A runtime is flattened to '/'-joined key paths (``runtime/state/keys`` …
 ``runtime/stats/inserts``, ``runtime/policy_state``, the index state's
 leaves under ``runtime/index_state/`` (none for the exact index;
-``centroids``, ``buckets``, ``bucket_valid`` for IVF) and, on a partitioned
-cache, ``runtime/tenancy/ptr`` … ``runtime/tenancy/evictions``), saved as
-one compressed npz plus a JSON manifest. The keys and dtypes are exactly those
+``centroids``, ``buckets``, ``bucket_valid`` for IVF), on a partitioned
+cache ``runtime/tenancy/ptr`` … ``runtime/tenancy/evictions`` and, on a
+context-fused one, ``runtime/fusion/context_weight``, ``decay`` and
+``temp``), saved as one compressed npz plus a JSON manifest. The keys and dtypes are exactly those
 the JAX package writes, so a snapshot taken by either package loads into
 the other. A bfloat16 slab is written as float32 (numpy has no bfloat16;
 the values are exact and the JAX loader casts them back).
@@ -25,6 +26,7 @@ import zipfile
 import numpy as np
 import torch
 
+from repro_torch.context.fusion import FusionState
 from repro_torch.core.index import ExactIndex
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, CacheState, CacheStats
@@ -33,6 +35,7 @@ from repro_torch.tenancy.partition import TenancyState
 _STATE = tuple(f.name for f in CacheState.__dataclass_fields__.values())
 _STATS = tuple(f.name for f in CacheStats.__dataclass_fields__.values())
 _TENANCY = tuple(f.name for f in TenancyState.__dataclass_fields__.values())
+_FUSION = tuple(f.name for f in FusionState.__dataclass_fields__.values())
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -61,29 +64,42 @@ def runtime_to_numpy(runtime: CacheRuntime, prefix: str = "runtime"
         flat.update({f"{prefix}/tenancy/{n}":
                      _to_numpy(getattr(runtime.tenancy, n))
                      for n in _TENANCY})
+    if runtime.fusion is not None:
+        flat.update({f"{prefix}/fusion/{n}":
+                     _to_numpy(getattr(runtime.fusion, n)) for n in _FUSION})
     return flat
 
 
 def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
                        device: torch.device, prefix: str = "runtime", *,
                        num_tenants: int | None = None,
-                       index=None) -> CacheRuntime:
+                       index=None, fused: bool = False) -> CacheRuntime:
     """Rebuild a runtime of ``config`` on ``device`` from flattened arrays;
     ``num_tenants`` is the tenant count of a partitioned cache (None for a
     single-tenant one), ``index`` the cache's index (None: the exact one),
-    whose ``init`` gives the index state's leaves, shapes and dtypes. Raises
-    ValueError on a missing key, a shape that ``config`` does not give, index
-    state of another index type or tenancy state that does not fit
-    ``num_tenants``, and NotImplementedError on state of the sessions
-    slice, which is not ported yet."""
+    whose ``init`` gives the index state's leaves, shapes and dtypes, and
+    ``fused`` whether the cache is context-fused. A snapshot without
+    ``runtime/fusion/*`` keys gives ``fusion=None`` (the caller keeps its
+    fresh weights); one with them restores them. Raises ValueError on a
+    missing key, a shape that ``config`` does not give, index state of
+    another index type, tenancy state that does not fit ``num_tenants``,
+    fusion state for a cache without fusion, and NotImplementedError on
+    state of a slice not ported yet."""
     groups = set()
     for k in flat:
         group = k[len(prefix) + 1:].split("/", 1)[0]
         if group not in ("state", "stats", "policy_state", "index_state",
-                         "tenancy"):
+                         "tenancy", "fusion"):
             raise NotImplementedError(
                 f"checkpoint key {k!r} belongs to a slice not ported yet")
         groups.add(group)
+    if "fusion" in groups and not fused:
+        # dropping the weights would change every fused key the snapshot's
+        # entries were stored under
+        raise ValueError(
+            "checkpoint carries context-fusion weights (runtime/fusion/*) "
+            "but the cache has no fusion strategy; construct it with "
+            "fusion=... to load it")
     if ("tenancy" in groups) != (num_tenants is not None):
         raise ValueError(
             "checkpoint tenancy state does not match the cache: "
@@ -138,8 +154,14 @@ def runtime_from_numpy(flat: dict[str, np.ndarray], config: CacheConfig,
         tenancy = TenancyState(**{
             name: get(f"{prefix}/tenancy/{name}", (num_tenants,),
                       torch.int32) for name in _TENANCY})
+    fusion = None
+    if "fusion" in groups:
+        fusion = FusionState(**{
+            name: get(f"{prefix}/fusion/{name}", (), torch.float32)
+            for name in _FUSION})
     return CacheRuntime(state=state, stats=stats, policy_state=policy_state,
-                        index_state=index_state, tenancy=tenancy)
+                        index_state=index_state, tenancy=tenancy,
+                        fusion=fusion)
 
 
 def save_checkpoint(path: str, flat: dict[str, np.ndarray],

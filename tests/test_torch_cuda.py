@@ -13,7 +13,8 @@ the same loop on the CPU; the prefill flash-attention and decode-attention
 kernels against their plain versions, their wrappers' refusals, and the
 model-backed miss path's launches and answers on CUDA against the CPU; the
 async front end's lockstep waves on CUDA against the sync card run and the
-CPU, and the tracing engine's spans on CUDA. Every test here needs a CUDA
+CPU, the tracing engine's spans on CUDA, and sessions, near-hit bands and
+resilience on CUDA against the CPU. Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -1232,3 +1233,118 @@ def test_tracing_engine_on_cuda(cuda_device, fused):
         assert a.meta == b.meta
         assert a.span_sum_s == pytest.approx(a.e2e_s, rel=1e-9)
         assert a.stage_seconds()["device_step"] > 0
+
+
+def _feature_run(device, *, fusion=None, synthesizer=None, policy=None,
+                 resilience=None, schedule=None, n=40, batch=8):
+    """A small engine with one of this slice's features: record/replay
+    conversations (fusion), or a paraphrase-heavy stream; returns the
+    engine, its responses and the cosine kernel's launches."""
+    from repro_torch.data.qa_dataset import build_corpus
+    from repro_torch.serving import (CachedEngine, FaultyBackend, Request,
+                                     SimulatedLLMBackend,
+                                     build_multi_turn_workload,
+                                     build_workload, turn_levels)
+    pairs = build_corpus(n, seed=0)
+    convs = build_multi_turn_workload(pairs, 6, turns=3, seed=23)
+    key_by_sid = {p.qa_id: p.semantic_key for p in pairs}
+    for conv in convs:
+        for r in conv:
+            key_by_sid.setdefault(r.source_id, r.semantic_key)
+
+    def judge(req, sid):
+        return key_by_sid.get(sid, "") == req.semantic_key
+
+    backend = SimulatedLLMBackend(pairs)
+    if schedule is not None:
+        backend = FaultyBackend(backend, schedule)
+    eng = CachedEngine(CacheConfig(dim=384, capacity=8 * n, value_len=48),
+                       backend, judge=judge, batch_size=batch, fusion=fusion,
+                       synthesizer=synthesizer, policy=policy,
+                       resilience=resilience, device=device)
+    eng.warm(pairs)
+    kmod.reset_launches()
+    batches = []
+    if fusion is not None:
+        for part in (convs[:6], convs[6:]):
+            batches += turn_levels(part)
+    reqs = build_workload(pairs, 6 * batch, paraphrase_ratio=0.9, seed=43)
+    batches += [reqs[i:i + batch] for i in range(0, len(reqs), batch)]
+    resp = []
+    for b in batches:
+        resp += eng.process(b)
+    return eng, resp, dict(kmod.launches), len(batches)
+
+
+def _same_on_card_and_cpu(card, cpu):
+    (ceng, cresp, launches, nb), (peng, presp, _, _) = card, cpu
+    assert launches == {**dict.fromkeys(launches, 0), "cosine_topk": nb}
+    assert [(r.answer, r.cached, r.context, r.near_hit, r.degraded, r.error)
+            for r in cresp] == \
+        [(r.answer, r.cached, r.context, r.near_hit, r.degraded, r.error)
+         for r in presp]
+    np.testing.assert_allclose([r.score for r in cresp],
+                               [r.score for r in presp], rtol=0, atol=1e-5)
+    assert ceng.stats.host() == peng.stats.host()
+    assert ceng.metrics.summary()["categories"] == \
+        peng.metrics.summary()["categories"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["decay", "attention"])
+def test_sessions_on_cuda_match_cpu(cuda_device, strategy):
+    """Fused keys on the card within 1e-5 of the CPU's (the session rings
+    hold them), the same decisions, and the replays' follow-ups hit."""
+    from repro_torch.context import AttentionFusion, DecayMeanFusion
+    make = DecayMeanFusion if strategy == "decay" else AttentionFusion
+    card = _feature_run(str(cuda_device), fusion=make(window=4))
+    cpu = _feature_run("cpu", fusion=make(window=4))
+    _same_on_card_and_cpu(card, cpu)
+    ceng, peng = card[0], cpu[0]
+    assert ceng.runtime.fusion.context_weight.device.type == "cuda"
+    for key, s in ceng.sessions._sessions.items():
+        np.testing.assert_allclose(s.ring, peng.sessions._sessions[key].ring,
+                                   rtol=0, atol=1e-5)
+    rep = ceng.metrics.summary()["categories"]["ctx/followup_repeat"]
+    assert rep["cache_hits"] >= 10
+
+
+@pytest.mark.cuda
+def test_near_hit_band_on_cuda_matches_cpu(cuda_device):
+    from repro_torch.generative import BandPolicy, TemplateSplice
+    kw = dict(synthesizer=TemplateSplice(rival_margin=0.12),
+              policy=BandPolicy(tau_lo=0.75, tau_hi=0.8))
+    card = _feature_run(str(cuda_device), **kw)
+    cpu = _feature_run("cpu", **kw)
+    _same_on_card_and_cpu(card, cpu)
+    assert card[0].metrics.summary()["near"] == \
+        cpu[0].metrics.summary()["near"]
+    np.testing.assert_allclose(card[0].policy_state.cpu().numpy(),
+                               cpu[0].policy_state.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_resilience_on_cuda_matches_cpu(cuda_device):
+    from repro_torch.generative import BandPolicy
+    from repro_torch.serving import (CircuitBreaker, FaultSchedule,
+                                     FaultWindow, ResilienceConfig,
+                                     RetryPolicy)
+    runs = []
+    for device in (str(cuda_device), "cpu"):
+        res = ResilienceConfig(
+            retry=RetryPolicy(max_attempts=3, base_backoff_s=0.001,
+                              max_backoff_s=0.002, seed=3),
+            breaker=CircuitBreaker(failure_threshold=3, window=8,
+                                   cooldown_s=0.0),
+            sleep=lambda s: None)
+        sched = FaultSchedule([FaultWindow("error", 1, 4),
+                               FaultWindow("brownout", 4, 6,
+                                           error_rate=0.5)], seed=5)
+        runs.append(_feature_run(device, resilience=res, schedule=sched,
+                                 policy=BandPolicy(0.70, 0.80,
+                                                   degraded_lo=0.60)))
+    _same_on_card_and_cpu(*runs)
+    assert runs[0][0].metrics.summary()["resilience"] == \
+        runs[1][0].metrics.summary()["resilience"]
+    assert any(r.degraded or r.error for r in runs[0][1])

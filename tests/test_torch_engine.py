@@ -193,8 +193,7 @@ def test_cuda_entry_points_raise_without_cuda():
         serve.main(["--corpus", "2", "--queries", "1"])
 
 
-@pytest.mark.parametrize("feature", ["fusion", "synthesizer", "resilience",
-                                     "mesh"])
+@pytest.mark.parametrize("feature", ["mesh"])
 def test_unported_engine_features_raise(feature):
     cfg = CacheConfig(dim=8, capacity=64)
     with pytest.raises(NotImplementedError, match="slice"):

@@ -77,6 +77,14 @@ def test_async_serving_slice_files_are_checked():
             "serving/loadgen.py"} <= names
 
 
+def test_sessions_bands_resilience_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"context/__init__.py", "context/fusion.py", "context/session.py",
+            "generative/__init__.py", "generative/policy.py",
+            "generative/synthesize.py", "serving/resilience.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -102,6 +110,12 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.obs, repro_torch.embedding.lsh\n"
         "from repro_torch.serving import (AsyncCacheServer, AsyncScheduler,\n"
         "    Overloaded, run_waves)\n"
+        "import repro_torch.generative\n"
+        "from repro_torch.context import (AttentionFusion, DecayMeanFusion,\n"
+        "    SessionStore)\n"
+        "from repro_torch.generative import BandPolicy, TemplateSplice\n"
+        "from repro_torch.serving import (FaultyBackend, ResilienceConfig,\n"
+        "    build_multi_turn_workload, run_sessions)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

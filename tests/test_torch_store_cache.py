@@ -248,12 +248,6 @@ def test_expire_counts_and_gather_topk():
     assert bool(torch.all(torch.isneginf(payload["score"])))
 
 
-def test_unported_features_raise():
-    cfg = CacheConfig(dim=8, capacity=16)
-    with pytest.raises(NotImplementedError, match="sessions"):
-        SemanticCache(cfg, fusion=object())
-
-
 def test_similarity_helpers_match_jax():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((5, 16)).astype(np.float32)
