@@ -84,6 +84,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
             (availability on above off) and on with no faults (the main
             run byte for byte); wall per batch and the slice's host
             seconds (windows, canonical keys, synthesis) printed
+  serve_sharded
+            the sharded cache (``launch.serve --shards 4``: four shards of
+            a ``DistributedCache`` on the card) at the main configuration,
+            f32 and int8, against the unsharded run request by request
+            (decisions, answers, scores within 1e-5, Table 1, counters, the
+            slabs' key multisets; four cosine launches a batch, entries
+            balanced over the shards, hits served from shards other than
+            0 counted); ``--tenants 4`` (decisions and per-tenant counters)
+            and ``--index ivf`` (against a CPU engine restored from the
+            card's snapshot; recall@1 against the sharded exact lookup)
+            on four shards; reshard on load 1 -> 4 -> 1 (strict loads
+            refused, the unsharded engine's decisions); async waves of 128
+            against the sync sharded run; a failing shard body (injected
+            here) failing its call within 10 s, the next call served;
+            wall, serve path (embedding, peek, step and their reads) and
+            the cache calls' host ms a batch, sharded and not
   timing    each kernel, its plain version and one PyTorch call computing
             the same function, timed in turns with CUDA events; the
             shared-mask rows also from a CUDA graph of the wrapper's
@@ -1000,9 +1016,9 @@ def _ivf_run(torch, device, snapshot=None, on_warm_slab=None, **kw):
         wall += time.perf_counter() - t0
     if device == "cuda":
         from repro_torch.kernels.ivf_topk import check_contract
-        if len(operands) != MAIN_BATCHES:
-            fail(f"ivf_topk got {len(operands)} grouped calls, not "
-                 f"{MAIN_BATCHES}")
+        calls = MAIN_BATCHES * max(1, kw.get("shards", 0))
+        if len(operands) != calls:
+            fail(f"ivf_topk got {len(operands)} grouped calls, not {calls}")
         for cand, probe, buckets in operands:
             check_contract(cand, probe, buckets)
     return eng, reqs, resp, refit_state, _launches(), wall, extra
@@ -1993,6 +2009,329 @@ def phase_serve_context(torch, sync: dict) -> dict:
         fail("resilience, no faults: counters differ from the main run")
     emit("serve_context", check="resilience on, no faults: the main run "
          "byte for byte", **_ctx_numbers(card))
+    return launches
+
+
+# --------------------------------------------------------------------- #
+SHARDS = 4                 # serve_sharded: make_mesh((4,), ("data",))
+FAIL_WITHIN_S = 10.0       # a failed shard body must fail its call by then
+
+
+class _HostTime:
+    """Host seconds spent in ``cls.lookup`` and ``cls.step`` while entered
+    (they return before the card finishes their work), per call, and each
+    step's result."""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cls, n) for n in ("lookup", "step")}
+        self.calls = {n: [] for n in self.saved}
+        self.results = []
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, self._wrap(fn, name))
+        return self
+
+    def _wrap(self, fn, name):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.calls[name].append(time.perf_counter() - t0)
+            if name == "step":
+                self.results.append(out[0])
+            return out
+        return timed
+
+    @property
+    def seconds(self) -> float:
+        return sum(sum(v) for v in self.calls.values())
+
+    def medians_ms(self) -> dict:
+        return {n: 1e3 * sorted(v)[len(v) // 2]
+                for n, v in self.calls.items()}
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def _key_multiset(eng) -> list:
+    st = eng.state
+    return sorted(r.tobytes() for r in st.keys[st.valid].cpu().numpy())
+
+
+def _per_shard(eng, where: str) -> list:
+    """Entries per shard; each must hold ceil(n / S) or floor(n / S)."""
+    per = eng.state.valid.reshape(SHARDS, -1).sum(1).tolist()
+    n = sum(per)
+    if any(x not in (n // SHARDS, -(-n // SHARDS)) for x in per):
+        fail(f"{where}: entries per shard {per} are not balanced")
+    return per
+
+
+def _bare_engine(like, shards: int):
+    """An engine of ``like``'s configuration and empty slab, sharing its
+    backend, judge and tokenizer (a snapshot carries no vocabulary, so a
+    restored answer decodes to the same words only through it)."""
+    from repro_torch.core import make_mesh
+    from repro_torch.serving import CachedEngine
+    eng = CachedEngine(
+        like.cache.config, like.backend, judge=like.judge,
+        batch_size=like.batcher.batch_size, device="cuda",
+        mesh=make_mesh((shards,), ("data",)) if shards else None)
+    eng.tokenizer = like.tokenizer
+    return eng
+
+
+def _sharded_recall(eng, reqs) -> dict:
+    """recall@1 of the sharded IVF lookup against the sharded exact lookup
+    on the warm slab after the refit: the IVF top-1 scores what the exact
+    top-1 scores, within 1e-6."""
+    from repro_torch.core import DistributedCache, SemanticCache
+    from repro_torch.core.index import ExactState
+    exact = DistributedCache(SemanticCache(eng.cache.config), eng.cache.mesh)
+    rt = eng.runtime.replace(index_state=ExactState())
+    same = 0
+    for i in range(0, len(reqs), 128):
+        q = eng._embed([r.query for r in reqs[i:i + 128]])
+        iv, _ = eng.cache.lookup(eng.runtime, q, eng._now,
+                                 update_counters=False)
+        ex, _ = exact.lookup(rt, q, eng._now, update_counters=False)
+        same += int(((iv.score - ex.score).abs() <= 1e-6).sum())
+    return {"recall_at_1_vs_sharded_exact": same / len(reqs)}
+
+
+def _failing_shard(torch, eng, batch) -> dict:
+    """One shard body raises inside its search (shard 2, told by its slab
+    view's offset); ``serve_batch`` must raise within FAIL_WITHIN_S and the
+    next call must serve the batch."""
+    import os
+    import threading
+    from repro_torch.core import index as index_mod
+    ops, search = index_mod.ops, index_mod.ops.cosine_topk
+
+    def flaky(q, keys, alive, *, k):
+        if keys.storage_offset() == 2 * keys.numel():
+            raise RuntimeError("injected failure of shard 2's search")
+        return search(q, keys, alive, k=k)
+    caught = []
+
+    def call():
+        try:
+            eng.serve_batch(batch)
+        except RuntimeError as exc:
+            caught.append(exc)
+    ops.cosine_topk = flaky
+    try:
+        t0 = time.perf_counter()
+        th = threading.Thread(target=call, daemon=True)
+        th.start()
+        th.join(timeout=120)
+        raised_s = time.perf_counter() - t0
+    finally:
+        ops.cosine_topk = search
+    if th.is_alive():
+        print("chip_smoke: FAIL: a failed shard body hung its call",
+              file=sys.stderr, flush=True)
+        os._exit(1)          # the hung shard threads would block exit
+    if len(caught) != 1 or "injected" not in str(caught[0]):
+        fail(f"failing shard: the call did not raise the shard's error "
+             f"({caught})")
+    if raised_s > FAIL_WITHIN_S:
+        fail(f"failing shard: the call raised after {raised_s:.1f} s")
+    resp = eng.serve_batch(batch)
+    torch.cuda.synchronize()
+    if len(resp) != len(batch) or not all(math.isfinite(r.score)
+                                          for r in resp):
+        fail("failing shard: the next call did not serve its batch")
+    return {"raised_after_s": raised_s, "next_call_served": len(resp)}
+
+
+def phase_serve_sharded(torch, card: str, sync: dict, scratch: Path
+                        ) -> dict:
+    """The sharded cache (``CachedEngine(mesh=make_mesh((4,), ("data",)))``,
+    ``launch.serve --shards 4``) on the card: the main configuration in f32
+    and int8 against the unsharded run, ``--tenants 4`` and ``--index ivf``
+    with four shards, reshard on load 1 -> 4 -> 1, async waves, and a
+    failing shard body. Returns the cosine and IVF kernels' launches over
+    the phase's sharded runs."""
+    from repro_torch.core import DistributedCache, SemanticCache
+    from repro_torch.launch import serve
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(run: dict) -> None:
+        for name, n in run.items():
+            launches[name] += n
+    want = SHARDS * MAIN_BATCHES
+    line = {"card": card, "shards": SHARDS}
+    kept = {}
+
+    # 1. the main configuration, unsharded and on four shards
+    for kd in ("f32", "int8"):
+        with _HostTime(SemanticCache) as h1:
+            one, reqs, r1, _, w1 = _serve(torch, device="cuda", key_dtype=kd)
+        with _HostTime(DistributedCache) as h4:
+            four, _, r4, l4, w4 = _serve(torch, device="cuda", key_dtype=kd,
+                                         shards=SHARDS)
+        _expect_launches(l4, {"cosine_topk": want}, f"sharded main ({kd})")
+        count(l4)
+        where = f"sharded main {kd}"
+        _same_decisions(r4, r1, f"{where} vs unsharded", SCORE_TOL[kd])
+        if kd == "f32":
+            _same_decisions(r4, sync["responses"],
+                            f"{where} vs the main phase", SCORE_TOL[kd])
+        if four.metrics.summary()["categories"] != \
+                one.metrics.summary()["categories"]:
+            fail(f"{where}: Table 1 differs from the unsharded run")
+        if four.stats.host() != one.stats.host():
+            fail(f"{where}: counters differ from the unsharded run")
+        if _key_multiset(four) != _key_multiset(one):
+            fail(f"{where}: the slabs hold different keys")
+        per = _per_shard(four, where)
+        lc = four.cache.local_capacity
+        hits = sum(int(r.hit.sum()) for r in h4.results)
+        cross = sum(int((r.hit & (r.index // lc != 0)).sum())
+                    for r in h4.results)
+        if cross < 1:
+            fail(f"{where}: no hit was served from a shard other than 0")
+        line[kd] = {
+            "wall_per_batch_s": w4 / MAIN_BATCHES,
+            "unsharded_wall_per_batch_s": w1 / MAIN_BATCHES,
+            "serve_path_ms_per_batch":
+            1e3 * four.metrics.cache_path_time_s / MAIN_BATCHES,
+            "unsharded_serve_path_ms_per_batch":
+            1e3 * one.metrics.cache_path_time_s / MAIN_BATCHES,
+            "step_host_ms_per_batch": 1e3 * h4.seconds / MAIN_BATCHES,
+            "unsharded_step_host_ms_per_batch":
+            1e3 * h1.seconds / MAIN_BATCHES,
+            "call_host_ms_median": h4.medians_ms(),
+            "unsharded_call_host_ms_median": h1.medians_ms(),
+            "hits": hits, "cross_shard_hits": cross,
+            "entries_per_shard": per,
+            "launches_per_lookup": l4["cosine_topk"] / MAIN_BATCHES}
+        emit("serve_sharded", check=f"main {kd}: four shards equal the "
+             "unsharded run", requests=len(r4), kernel_launches=l4,
+             **line[kd])
+        if kd == "f32":
+            kept = {"one": one, "four": four, "reqs": reqs, "resp": r4}
+
+    # 2. --tenants 4 on four shards
+    one_t, _, rt1, _, _ = _serve(torch, device="cuda", tenants=TENANTS)
+    four_t, treqs, rt4, lt4, wt4 = _serve(torch, device="cuda",
+                                          tenants=TENANTS, shards=SHARDS)
+    _expect_launches(lt4, {"cosine_topk_interval": want},
+                     "sharded --tenants 4")
+    count(lt4)
+    flips = [i for i, (x, y) in enumerate(zip(rt4, rt1))
+             if x.cached != y.cached or not abs(x.score - y.score) <= 1e-5]
+    if len(rt4) != len(rt1) or flips:
+        fail(f"sharded --tenants 4: decisions differ at {flips[:8]}")
+    if four_t.tenant_stats() != one_t.tenant_stats():
+        fail("sharded --tenants 4: per-tenant counters differ")
+    if _untimed_tenants(four_t.metrics.summary()) != \
+            _untimed_tenants(one_t.metrics.summary()):
+        fail("sharded --tenants 4: per-tenant summary differs")
+    line["tenancy"] = {
+        "wall_per_batch_s": wt4 / MAIN_BATCHES,
+        "answers_differing": sum(x.answer != y.answer
+                                 for x, y in zip(rt4, rt1)),
+        "entries_per_shard": four_t.state.valid.reshape(
+            SHARDS, -1).sum(1).tolist(),
+        "launches_per_lookup": lt4["cosine_topk_interval"] / MAIN_BATCHES}
+    emit("serve_sharded", check="--tenants 4 on four shards: decisions and "
+         "per-tenant counters equal the unsharded run", requests=len(rt4),
+         kernel_launches=lt4, **line["tenancy"])
+    del one_t, four_t
+
+    # 3. --index ivf on four shards, against a CPU engine restored from the
+    #    card's post-refit snapshot
+    snap = str(scratch / "sharded-ivf")
+    eng_i, _, iresp, _, li, wi, recall = _ivf_run(
+        torch, "cuda", snapshot=snap, on_warm_slab=_sharded_recall,
+        key_dtype="f32", shards=SHARDS)
+    _expect_launches(li, {"cosine_topk": want, "ivf_topk": want},
+                     "sharded --index ivf")
+    count(li)
+    cpu_i, creqs = serve.build(device="cpu", index="ivf", shards=SHARDS,
+                               log=_quiet)
+    cpu_i.load_cache(snap)
+    _same_decisions(iresp, cpu_i.process(creqs),
+                    "sharded ivf cuda vs restored cpu", 1e-5)
+    if _decisions(eng_i) != _decisions(cpu_i):
+        fail("sharded ivf: per-category hits differ from the restored CPU")
+    line["ivf"] = {
+        "wall_per_batch_s": wi / MAIN_BATCHES, **recall,
+        "requests_as_sharded_exact": sum(
+            x.cached == y.cached and x.answer == y.answer
+            for x, y in zip(iresp, kept["resp"])),
+        "launches_per_lookup": {n: li[n] / MAIN_BATCHES
+                                for n in ("cosine_topk", "ivf_topk")}}
+    emit("serve_sharded", check="--index ivf on four shards equals a CPU "
+         "engine restored from the card's snapshot", requests=len(iresp),
+         kernel_launches=li, **line["ivf"])
+    del eng_i, cpu_i
+
+    # 4. reshard on load: the unsharded f32 engine after its run -> 4 -> 1
+    one, reqs = kept["one"], kept["reqs"]
+    reshard = {}
+    src = str(scratch / "unsharded")
+    one.save_cache(src)
+    for step, shards in (("1->4", SHARDS), ("4->1", 0)):
+        eng = _bare_engine(one, shards)
+        try:
+            eng.load_cache(src, reshard=False)
+            fail(f"reshard {step}: a strict load was accepted")
+        except ValueError:
+            pass
+        eng.load_cache(src)
+        filled = eng.state.valid.reshape(SHARDS, -1).sum(1).tolist()
+        if shards and not all(filled):
+            fail(f"reshard {step}: a shard holds no entry ({filled})")
+        want_resp = one.process(reqs)        # the unsharded engine again
+        _reset_launches()
+        got = eng.process(reqs)
+        torch.cuda.synchronize()
+        if shards:
+            _expect_launches(_launches(), {"cosine_topk": want},
+                             f"reshard {step}")
+            count(_launches())
+        _same_decisions(got, want_resp, f"reshard {step} vs unsharded",
+                        1e-5)
+        reshard[step] = {"entries_per_shard": filled,
+                         "hits": sum(r.cached for r in got)}
+        src = str(scratch / f"resharded-{shards}")
+        eng.save_cache(src)
+    line["reshard"] = reshard
+    emit("serve_sharded", check="reshard on load 1 -> 4 -> 1: strict loads "
+         "refused, the unsharded engine's decisions", **reshard)
+
+    # 5. async waves over a sharded engine against the sync sharded run
+    aeng, areqs = serve.build(device="cuda", shards=SHARDS, log=_quiet)
+    _reset_launches()
+    res, batches, _ = _drive_async(aeng, areqs, coalesce=False, wave=128)
+    torch.cuda.synchronize()
+    _expect_launches(_launches(), {"cosine_topk": want}, "sharded waves")
+    count(_launches())
+    _same_decisions(res.responses, kept["resp"],
+                    "sharded async waves vs the sync sharded run",
+                    SCORE_TOL["f32"])
+    if aeng.stats.host() != kept["four"].stats.host() or \
+            aeng.metrics.summary()["categories"] != \
+            kept["four"].metrics.summary()["categories"]:
+        fail("sharded async waves: counters or Table 1 differ from sync")
+    line["async_waves"] = {"batches": batches, "wall_s": res.wall_s,
+                           "qps": res.achieved_qps}
+    emit("serve_sharded", check="async waves of 128 on four shards equal "
+         "the sync sharded run", **line["async_waves"])
+    del aeng
+
+    # 6. a failing shard body fails its call, and the next call works
+    line["failing_shard"] = _failing_shard(torch, kept["four"],
+                                           reqs[:128])
+    emit("serve_sharded", check="a failing shard body fails the call",
+         **line["failing_shard"])
+    emit("serve_sharded", summary=True, **line)
     return launches
 
 
@@ -3015,9 +3354,14 @@ def main() -> None:
         max_err[name] = max(max_err[name], err)
     phase_serve_async(torch, sync)
     ctx_launches = phase_serve_context(torch, sync)
+    with tempfile.TemporaryDirectory() as scratch:
+        sharded_launches = phase_serve_sharded(torch, card, sync,
+                                               Path(scratch))
     del sync
     for name in ("cosine_topk", "cosine_topk_interval"):
         launches[name] += ctx_launches[name]
+    for name in ("cosine_topk", "cosine_topk_interval", "ivf_topk"):
+        launches[name] += sharded_launches[name]
     timing = phase_timing(torch, card)
     model = phase_model(torch, card, hits)
     for mod in ("jax", "repro"):

@@ -37,6 +37,7 @@ from typing import Any, Protocol, runtime_checkable
 import torch
 
 from repro_torch.core.similarity import l2_normalize as _unit
+from repro_torch.core.types import resolve_device
 
 
 @dataclasses.dataclass
@@ -60,7 +61,11 @@ class FusionState:
 
     @staticmethod
     def make(context_weight: float, decay: float = 0.6, temp: float = 0.25,
-             device: str | torch.device = "cpu") -> "FusionState":
+             device: str | torch.device = "cuda") -> "FusionState":
+        """The weights as 0-d f32 tensors on ``device`` (default CUDA;
+        raises without it unless ``device="cpu"``)."""
+        device = resolve_device(device)
+
         def f(x):
             return torch.tensor(x, dtype=torch.float32, device=device)
         return FusionState(context_weight=f(context_weight), decay=f(decay),
@@ -135,7 +140,8 @@ class DecayMeanFusion:
         if not 0.0 < self.decay <= 1.0:
             raise ValueError("decay must be in (0, 1]")
 
-    def init_state(self, device: str | torch.device = "cpu") -> FusionState:
+    def init_state(self, device: str | torch.device = "cuda"
+                   ) -> FusionState:
         return FusionState.make(self.context_weight, decay=self.decay,
                                 device=device)
 
@@ -170,7 +176,8 @@ class AttentionFusion:
         if self.temp <= 0.0:
             raise ValueError("temp must be positive")
 
-    def init_state(self, device: str | torch.device = "cpu") -> FusionState:
+    def init_state(self, device: str | torch.device = "cuda"
+                   ) -> FusionState:
         return FusionState.make(self.context_weight, temp=self.temp,
                                 device=device)
 

@@ -1,6 +1,9 @@
-"""Semantic-cache core: slab types, store, exact and IVF indexes, policies
-and the ``SemanticCache`` orchestrator (PyTorch port of ``repro.core``)."""
+"""Semantic-cache core: slab types, store, exact and IVF indexes, policies,
+the ``SemanticCache`` orchestrator and its sharded form
+``DistributedCache`` (PyTorch port of ``repro.core``)."""
 from repro_torch.core.cache import SemanticCache
+from repro_torch.core.distributed import (DistributedCache, ShardMesh,
+                                          make_mesh, shard_axes)
 from repro_torch.core.index import ExactIndex, ExactState, IVFIndex, IVFState
 from repro_torch.core.policy import (AdaptiveThreshold, FixedThreshold,
                                      PerCategoryThreshold, make_policy)
@@ -12,7 +15,8 @@ from repro_torch.core.types import (CacheConfig, CacheState, CacheStats,
 __all__ = [
     "CacheConfig", "CacheState", "CacheStats", "LookupResult",
     "init_cache_state", "resolve_device", "CacheRuntime", "Index", "Policy",
-    "SemanticCache", "ExactIndex", "ExactState", "IVFIndex", "IVFState",
+    "SemanticCache", "DistributedCache", "ShardMesh", "make_mesh",
+    "shard_axes", "ExactIndex", "ExactState", "IVFIndex", "IVFState",
     "AdaptiveThreshold", "FixedThreshold", "PerCategoryThreshold",
     "make_policy",
 ]

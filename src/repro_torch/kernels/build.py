@@ -33,6 +33,16 @@ SOURCES = {"cosine_topk": "cosine_topk.cu", "ivf_topk": "ivf_topk.cu",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(launches: dict[str, int], name: str) -> None:
+    """Add one to a wrapper's launch counter. The shards of a
+    ``DistributedCache`` launch from several threads at once, and a bare
+    ``+= 1`` on a dict entry may lose a count between its read and its
+    write."""
+    with _count_lock:
+        launches[name] += 1
 
 
 @dataclasses.dataclass(frozen=True)

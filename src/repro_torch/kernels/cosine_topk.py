@@ -456,7 +456,7 @@ def _launch(name: str, queries: torch.Tensor, keys: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.cosine_topk_error_string(err).decode()}")
-    launches[name] += 1
+    build.count_launch(launches, name)
     return out_s, out_i
 
 

@@ -184,5 +184,5 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg}")
-    launches["decode_attention"] += 1
+    build.count_launch(launches, "decode_attention")
     return out

@@ -109,5 +109,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
-    launches["flash_attention"] += 1
+    build.count_launch(launches, "flash_attention")
     return out

@@ -174,5 +174,5 @@ def ivf_topk_cuda(queries: torch.Tensor, keys: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ivf_topk launch failed: "
                            f"{lib.ivf_topk_error_string(err).decode()}")
-    launches["ivf_topk"] += 1
+    build.count_launch(launches, "ivf_topk")
     return out_s, out_i

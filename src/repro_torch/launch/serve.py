@@ -32,6 +32,14 @@ clock starts, so the kernel's build at first use enters no percentile.
 HTTP for the run's duration; ``--trace-sample`` / ``--trace-slow-ms``
 turn on request tracing and print the per-stage decomposition.
 
+``--shards S`` splits the slab over S shards of a ``DistributedCache``
+(``make_mesh((S,), ("data",))`` on ``--device``; DESIGN.md §19): each
+batch's lookup runs one search per shard over its N/S slots, merged into
+the same decisions as one shard's. It composes with ``--tenants`` (each
+region split S ways), ``--index ivf`` (one index per shard) and
+``--key-dtype``. ``repro.launch.serve`` has no such flag; its engine
+takes a mesh.
+
 ``--backend model`` answers the misses with a real decoder instead of the
 simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
 (default ``yi-6b``, dense family only) at its reduced width, weights drawn
@@ -47,6 +55,7 @@ import json
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core.distributed import make_mesh
 from repro_torch.core.index import IVFIndex
 from repro_torch.core.policy import AdaptiveThreshold
 from repro_torch.core.types import CacheConfig
@@ -81,7 +90,7 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
           fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
           tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
           backend: str = "sim", arch: str = "yi-6b", reduced: bool = True,
-          tracer: Tracer | None = None, log=print
+          tracer: Tracer | None = None, shards: int = 0, log=print
           ) -> tuple[CachedEngine, list[Request]]:
     """The warmed engine and the requests to serve. ``tenants > 0``
     partitions the slab into that many uniform tenant regions and builds a
@@ -89,7 +98,8 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
     ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``)
     behind the cache, its weights drawn from a generator on ``device``
     seeded with 0 (``repro.launch.serve`` draws them from ``PRNGKey(0)``).
-    ``tracer`` goes to the engine."""
+    ``tracer`` goes to the engine. ``shards > 0`` serves through a
+    ``DistributedCache`` of that many shards on ``device``."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -124,6 +134,8 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         else None,
         use_fused_step=fused, registry=registry, device=device,
         tracer=tracer,
+        mesh=make_mesh((shards,), ("data",), device=device) if shards > 0
+        else None,
         index=IVFIndex(ncentroids=128, nprobe=16, bucket_cap=1024)
         if index == "ivf" else None)
     if registry is None:
@@ -209,6 +221,9 @@ def main(argv=None):
                          "serve a multi-tenant workload (0 = single-tenant)")
     ap.add_argument("--tenant-skew", type=float, default=1.0,
                     help="Zipf skew of tenant popularity (0 = uniform)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="split the slab over S shards of a "
+                         "DistributedCache (0 = unsharded)")
     ap.add_argument("--scheduler", choices=("sync", "async"),
                     default="sync",
                     help="sync batch loop vs async continuous micro-batching "
@@ -244,7 +259,7 @@ def main(argv=None):
         ttl=args.ttl, batch=args.batch, policy=args.policy, fused=args.fused,
         device=args.device, key_dtype=args.key_dtype, tenants=args.tenants,
         tenant_skew=args.tenant_skew, index=args.index, backend=args.backend,
-        arch=args.arch, tracer=tracer)
+        arch=args.arch, tracer=tracer, shards=args.shards)
     if args.scheduler == "sync":
         print(f"serving {len(requests)} queries (sync batches) ...")
         engine.process(requests)

@@ -59,9 +59,15 @@ hit rows of the same batch are served. With a ``ResilienceConfig`` the miss
 path gains deadline budgets, retries with deterministic backoff, a circuit
 breaker, and degraded serving of the best cached neighbour above a relaxed
 floor (never admitted to the slab, never fed to the threshold or band).
-The sharded cache (``mesh``) arrives with a later slice and raises
-NotImplementedError until then. Responses and ``metrics.summary()`` match
-the JAX engine's request by request.
+Sharded cache (DESIGN.md §19): with ``mesh`` (``repro_torch.core.
+make_mesh``) the cache is a ``DistributedCache`` whose slab is split over
+the mesh's ``cache_axes``; every call below goes through the sharded step,
+with the same arguments, so nothing else here changes. Regions and the
+batch size are checked per shard, ``warm`` chunks fit a shard's ring, and
+snapshots record the shard layout: ``load_cache`` restores a snapshot of
+another shard count by re-placing its entries (``reshard=True``) or
+refuses it. Responses and ``metrics.summary()`` match the JAX engine's
+request by request.
 """
 from __future__ import annotations
 
@@ -75,6 +81,7 @@ import torch
 
 from repro_torch.context.session import SessionStore
 from repro_torch.core.cache import SemanticCache
+from repro_torch.core.distributed import DistributedCache, shard_axes
 from repro_torch.core.runtime import CacheRuntime
 from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.data.tokenizer import HashTokenizer
@@ -177,6 +184,7 @@ class CachedEngine:
                  explain_responses: bool = False,
                  resilience=None,
                  mesh=None,
+                 cache_axes: tuple[str, ...] = ("data",),
                  device: str | torch.device = "cuda"):
         # ``policy``: optional threshold policy (e.g. AdaptiveThreshold);
         # with a judge, judged hit outcomes are fed back after every batch.
@@ -196,38 +204,47 @@ class CachedEngine:
         # BandPolicy(tau_hi=threshold). ``resilience``: optional
         # ResilienceConfig (retries, breaker, degraded serving); None = one
         # backend attempt whose failure marks only its own rows.
+        # ``mesh``: optional ShardMesh (``make_mesh``); the slab is split
+        # over its ``cache_axes`` in a DistributedCache. None = one shard.
         # ``device``: where the slab lives and the search runs; "cuda"
-        # raises when CUDA is absent.
-        if mesh is not None:
-            raise NotImplementedError(
-                "CachedEngine(mesh=...) arrives with the sharded-cache slice")
+        # raises when CUDA is absent. A mesh must sit on the same device.
         if synthesizer is not None and policy is None:
             policy = BandPolicy(tau_hi=cache_config.threshold)
         # read by the scheduler, the server and the exporter
         self.synthesizer = synthesizer
         self.resilience = resilience
         self.registry = registry
+        self.mesh = mesh
+        self._num_shards = 1 if mesh is None \
+            else shard_axes(mesh, tuple(cache_axes))
+        shards = self._num_shards
         partition = None
         if registry is not None:
             partition = registry.partition(cache_config.capacity)
-            if min(partition.sizes) < batch_size:
+            if min(partition.sizes) // shards < batch_size:
                 # the per-tenant ring gives distinct slots only while a
-                # batch's rows of a tenant fit inside the tenant's region
+                # batch's rows of a tenant fit inside the tenant's region,
+                # on a mesh inside each shard's slice of it
                 small = partition.names[
                     partition.sizes.index(min(partition.sizes))]
                 raise ValueError(
-                    f"smallest tenant region ({min(partition.sizes)} slots, "
-                    f"tenant {small!r}) is below the batch size "
-                    f"({batch_size}); grow the slab or the tenant's "
-                    "share/quota")
+                    f"smallest tenant region ({min(partition.sizes)} slots "
+                    f"/ {shards} shard(s), tenant {small!r}) is below the "
+                    f"batch size ({batch_size}); grow the slab or the "
+                    "tenant's share/quota")
             self._tenant_index = {n: i for i, n in enumerate(partition.names)}
-        elif cache_config.capacity < batch_size:
+        elif cache_config.capacity // shards < batch_size:
             raise ValueError(
-                f"capacity ({cache_config.capacity} slots) is below the batch "
-                f"size ({batch_size}); grow the slab")
+                f"per-shard capacity ({cache_config.capacity} slots / "
+                f"{shards} shard(s)) is below the batch size "
+                f"({batch_size}); grow the slab or shrink the mesh")
         self.device = resolve_device(device)
         self.cache = SemanticCache(cache_config, policy=policy, index=index,
                                    partition=partition, fusion=fusion)
+        if mesh is not None:
+            # its init refuses a device other than the mesh's
+            self.cache = DistributedCache(self.cache, mesh,
+                                          cache_axes=tuple(cache_axes))
         self.fusion = fusion
         self.sessions = None
         if fusion is not None:
@@ -300,7 +317,9 @@ class CachedEngine:
     def save_cache(self, path: str) -> None:
         """Persist the whole runtime (slab, counters, policy, index, tenancy
         and fusion state) in the JAX package's snapshot format. The manifest
-        records the partition map, which a restore must match."""
+        records the partition map, which a restore must match, and the
+        shard layout (None unsharded), which a restore re-places entries
+        across."""
         part = self.cache.partition
         checkpoint.save_checkpoint(
             path, checkpoint.runtime_to_numpy(self.runtime),
@@ -313,22 +332,32 @@ class CachedEngine:
                       else part.manifest(),
                       "fusion": None if self.fusion is None
                       else type(self.fusion).__name__,
-                      "shard_layout": None})
+                      "shard_layout": None if self.mesh is None
+                      else self.cache.shard_layout()})
 
-    def load_cache(self, path: str) -> None:
+    def load_cache(self, path: str, *, reshard: bool = True) -> None:
         """Restore a snapshot taken by this engine or by the JAX one, and
         resume its TTL clock (expiries are absolute deadlines). A snapshot
         taken under another tenant layout is refused: its regions and ring
         pointers would land on the wrong slots. A snapshot with fusion
         weights needs a fusion engine; a snapshot without them loads into a
         fusion engine, which keeps its fresh fusion weights (raw
-        single-turn keys still match bit-identically)."""
-        flat = checkpoint.open_checkpoint(path)
+        single-turn keys still match bit-identically).
+
+        Shard layouts (DESIGN.md §19.5): a snapshot of this engine's shard
+        count loads strictly, index state included. One of another shard
+        count is refused under ``reshard=False``; otherwise its live
+        entries are re-placed into this layout's rings on the host
+        (``checkpoint.reshard_runtime``) and the index is refit before the
+        next batch (the saved buckets hold the old placement's slots)."""
+        flat = checkpoint.load_checkpoint_flat(path)
         meta = checkpoint.read_metadata(path)
-        if meta.get("shard_layout") is not None:
-            raise NotImplementedError(
-                f"snapshot {path!r} carries shard_layout state, which this "
-                "port does not restore yet")
+        if self.fusion is None and any(k.startswith("runtime/fusion/")
+                                       for k in flat):
+            raise ValueError(
+                f"snapshot {path!r} carries context-fusion weights "
+                "(runtime/fusion/*) but this engine has no fusion strategy; "
+                "construct the engine with fusion=... to load it")
         part = self.cache.partition
         current = None if part is None else part.manifest()
         if meta and meta.get("partition") != current:
@@ -336,10 +365,25 @@ class CachedEngine:
                 f"snapshot partition map {meta.get('partition')} does not "
                 f"match this engine's {current}; rebuild the engine with the "
                 "registry the snapshot was taken under")
-        restored = checkpoint.runtime_from_numpy(
-            flat, self.cache.config, self.device,
-            num_tenants=None if part is None else len(part),
-            index=self.cache.index, fused=self.fusion is not None)
+        layout = meta.get("shard_layout")
+        saved_shards = 1 if layout is None else int(layout["num_shards"])
+        if saved_shards != self._num_shards:
+            if not reshard:
+                raise ValueError(
+                    f"snapshot {path!r} was taken on {saved_shards} "
+                    f"shard(s) but this engine runs {self._num_shards}; "
+                    "pass reshard=True to re-place the entries on load")
+            restored = checkpoint.reshard_runtime(
+                flat, self.cache.init(self.device), old_shards=saved_shards,
+                new_shards=self._num_shards, partition=part)
+            needs_refit = True
+        else:
+            restored = checkpoint.runtime_from_numpy(
+                flat, self.cache.config, self.device,
+                num_tenants=None if part is None else len(part),
+                index=self.cache.index, fused=self.fusion is not None,
+                num_shards=None if self.mesh is None else self._num_shards)
+            needs_refit = False
         if restored.fusion is None and self.runtime.fusion is not None:
             restored = restored.replace(fusion=self.runtime.fusion)
         want = tuple(self.runtime.policy_state.shape)
@@ -348,9 +392,11 @@ class CachedEngine:
                 f"snapshot policy state has shape "
                 f"{tuple(restored.policy_state.shape)}, this engine's policy "
                 f"{type(self.cache.policy).__name__} needs {want}")
+        if self.mesh is not None:
+            restored = self.cache.place(restored)
         self.runtime = restored
         self._now = float(meta.get("now", self._now))
-        self._needs_refit = False
+        self._needs_refit = needs_refit
         self._inserts_since_rebuild = 0
 
     def _maybe_refit(self) -> None:
@@ -395,13 +441,15 @@ class CachedEngine:
         (default: the registry's first tenant); warm each tenant
         separately."""
         cfg = self.cache.config
-        bs = min(256, cfg.capacity)
+        # one chunk must fit in the (per-shard slice of the) ring it goes
+        # to, or written and parked rows could share a slot
+        bs = min(256, cfg.capacity // self._num_shards)
         tid_value = None
         if self.registry is not None:
             name = tenant if tenant is not None else self.registry.names[0]
             tid_value = self.registry.index(name)
-            # one chunk must fit in the tenant's ring to get distinct slots
-            bs = min(bs, self.cache.partition.sizes[tid_value])
+            bs = min(bs, self.cache.partition.sizes[tid_value]
+                     // self._num_shards)
         elif tenant is not None:
             raise ValueError("warm(tenant=...) needs a tenant registry")
         for i in range(0, len(pairs), bs):

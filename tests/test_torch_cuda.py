@@ -13,8 +13,10 @@ the same loop on the CPU; the prefill flash-attention and decode-attention
 kernels against their plain versions, their wrappers' refusals, and the
 model-backed miss path's launches and answers on CUDA against the CPU; the
 async front end's lockstep waves on CUDA against the sync card run and the
-CPU, the tracing engine's spans on CUDA, and sessions, near-hit bands and
-resilience on CUDA against the CPU. Every test here needs a CUDA
+CPU, the tracing engine's spans on CUDA, sessions, near-hit bands and
+resilience on CUDA against the CPU, and the sharded cache (four shards on
+the card: the serve loop against the unsharded card run and the CPU, IVF
+against a restored CPU engine, reshard on load). Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -1348,3 +1350,95 @@ def test_resilience_on_cuda_matches_cpu(cuda_device):
     assert runs[0][0].metrics.summary()["resilience"] == \
         runs[1][0].metrics.summary()["resilience"]
     assert any(r.degraded or r.error for r in runs[0][1])
+
+
+# --------------------------------------------------------------------- #
+# the sharded cache: four shards on the one card
+# --------------------------------------------------------------------- #
+def _sharded_kw(**kw):
+    return dict(corpus=30, queries=15, batch=16, log=lambda *a: None, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+def test_sharded_serve_loop_on_cuda_matches_unsharded_and_cpu(cuda_device,
+                                                              key_dtype):
+    """``--shards 4`` on the card: four cosine launches a batch, one per
+    shard over N/4 slots; the decisions, answers and scores (within 1e-5)
+    equal the unsharded card run's and the sharded CPU run's, every shard
+    holds a quarter of the entries, and the slab holds the unsharded card
+    slab's keys bit for bit."""
+    kw = _sharded_kw(key_dtype=key_dtype)
+    kmod.reset_launches()
+    eng, reqs, resp = serve.run(device="cuda", shards=4, **kw)
+    batches = -(-len(reqs) // 16)
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk": 4 * batches}
+    base = _served(resp)
+    assert any(cached for _, cached in base[0])
+    others = {}
+    for device, shards in (("cuda", 0), ("cpu", 4)):
+        other, _, oresp = serve.run(device=device, shards=shards, **kw)
+        decisions, scores = _served(oresp)
+        assert base[0] == decisions, (device, shards)
+        np.testing.assert_allclose(base[1], scores, rtol=0, atol=1e-5)
+        assert eng.stats.host() == other.stats.host()
+        others[device] = other
+    st = eng.state
+    n = int(st.valid.sum())
+    per_shard = st.valid.reshape(4, -1).sum(1).tolist()
+    assert all(x in (n // 4, -(-n // 4)) for x in per_shard), per_shard
+    keys = sorted(r.tobytes() for r in st.keys[st.valid].cpu().numpy())
+    ost = others["cuda"].state
+    assert keys == sorted(r.tobytes()
+                          for r in ost.keys[ost.valid].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_sharded_ivf_on_cuda_matches_restored_cpu(cuda_device, tmp_path):
+    """``--shards 4 --index ivf``: per batch four probes and four IVF
+    launches, one per shard's own index; the decisions equal those of a
+    sharded CPU engine serving from the card's post-refit snapshot."""
+    kw = dict(corpus=30, queries=15, batch=16, key_dtype="f32", shards=4)
+    eng, requests = _ivf_engine(str(cuda_device), tmp_path, **kw)
+    assert tuple(eng.runtime.index_state.buckets.shape) == (4 * 128, 1024)
+    kmod.reset_launches()
+    kivf.reset_launches()
+    on_card = _served(eng.process(requests))
+    batches = -(-len(requests) // 16)
+    assert kmod.launches == {**dict.fromkeys(kmod.launches, 0),
+                             "cosine_topk": 4 * batches}
+    assert kivf.launches == {"ivf_topk": 4 * batches}
+    restored, _ = _ivf_engine("cpu", **kw)
+    restored.load_cache(str(tmp_path / "refit"))
+    decisions, scores = _served(restored.process(requests))
+    assert on_card[0] == decisions
+    np.testing.assert_allclose(on_card[1], scores, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reshard_on_cuda(cuda_device, tmp_path):
+    """An unsharded card engine's snapshot: a strict load into four shards
+    is refused; resharded, every shard holds entries and the same requests
+    get the unsharded engine's decisions; and 4 -> 1 back."""
+    kw = _sharded_kw(key_dtype="f32")
+    one, reqs, _ = serve.run(device="cuda", **kw)
+    one.save_cache(str(tmp_path / "one"))
+    want = _served(one.process(reqs))
+    four, _ = serve.build(device="cuda", shards=4, **kw)
+    # the tokenizer's vocabulary is host state a snapshot does not carry:
+    # share it, so that restored answers decode to the same words
+    four.tokenizer = one.tokenizer
+    with pytest.raises(ValueError, match="shard"):
+        four.load_cache(str(tmp_path / "one"), reshard=False)
+    four.load_cache(str(tmp_path / "one"))
+    assert bool((four.state.valid.reshape(4, -1).sum(1) > 0).all())
+    got = _served(four.process(reqs))
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+    four.save_cache(str(tmp_path / "four"))
+    back, _ = serve.build(device="cuda", **kw)
+    back.tokenizer = one.tokenizer
+    back.load_cache(str(tmp_path / "four"))
+    # both hold the entries of two passes now
+    assert _served(back.process(reqs))[0] == _served(one.process(reqs))[0]

@@ -20,6 +20,7 @@ from repro.serving import CachedEngine as JEngine
 from repro.serving import Request as JRequest
 from repro.serving import SimulatedLLMBackend as JBackend
 from repro_torch.core.cache import SemanticCache
+from repro_torch.core.distributed import make_mesh
 from repro_torch.core.policy import AdaptiveThreshold
 from repro_torch.core.types import CacheConfig
 from repro_torch.launch import serve
@@ -195,7 +196,10 @@ def test_cuda_entry_points_raise_without_cuda():
 
 @pytest.mark.parametrize("feature", ["mesh"])
 def test_unported_engine_features_raise(feature):
+    """The sharded cache is ported; what is not is a mesh over distinct
+    devices (ROADMAP A6b), which names that item."""
     cfg = CacheConfig(dim=8, capacity=64)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="A6b"):
         CachedEngine(cfg, SimulatedLLMBackend([]), device="cpu",
-                     **{feature: object()})
+                     **{feature: make_mesh((2,), ("data",),
+                                           device=["cpu", "cuda:1"])})

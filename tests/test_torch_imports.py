@@ -85,6 +85,13 @@ def test_sessions_bands_resilience_slice_files_are_checked():
             "generative/synthesize.py", "serving/resilience.py"} <= names
 
 
+def test_sharded_cache_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"core/distributed.py", "core/__init__.py",
+            "training/checkpoint.py", "serving/engine.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -116,6 +123,10 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.generative import BandPolicy, TemplateSplice\n"
         "from repro_torch.serving import (FaultyBackend, ResilienceConfig,\n"
         "    build_multi_turn_workload, run_sessions)\n"
+        "from repro_torch.core import (DistributedCache, ShardMesh,\n"
+        "    make_mesh, shard_axes)\n"
+        "from repro_torch.training.checkpoint import (load_checkpoint_flat,\n"
+        "    reshard_runtime)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
