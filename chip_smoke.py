@@ -128,13 +128,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
             whole empty splits, rows that see nothing, B=1, S=1, S=17,
             S=4096 and 20,000 in splits, G=16 with D=256); the main
             configuration served with full-width yi-6b (launches per batch
-            with misses, finite logits, Table 1 hits equal to the main
-            phase's, backend wall split into prefill and decode, one
+            with misses, finite logits, every hit decision equal to the
+            main phase's, backend wall split into prefill and decode, one
             generate under torch.profiler); the first miss batch again
             through the plain attention; the reduced yi-6b card vs CPU; and
             both kernels and SDPA timed from CUDA graphs: flash at the serve
             shape, decode at the serve shape, at the fewest misses a batch
-            and at yi-6b's 4,096-token context
+            and at yi-6b's 4,096-token context; the flash cases include
+            attention sinks (under a tile, spanning tiles, past Lk, with
+            Lk > Lq, windows that drop keys) and G = 5 and 6, the decode
+            cases G = 5 and 6 and hymba's ring with 128 sinks
+  model_families
+            the moe, ssm and hybrid families behind the main configuration
+            for 4 batches, each at full width in bf16: grok-1 and
+            llama4-maverick at 2 layers (reduced depth), mamba2-130m and
+            hymba-1.5b whole; launches per batch with misses, finite
+            logits, every hit decision equal to the sim backend's in the
+            main phase, backend wall split into prefill and decode, one
+            generate under torch.profiler; grok-1 and hymba again through
+            the plain attention (MoE rows routed apart at a router
+            near-tie reported and left out); mamba2's decode continuing
+            its forward (bf16, and an f32 twin); each reduced family card
+            vs CPU; the flash kernel with sinks timed at hymba's serve
+            shape beside its bound, the plain version and SDPA with a
+            boolean mask
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the per-kernel summary, and ``{"ok": true, "device": ...}``.
 """
@@ -2826,31 +2843,42 @@ def _attn_err(torch, out, want, dtype, where) -> float:
 def _flash_cases(torch) -> float:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    cases = [  # (B, Lq, Lk, H, HKV, D, window)
-        (40, 64, 64, 32, 4, 128, None),    # the serve path, G=8
-        (4, 64, 64, 4, 2, 64, None),       # the reduced yi-6b, G=2
-        (2, 100, 100, 8, 8, 64, None),     # ragged, G=1
-        (2, 256, 256, 8, 2, 128, 100),     # window, G=4
-        (1, 256, 256, 16, 2, 64, 64),      # window, G=8
-        (2, 64, 256, 8, 2, 128, None),     # Lk > Lq
-        (2, 100, 256, 8, 1, 64, 80),       # Lk > Lq, ragged, window
-        (39, 64, 64, 32, 4, 128, None),    # the serve shape at B=39
-        (3, 200, 200, 16, 2, 128, None),   # four KV tiles, a ragged tail
+    cases = [  # (B, Lq, Lk, H, HKV, D, window, n_sink)
+        (40, 64, 64, 32, 4, 128, None, 0),    # the serve path, G=8
+        (4, 64, 64, 4, 2, 64, None, 0),       # the reduced yi-6b, G=2
+        (2, 100, 100, 8, 8, 64, None, 0),     # ragged, G=1
+        (2, 256, 256, 8, 2, 128, 100, 0),     # window, G=4
+        (1, 256, 256, 16, 2, 64, 64, 0),      # window, G=8
+        (2, 64, 256, 8, 2, 128, None, 0),     # Lk > Lq
+        (2, 100, 256, 8, 1, 64, 80, 0),       # Lk > Lq, ragged, window
+        (39, 64, 64, 32, 4, 128, None, 0),    # the serve shape at B=39
+        (3, 200, 200, 16, 2, 128, None, 0),   # four KV tiles, a ragged tail
+        # attention sinks (hymba's meta tokens), windows that drop keys
+        (2, 256, 256, 8, 2, 64, 64, 20),      # n_sink < one 64-key tile
+        (1, 400, 400, 10, 2, 64, 70, 150),    # sinks span tiles, G=5
+        (1, 300, 300, 12, 2, 128, 50, 128),   # two whole sink tiles, G=6
+        (2, 130, 130, 5, 1, 64, 32, 200),     # n_sink >= Lk
+        (2, 100, 300, 6, 1, 128, 90, 70),     # Lk > Lq with sinks, G=6
+        (40, 64, 64, 48, 8, 128, None, 0),    # grok-1's serve shape, G=6
+        (40, 64, 64, 40, 8, 128, None, 0),    # llama4's serve shape, G=5
+        (40, 192, 192, 25, 5, 64, 1024, 128),  # hymba's serve shape, G=5
+        (2, 2048, 2048, 25, 5, 64, 1024, 128),  # hymba, the window drops
     ]
     worst = 0.0
     torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}
     for dtype in ("f32", "bf16"):
         gen = torch.Generator(device="cuda").manual_seed(41)
         errs = []
-        for b, lq, lk, h, hkv, d, window in cases:
+        for b, lq, lk, h, hkv, d, window, sink in cases:
             q, k, v = _attn_inputs(torch, gen, ((b, lq, h, d), (b, lk, hkv, d),
                                                 (b, lk, hkv, d)),
                                    torch_dtype[dtype])
+            kw = dict(window=window, n_sink=sink)
             errs.append(_attn_err(
-                torch, flash_attention_cuda(q, k, v, window=window),
-                ref.flash_attention_ref(q, k, v, window=window), dtype,
+                torch, flash_attention_cuda(q, k, v, **kw),
+                ref.flash_attention_ref(q, k, v, **kw), dtype,
                 f"flash {dtype} B={b} Lq={lq} Lk={lk} H={h} HKV={hkv} "
-                f"D={d} window={window}"))
+                f"D={d} window={window} n_sink={sink}"))
         emit("model", kernel="flash_attention", dtype=dtype, cases=len(cases),
              max_abs_err=max(errs), rtol_atol=ATTN_TOL[dtype])
         worst = max(worst, max(errs))
@@ -2860,10 +2888,17 @@ def _flash_cases(torch) -> float:
 def _decode_slots(torch, s, layout):
     """(slot_pos (S,) int32 on the card, pos). ``prefix``: the serve path
     at its 12th decode step (76 of 96 slots written); ``ring``: a wrapped
-    ring, a quarter newest, a quarter older, half empty; ``full``: every
-    slot; ``none``: every stored position past pos."""
+    ring, a quarter newest, a quarter older, half empty; ``meta``: hymba's
+    serve ring at its first decode step (positions S..2S-1 after a 2S-token
+    prefill, slot 0 then overwritten by position 2S): with 128 sinks and S
+    = 96, meta tokens 97-127 are still in it; ``full``: every slot;
+    ``none``: every stored position past pos."""
     sp = torch.full((s,), -1, dtype=torch.int32)
-    if layout == "prefix":
+    if layout == "meta":
+        pos = 2 * s
+        sp = torch.arange(s, dtype=torch.int32) + s
+        sp[0] = pos
+    elif layout == "prefix":
         pos = PROMPT + 11
         sp[:pos + 1] = torch.arange(pos + 1, dtype=torch.int32)
     elif layout == "ring":
@@ -2909,6 +2944,11 @@ def _decode_cases(torch) -> float:
         (2, 1024, 16, 1, 256, 300, 2, "ring"),     # G=16, D=256, split
         (2, 4096, 8, 2, 64, None, 0, "none"),      # splits, nothing visible
         (1, 20000, 4, 1, 64, None, 0, "ring"),     # 128 splits of two tiles
+        (40, 96, 48, 8, 128, None, 0, "prefix"),   # grok-1's serve shape, G=6
+        (40, 96, 40, 8, 128, None, 0, "prefix"),   # llama4's, G=5
+        (40, 96, 25, 5, 64, 1024, 128, "meta"),    # hymba's ring with sinks
+        (3, 96, 25, 5, 64, 32, 128, "meta"),       # its sinks past a window
+        (2, 512, 10, 2, 64, 60, 70, "full"),       # G=5, window and sinks
     ]
     worst = 0.0
     for kv in ("f32", "bf16", "int8"):
@@ -3016,91 +3056,14 @@ def _plain_attention():
     return undo
 
 
-def _logit_gap(a, b) -> dict:
-    d = (a.float() - b.float()).abs()
-    ref = b.float().abs()
+def _logit_gap(a, b, vocab: int | None = None) -> dict:
+    """max |a - b| and its share of max |b|, mean |a - b| over mean |b|,
+    over the first ``vocab`` columns (the padding columns hold -1e9)."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    d = (a - b).abs()
+    ref = b.abs()
     return {"max_abs": float(d.max()), "max_rel": float(d.max() / ref.max()),
             "mean_rel": float(d.mean() / ref.mean())}
-
-
-def _full_width(torch, hits: dict) -> dict:
-    """Full-width yi-6b behind the paper's serve loop on the card."""
-    from repro_torch.launch import serve
-    t0 = time.perf_counter()
-    eng, reqs = serve.build(device="cuda", backend="model", arch="yi-6b",
-                            reduced=False, log=lambda *a: None)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    model = eng.backend.model
-    cfg = model.config
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
-    rec = _Recorder(torch, eng.backend)
-    _reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    resp = eng.process(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launches()
-    rec.restore()
-    with_misses = len(rec.calls)
-    per_batch = 2 * cfg.n_layers
-    _expect_launches(launches, {
-        "cosine_topk": MAIN_BATCHES,
-        "flash_attention": per_batch * with_misses,
-        "decode_attention": DECODE_PER_STEP_LAYERS * cfg.n_layers
-        * with_misses}, "full-width yi-6b serving")
-    if len(resp) != len(reqs) or not rec.all_finite():
-        fail("full-width yi-6b: missing responses or a non-finite logit")
-    got = {c: m["cache_hits"] for c, m in
-           eng.metrics.summary()["categories"].items()}
-    if got != hits:
-        fail(f"full-width yi-6b: Table 1 hits {got}, sim backend {hits}")
-    misses = [c["misses"] for c in rec.calls]
-    emit("model", check="full-width yi-6b serving", arch=cfg.name,
-         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
-         vocab=cfg.vocab, dtype=cfg.dtype, param_count=cfg.param_count(),
-         param_bytes=param_bytes,
-         card_memory_allocated=torch.cuda.memory_allocated(),
-         card_memory_peak=torch.cuda.max_memory_allocated(),
-         build_s=build_s, requests=len(resp), batches=MAIN_BATCHES,
-         batches_with_misses=with_misses, misses_per_batch=misses,
-         kernel_launches=launches, all_logits_finite=True, table1_hits=got,
-         wall_s=wall, wall_per_batch_s=wall / MAIN_BATCHES,
-         generate_s_per_batch=[c["generate_s"] for c in rec.calls],
-         prefill_s_per_batch=[c["prefill_s"] for c in rec.calls],
-         decode_s_per_batch=[c["decode_s"] for c in rec.calls],
-         serve_path_s=eng.metrics.cache_path_time_s)
-    emit("model", check="device time of one generate (first miss batch)",
-         **_profile_generate(torch, eng.backend, rec.calls[0]))
-    # the first miss batch again, kernels against the plain attention
-    toks, _ = eng.backend.tokenizer.encode_batch(rec.calls[0]["queries"],
-                                                 PROMPT)
-    tokens = torch.as_tensor(toks, dtype=torch.long, device="cuda")
-    k_logits, k_first, k_tokens = _greedy(torch, model, tokens)
-    undo = _plain_attention()
-    try:
-        p_logits, p_first, p_tokens = _greedy(torch, model, tokens,
-                                              forced=k_tokens)
-    finally:
-        undo()
-    prefill, first = _logit_gap(k_logits, p_logits), \
-        _logit_gap(k_first, p_first)
-    emit("model", check="full-width kernels vs plain attention, first miss "
-         "batch, plain run fed the kernel run's tokens", rows=len(toks),
-         prefill_logits=prefill, first_decode_logits=first,
-         greedy_tokens_equal_share=float((k_tokens == p_tokens).float()
-                                         .mean()),
-         tolerance={"max_rel": MODEL_LOGIT_REL,
-                    "mean_rel": MODEL_LOGIT_MEAN_REL})
-    for name, gap in (("prefill", prefill), ("first decode step", first)):
-        if not (gap["max_rel"] <= MODEL_LOGIT_REL
-                and gap["mean_rel"] <= MODEL_LOGIT_MEAN_REL):
-            fail(f"full-width yi-6b {name} logits: kernels vs plain "
-                 f"attention {gap}")
-    return {"launches": launches, "misses": misses}
 
 
 def _profile_generate(torch, backend, call: dict) -> dict:
@@ -3175,11 +3138,12 @@ class _GapRecorder:
                 if float(g) < TIE_TOL}
 
 
-def _reduced_card_vs_cpu(torch) -> dict:
-    """``--backend model`` (reduced yi-6b, f32) on the card and on the CPU
-    with the same weights: every request's decision and answer."""
+def _reduced_card_vs_cpu(torch, arch: str = "yi-6b") -> dict:
+    """``--backend model --arch <arch>`` (reduced, f32) on the card and on
+    the CPU with the same weights: every request's decision and answer."""
     from repro_torch.launch import serve
-    kw = dict(corpus=50, queries=25, backend="model", log=lambda *a: None)
+    kw = dict(corpus=50, queries=25, backend="model", arch=arch,
+              log=lambda *a: None)
     card, reqs = serve.build(device="cuda", **kw)
     cpu, cpu_reqs = serve.build(device="cpu", **kw)
     cpu.backend.model.load_state_dict(
@@ -3194,27 +3158,32 @@ def _reduced_card_vs_cpu(torch) -> dict:
     batches = range(0, len(reqs), size)
     with_misses = sum(any(not r.cached for r in resp[i:i + size])
                       for i in batches)
-    layers = card.backend.model.config.n_layers
+    layers = _attention_layers(card.backend.model.config)
     _expect_launches(launches, {
         "cosine_topk": len(batches),
         "flash_attention": 2 * layers * with_misses,
         "decode_attention": DECODE_PER_STEP_LAYERS * layers * with_misses},
-        "reduced yi-6b serving")
+        f"reduced {arch} serving")
     ties = gaps.near_ties()
     differing = 0
     for i, (a, b) in enumerate(zip(resp, cpu_resp)):
         if a.cached != b.cached or abs(a.score - b.score) > 1e-5:
-            fail(f"reduced yi-6b: request {i} decision differs card vs cpu")
+            fail(f"reduced {arch}: request {i} decision differs card vs cpu")
         if a.answer != b.answer:
             if reqs[i].query not in ties:
-                fail(f"reduced yi-6b: request {i} answer differs card vs "
+                fail(f"reduced {arch}: request {i} answer differs card vs "
                      f"cpu with no near-tie: {a.answer!r} vs {b.answer!r}")
             differing += 1
     out = {"requests": len(resp), "misses": sum(not r.cached for r in resp),
            "kernel_launches": launches, "near_tie_queries": len(ties),
            "answers_differing_at_near_ties": differing}
-    emit("model", check="reduced yi-6b f32, card vs cpu", **out)
+    emit("model", check=f"reduced {arch} f32, card vs cpu", **out)
     return out
+
+
+def _attention_layers(cfg) -> int:
+    """Layers that launch the attention kernels (none in the ssm family)."""
+    return cfg.n_layers if cfg.has_attention else 0
 
 
 def _attn_turns(torch, fns: dict, reps: int) -> dict:
@@ -3315,17 +3284,411 @@ def _model_timing(torch, card: str, b: int, b_fewest: int) -> dict:
     return out
 
 
-def phase_model(torch, card: str, hits: dict) -> dict:
+def phase_model(torch, card: str, sim_cached: list) -> dict:
     """The model-backed miss path: both attention kernels against their
-    plain versions, full-width yi-6b serving, the reduced model card vs
-    CPU, and the kernels' times at the serve shape."""
+    plain versions, full-width yi-6b serving (all 16 batches, decisions
+    ``sim_cached``: the main phase's), the reduced model card vs CPU, and
+    the kernels' times at the serve shape."""
     max_err = {"flash_attention": _flash_cases(torch),
                "decode_attention": _decode_cases(torch)}
-    full = _full_width(torch, hits)
+    full = _model_serve(torch, "yi-6b", None, sim_cached, MAIN_BATCHES,
+                        "model")
     _reduced_card_vs_cpu(torch)
-    b = max(1, round(sum(full["misses"]) / len(full["misses"])))
-    return {"max_err": max_err, "launches": full["launches"],
-            "timing": _model_timing(torch, card, b, min(full["misses"]))}
+    b = max(1, round(sum(full["misses_per_batch"])
+                     / len(full["misses_per_batch"])))
+    return {"max_err": max_err, "launches": full["kernel_launches"],
+            "timing": _model_timing(torch, card, b,
+                                    min(full["misses_per_batch"]))}
+
+
+# --------------------------------------------------------------------- #
+# the moe, ssm and hybrid families behind the miss path
+# --------------------------------------------------------------------- #
+# (arch, layers kept or None for all): grok-1 (314B) and llama4 (400B) do
+# not fit one 80 GB card, so they run at full width and reduced depth
+FAMILIES = (("grok-1-314b", 2), ("llama4-maverick-400b-a17b", 2),
+            ("mamba2-130m", None), ("hymba-1.5b", None))
+FAMILY_BATCHES = 4          # of the main configuration's 16
+VS_PLAIN = ("yi-6b", "grok-1-314b", "hymba-1.5b")
+CONTINUATION_STEPS = 8      # mamba2: decode after prefill vs the forward
+CONTINUATION_F32_REL = 1e-3  # f32: max |diff| / max |logit|
+
+
+def _free_card(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# a bf16 attention output one ulp off moves a token's router probabilities
+# a little (XLA against PyTorch on the CPU, two layers: up to 3.1e-3);
+# where two of its top k + 1 experts are that close it may take the other,
+# and its logits move wholesale (grok-1 at full width, kernels against
+# plain attention: 0.32 of the largest logit on one row, 0.65% on average,
+# on an NVIDIA H100 80GB HBM3 at 700 W)
+ROUTE_TIE = 1e-2
+# at capacity 1.25 one token routed apart shifts the ranks of its experts'
+# later tokens, and a token at the capacity edge then keeps or loses a
+# choice (grok-1, first miss batch: 488 of 2,560 prefill rows and 14 of 40
+# sequences left out on an H100 at 700 W); at least half must be compared
+MAX_REROUTED_SHARE = 0.5
+
+
+class _RoutingRecorder:
+    """Records, for every MoE call of the model, each token's experts in
+    choice order, which of its choices kept a slot, and its router's
+    smallest gap between consecutive probabilities of its top k + 1 (two
+    choices swapping order also moves the ranks, hence the drops, of the
+    tokens after it)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import model as mm
+        from repro_torch.models import moe
+        self.torch, self.mm, self.moe = torch, mm, moe
+        self.calls = []
+        self._ffn = mm.moe_ffn
+        mm.moe_ffn = self._record
+
+    def _record(self, x, wr, wg, *w, topk, capacity_factor):
+        torch, moe = self.torch, self.moe
+        e = wg.shape[0]
+        cap = max(int(math.ceil(x.shape[0] * topk / e * capacity_factor)), 1)
+        _, ex, _ = moe.router(x, wr, topk)
+        slots, _ = moe.dispatch_indices(ex, e, cap)
+        top = torch.softmax(x.float() @ wr.float(), dim=-1).topk(
+            topk + 1, dim=-1).values
+        self.calls.append((ex, slots >= 0,
+                           (top[:, :-1] - top[:, 1:]).amin(dim=-1)))
+        return self._ffn(x, wr, wg, *w, topk=topk,
+                         capacity_factor=capacity_factor)
+
+    def restore(self):
+        self.mm.moe_ffn = self._ffn
+
+
+def _rerouted(torch, a: list, b: list, shape: tuple, prior, where: str):
+    """Which (B, L) tokens two runs' MoE calls ``a`` and ``b`` (one per MoE
+    layer, in order) routed apart (other experts, another order of them,
+    or another choice dropped) or carried such a token's change: a
+    rerouted token taints its own and its sequence's later positions in
+    the layers after it (causal attention), and ``prior`` (B,) taints
+    whole sequences (caches of an earlier pass). An untainted token
+    taking other experts must sit at a near-tie (``ROUTE_TIE``); a drop
+    that differs alone needs a token routed apart in its call (ranks are
+    choice-major: any token's first choice ranks before every second
+    choice, so a later token can move an earlier one's drop)."""
+    tainted = prior[:, None].expand(shape).clone()
+    for (ea, ka, gap), (eb, kb, _) in zip(a, b):
+        other = (ea != eb).any(dim=-1).view(shape)
+        dropped = (ka != kb).any(dim=-1).view(shape) & ~other
+        fresh = other & ~tainted
+        if bool((fresh & (gap.view(shape) >= ROUTE_TIE)).any()):
+            fail(f"{where}: a token routed apart with a router gap of "
+                 f"{float(gap.view(shape)[fresh].max())} >= {ROUTE_TIE}")
+        if bool(dropped.any()) and not bool(other.any()):
+            fail(f"{where}: a drop differs with no token routed apart")
+        tainted |= (other | dropped).cumsum(dim=1) > 0
+    return tainted
+
+
+# hymba at full width in bf16, kernels against plain attention, same
+# tokens fed: 32 layers amplify the attention outputs' one-ulp roundings
+# (4.5% of the mean logit on average, 10.2% of the largest at most, on an
+# H100 at 700 W; mamba2's decode against its own forward in bf16, no kernel
+# involved: 2.7% / 9.0%), so its bf16 logits are held to twice yi-6b's
+# bounds, and its f32 twin (the same weights in f32, the kernels' f32
+# paths, rounding 2^-24 for 2^-8) to TWIN_F32_REL: a wrong mask moves the
+# logits by their whole range
+FAMILY_LOGIT_REL = {"hymba-1.5b": (0.2, 0.1)}   # (max, mean) share
+TWIN_F32_REL = 1e-3
+
+
+def _kernels_vs_plain_gaps(torch, model, tokens, arch) -> dict:
+    """``_greedy`` through the kernels, then through the plain attention
+    fed the kernel run's tokens, each with its MoE routing recorded; the
+    logit gaps over the rows both runs routed alike."""
+    runs = []
+    for plain in (False, True):
+        rec = _RoutingRecorder(torch)
+        undo = _plain_attention() if plain else (lambda: None)
+        try:
+            runs.append((_greedy(torch, model, tokens, forced=runs[0][0][2]
+                                 if plain else None), rec.calls))
+        finally:
+            undo()
+            rec.restore()
+    (k_logits, k_first, k_tokens), k_calls = runs[0]
+    (p_logits, p_first, p_tokens), p_calls = runs[1]
+    b, l = tokens.shape
+    keep = torch.ones((b, l), dtype=torch.bool, device="cuda")
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    n = len(k_calls) // (2 + NEW_TOKENS - 1)      # MoE calls a pass
+    if n:
+        (c0, c1, c2) = [(k_calls[i * n:(i + 1) * n], p_calls[i * n:(i + 1) * n])
+                        for i in range(3)]
+        none = torch.zeros((b,), dtype=torch.bool, device="cuda")
+        cache = _rerouted(torch, *c0, (b, l), none, f"{arch} first prefill")
+        keep = ~_rerouted(torch, *c1, (b, l), none, f"{arch} second prefill")
+        live = ~_rerouted(torch, *c2, (b, 1), cache.any(dim=1),
+                          f"{arch} first decode step")[:, 0]
+    v = model.config.vocab
+    return {"prefill_logits": _logit_gap(k_logits[keep], p_logits[keep], v),
+            "first_decode_logits": _logit_gap(k_first[live], p_first[live],
+                                              v),
+            "all_rows": {"prefill_logits": _logit_gap(k_logits, p_logits, v),
+                         "first_decode_logits": _logit_gap(k_first, p_first,
+                                                           v)},
+            "prefill_rows_rerouted": int((~keep).sum()),
+            "prefill_rows": keep.numel(),
+            "sequences_rerouted": int((~live).sum()),
+            "greedy_tokens_equal_share": float((k_tokens == p_tokens).float()
+                                               .mean())}
+
+
+def _kernels_vs_plain(torch, model, queries, tokenizer, arch,
+                      phase: str) -> dict:
+    """The first miss batch again, kernels against the plain attention,
+    the plain run fed the kernel run's tokens (yi-6b, grok-1, hymba). MoE: rows whose tokens the two runs routed apart at a near-tie
+    are reported and left out of the bounds: in the second prefill a
+    token's row and its sequence's later rows (causal attention carries
+    it forward), in the first decode step its sequence (the first
+    prefill's caches and the step's own routing). hymba: bf16 bounds of
+    ``FAMILY_LOGIT_REL``, and an f32 twin held to ``TWIN_F32_REL``."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    toks, _ = tokenizer.encode_batch(queries, PROMPT)
+    tokens = torch.as_tensor(toks, dtype=torch.long, device="cuda")
+    max_rel, mean_rel = FAMILY_LOGIT_REL.get(
+        arch, (MODEL_LOGIT_REL, MODEL_LOGIT_MEAN_REL))
+    out = {"rows": len(toks), **_kernels_vs_plain_gaps(torch, model, tokens,
+                                                       arch),
+           "tolerance": {"max_rel": max_rel, "mean_rel": mean_rel,
+                         "route_tie": ROUTE_TIE,
+                         "max_rerouted_share": MAX_REROUTED_SHARE}}
+    if arch in FAMILY_LOGIT_REL:
+        twin = Model(dataclasses.replace(model.config, dtype="float32"),
+                     device="cuda")
+        twin.load_state_dict(model.state_dict())       # cast to f32
+        out["f32_twin"] = _kernels_vs_plain_gaps(torch, twin, tokens, arch)
+        out["f32_twin"]["max_rel_bound"] = TWIN_F32_REL
+        del twin
+        _free_card(torch)
+    emit(phase, check=f"full-width {arch} kernels vs plain attention, "
+         "first miss batch", **out)
+    if out["prefill_rows_rerouted"] > MAX_REROUTED_SHARE * out[
+            "prefill_rows"] or out["sequences_rerouted"] > \
+            MAX_REROUTED_SHARE * len(toks):
+        fail(f"full-width {arch}: too many rows routed apart, kernels vs "
+             f"plain attention: {out}")
+    for name in ("prefill_logits", "first_decode_logits"):
+        gap = out[name]
+        if not (gap["max_rel"] <= max_rel and gap["mean_rel"] <= mean_rel):
+            fail(f"full-width {arch} {name}: kernels vs plain attention "
+                 f"{gap}")
+        if "f32_twin" in out and \
+                out["f32_twin"][name]["max_rel"] > TWIN_F32_REL:
+            fail(f"full-width {arch} f32 twin {name}: kernels vs plain "
+                 f"attention {out['f32_twin'][name]}")
+    return out
+
+
+def _continuation(torch, model, tokens) -> dict:
+    """Greedy decode after a prefill against ``forward`` over the prompt
+    and the tokens decoded so far, at the same positions (logical vocab
+    only)."""
+    v = model.config.vocab
+    with torch.inference_mode():
+        logits, caches = model(tokens, collect_cache=True)
+        steps = [logits[:, -1:, :v].float()]
+        out = [steps[0].argmax(-1)]
+        for _ in range(CONTINUATION_STEPS):
+            dl, caches = model.decode_step(caches, out[-1])
+            steps.append(dl[..., :v].float())
+            out.append(steps[-1].argmax(-1))
+        decoded = torch.cat(out, dim=1)                 # (B, steps + 1)
+        full = model(torch.cat([tokens, decoded[:, :-1]], dim=1))
+    full = full[:, tokens.shape[1] - 1:, :v].float()    # the same positions
+    diff = (torch.cat(steps, dim=1) - full).abs()
+    top2 = torch.topk(full, 2, dim=-1).values
+    # a token may differ only where the forward's top-two gap is under
+    # twice that row's largest logit difference (a near-tie)
+    ties = (top2[..., 0] - top2[..., 1]) < 2 * diff.amax(dim=-1)
+    differ = full.argmax(-1) != decoded
+    return {"tokens_equal_share": float((~differ).float().mean()),
+            "near_ties": int(ties.sum()),
+            "unexplained_differences": int((differ & ~ties).sum()),
+            "max_abs_logit_diff": float(diff.max()),
+            "max_rel": float(diff.max() / full.abs().max()),
+            "mean_rel": float(diff.mean() / full.abs().mean())}
+
+
+def _ssm_continuation(torch, model, queries, tokenizer) -> dict:
+    """mamba2 at full width: greedy tokens of ``decode_step`` after a
+    prefill (the recurrence) against ``forward`` over the extended
+    sequence (the chunked scan). In bf16 the two round apart layer after
+    layer, so tokens may differ at near-ties only; an f32 twin with the
+    same weights must agree within ``CONTINUATION_F32_REL`` of its largest
+    logit (a wrong conv or SSD state moves them by their whole range)."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    toks, _ = tokenizer.encode_batch(queries, PROMPT)
+    tokens = torch.as_tensor(toks, dtype=torch.long, device="cuda")
+    twin = Model(dataclasses.replace(model.config, dtype="float32"),
+                 device="cuda")
+    twin.load_state_dict(model.state_dict())           # cast to f32
+    res = {"rows": len(toks), "steps": CONTINUATION_STEPS + 1,
+           "bf16": _continuation(torch, model, tokens),
+           "f32": _continuation(torch, twin, tokens),
+           "f32_max_rel_bound": CONTINUATION_F32_REL}
+    del twin
+    emit("model_families", check="mamba2 full width: decode continues the "
+         "forward", **res)
+    for dtype in ("bf16", "f32"):
+        if res[dtype]["unexplained_differences"]:
+            fail(f"mamba2 {dtype}: decode after prefill and forward "
+                 f"disagree on a greedy token with no near-tie: {res}")
+    if res["f32"]["max_rel"] > CONTINUATION_F32_REL:
+        fail(f"mamba2 f32: decode after prefill and forward differ by "
+             f"{res['f32']['max_rel']} of the largest logit")
+    return res
+
+
+def _model_serve(torch, arch, n_layers, sim_cached, batches=FAMILY_BATCHES,
+                 phase="model_families") -> dict:
+    """``arch`` at full width (``n_layers`` layers, or all) behind the main
+    configuration for ``batches`` batches: launches per batch with misses,
+    finite logits, every hit decision equal to the sim backend's in the
+    main phase, the backend wall split into prefill and decode, one
+    generate under ``torch.profiler``; the first miss batch again through
+    the plain attention (``VS_PLAIN``), mamba2's decode continuing its
+    forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, reqs = serve.build(device="cuda", backend="model", arch=arch,
+                            reduced=False, n_layers=n_layers,
+                            log=lambda *a: None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = eng.backend.model
+    cfg = model.config
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    reqs = reqs[:batches * eng.batcher.batch_size]
+    rec = _Recorder(torch, eng.backend)
+    _reset_launches()
+    t0 = time.perf_counter()
+    resp = eng.process(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    rec.restore()
+    with_misses = len(rec.calls)
+    layers = _attention_layers(cfg)
+    _expect_launches(launches, {
+        "cosine_topk": batches,
+        "flash_attention": 2 * layers * with_misses,
+        "decode_attention": DECODE_PER_STEP_LAYERS * layers * with_misses},
+        f"full-width {arch} serving")
+    if len(resp) != len(reqs) or not rec.all_finite():
+        fail(f"full-width {arch}: missing responses or a non-finite logit")
+    cached = [r.cached for r in resp]
+    if cached != sim_cached[:len(reqs)]:
+        fail(f"full-width {arch}: hit decisions differ from the sim "
+             "backend's")
+    misses = [c["misses"] for c in rec.calls]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "param_count": cfg.param_count(),
+           "reduced": None if n_layers is None else {
+               "n_layers": [n_layers, get_arch(arch).n_layers]},
+           "d_model": cfg.d_model, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "experts": cfg.n_experts, "topk": cfg.moe_topk,
+           "ssm_state": cfg.ssm_state, "meta_tokens": cfg.n_meta_tokens,
+           "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "param_bytes": param_bytes,
+           "card_memory_peak": torch.cuda.max_memory_allocated(),
+           "build_s": build_s, "requests": len(resp),
+           "batches": batches, "batches_with_misses": with_misses,
+           "misses_per_batch": misses, "hits": len(resp) - sum(misses),
+           "kernel_launches": launches, "all_logits_finite": True,
+           "decisions_equal_sim": True,
+           "table1_hits": {c: m["cache_hits"] for c, m in
+                           eng.metrics.summary()["categories"].items()},
+           "wall_s": wall,
+           "wall_per_batch_s": wall / batches,
+           "serve_path_s": eng.metrics.cache_path_time_s,
+           "generate_s_per_batch": [c["generate_s"] for c in rec.calls],
+           "prefill_s_per_batch": [c["prefill_s"] for c in rec.calls],
+           "decode_s_per_batch": [c["decode_s"] for c in rec.calls]}
+    emit(phase, check=f"full-width {arch} serving", **out)
+    # the last miss batch: the first also meets cuBLAS's first choice of
+    # kernels for these shapes (grok-1: 0.9 s of prefill on an H100)
+    emit(phase, check=f"device time of one generate, {arch} (last miss "
+         "batch)", **_profile_generate(torch, eng.backend, rec.calls[-1]))
+    first = rec.calls[0]["queries"]
+    if arch in VS_PLAIN:
+        out["vs_plain"] = _kernels_vs_plain(
+            torch, model, first, eng.backend.tokenizer, arch, phase)
+    if not cfg.has_attention:
+        out["continuation"] = _ssm_continuation(torch, model, first,
+                                                eng.backend.tokenizer)
+    del eng, model, rec
+    _free_card(torch)
+    return out
+
+
+def _sink_timing(torch, card: str, b: int) -> dict:
+    """Row 9 with sinks at hymba's serve shape (B rows, 128 meta tokens +
+    the 64-token prompt = 192 positions, 25/5 heads of 64, window 1,024,
+    128 sinks): the kernel, its plain version and SDPA with the same
+    visibility as a boolean mask, each also from a CUDA graph."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    l, h, hkv, d, window, sink = 192, 25, 5, 64, 1024, 128
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    q, k, v = _attn_inputs(torch, gen, ((b, l, h, d), (b, l, hkv, d),
+                                        (b, l, hkv, d)), torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qp = torch.arange(l, device="cuda")[:, None]
+    kp = torch.arange(l, device="cuda")[None, :]
+    mask = (kp <= qp) & ((kp > qp - window) | (kp < sink))
+    kw = dict(window=window, n_sink=sink)
+    row = _attn_turns(torch, {
+        "kernel": lambda: flash_attention_cuda(q, k, v, **kw),
+        "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)}, 100)
+    pairs = int(mask.sum())
+    bound = _bound(4.0 * d * h * b * pairs,
+                   2 * q.numel() * 2 + 2 * k.numel() * 2, PEAK_BF16_FLOPS)
+    out = {**row, **bound, "visible_pairs": pairs,
+           "share_of_bound": bound["bound_ms"] / row["graph_ms"]}
+    emit("timing", kernel="flash_attention", shape="hymba_sinks", B=b, L=l,
+         H=h, HKV=hkv, D=d, window=window, n_sink=sink, dtype="bf16",
+         causal=True, card=card, **out)
+    return out
+
+
+def phase_model_families(torch, card: str, sim_cached: list) -> dict:
+    """The moe, ssm and hybrid families: each at full width behind the
+    main configuration (grok-1 and llama4 at two layers), its hit
+    decisions the sim backend's; the kernels against the plain attention
+    for grok-1 and hymba; mamba2's decode continuing its forward; each
+    reduced family card vs CPU; row 9 timed with sinks."""
+    runs = {arch: _model_serve(torch, arch, n, sim_cached)
+            for arch, n in FAMILIES}
+    for arch, _ in FAMILIES:
+        _reduced_card_vs_cpu(torch, arch)
+    launches = {name: sum(r["kernel_launches"][name] for r in runs.values())
+                for name in ("cosine_topk", "flash_attention",
+                             "decode_attention")}
+    hymba = runs["hymba-1.5b"]["misses_per_batch"]
+    b = max(1, round(sum(hymba) / len(hymba)))
+    return {"launches": launches, "sink_timing": _sink_timing(torch, card, b)}
 
 
 # --------------------------------------------------------------------- #
@@ -3341,7 +3704,7 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     max_err = phase_kernel(torch)
-    main_launches, hits, main_served, sync = phase_main(torch)
+    main_launches, _, main_served, sync = phase_main(torch)
     tenancy_launches, tenancy_served = phase_tenancy(torch)
     launches = {"cosine_topk": main_launches, **tenancy_launches}
     with tempfile.TemporaryDirectory() as scratch:
@@ -3352,6 +3715,7 @@ def main() -> None:
     launches.update(quant_launches)
     for name, err in quant_err.items():
         max_err[name] = max(max_err[name], err)
+    sim_cached = [r.cached for r in sync["responses"]]
     phase_serve_async(torch, sync)
     ctx_launches = phase_serve_context(torch, sync)
     with tempfile.TemporaryDirectory() as scratch:
@@ -3363,7 +3727,12 @@ def main() -> None:
     for name in ("cosine_topk", "cosine_topk_interval", "ivf_topk"):
         launches[name] += sharded_launches[name]
     timing = phase_timing(torch, card)
-    model = phase_model(torch, card, hits)
+    model = phase_model(torch, card, sim_cached)
+    families = phase_model_families(torch, card, sim_cached)
+    launches["cosine_topk"] += model["launches"]["cosine_topk"] \
+        + families["launches"]["cosine_topk"]
+    for name in ("flash_attention", "decode_attention"):
+        model["launches"][name] += families["launches"][name]
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -31,17 +31,19 @@ NORM = {"o[j][0] * inv0, o[j][1] * inv0":
         "o[j][0] / fmaxf(l[0], 1e-30f), o[j][1] / fmaxf(l[0], 1e-30f)",
         "o[j][2] * inv1, o[j][3] * inv1":
         "o[j][2] / fmaxf(l[1], 1e-30f), o[j][3] / fmaxf(l[1], 1e-30f)"}
-MASK_ROW = """      // key k0 + 2 tig + kr is visible when lo <= kr <= hi
+MASK_ROW = """      // key k0 + 2 tig + kr is visible when kr <= hi and kr >= lo (the
+      // window) or kr <= sk (a sink)
       const int hi = min(a.Lk - 1, a.causal ? qp : a.Lk) - k0 - 2 * tig;
       const int lo = a.window > 0 ? qp - a.window + 1 - k0 - 2 * tig : -BK;
+      const int sk = a.n_sink - 1 - k0 - 2 * tig;
 """
 MASK_ELEM = """          const int kr = 8 * j + e;
-          const bool vis = j < n_live && kr <= hi && kr >= lo;
+          const bool vis = j < n_live && kr <= hi && (kr >= lo || kr <= sk);
 """
 MASK_ELEM_PLAIN = """          const int kp = k0 + 8 * j + 2 * tig + e;
           bool vis = j < n_live && kp < a.Lk;
           if (a.causal) vis = vis && kp <= qp;
-          if (a.window > 0) vis = vis && kp > qp - a.window;
+          if (a.window > 0) vis = vis && (kp > qp - a.window || kp < a.n_sink);
 """
 BLOCKS = "constexpr int TC_MIN_BLOCKS = 3;"
 
@@ -87,7 +89,7 @@ def main() -> None:
                  ptxas_after(lambda line: "bf16_kernelILi128" in line))
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib, _ in libs.values():
-        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [
+        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 10 + [
             ctypes.c_float, p]
         lib.flash_attention_launch.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(47)
@@ -98,7 +100,7 @@ def main() -> None:
         lk, hkv = k.shape[1], k.shape[2]
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
-            lq, lk, h, hkv, d, 1, -1 if window is None else window,
+            lq, lk, h, hkv, d, 1, -1 if window is None else window, 0,
             1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise SystemExit(f"flash_variants: launch failed ({err})")

@@ -6,7 +6,8 @@
 //   q (B, Lq, H, D); k, v (B, Lk, HKV, D), f32 or bf16 (all three alike);
 //   query row i sits at absolute position i + Lk - Lq (the ends aligned) and
 //   sees key j when j <= i + Lk - Lq (causal) and, with a window (> 0),
-//   j > i + Lk - Lq - window. Query head h reads KV head h / G, G = H / HKV,
+//   j > i + Lk - Lq - window or, with attention sinks (hymba's meta tokens),
+//   j < n_sink. Query head h reads KV head h / G, G = H / HKV,
 //   so no expanded K/V is stored. Products and sums in f32; the output
 //   (B, Lq, H, D) is in q's dtype; a row that sees nothing is 0. Unlike the
 //   TPU kernel, which asserts Lq % block == 0, ragged tails are masked. The
@@ -20,9 +21,10 @@
 // rate. So it is bound by bytes.
 //
 // Two kernels, one per dtype, behind one entry point. Both walk the KV tiles
-// of 64 keys of a (query tile of 64 rows, head, batch row) inside one block,
-// from the window's first live tile (0 without a window) to the causal edge,
-// so dead tiles are never loaded, with the running max, sum and accumulator
+// of 64 keys of a (query tile of 64 rows, head, batch row) inside one block:
+// the sink tiles [0, ceil(n_sink / 64)) first, then from the window's first
+// live tile (0 without a window) to the causal edge, each tile once, so dead
+// tiles are never loaded, with the running max, sum and accumulator
 // in registers where the TPU kernel keeps them in VMEM scratch across its
 // sequential grid; scores never reach device memory.
 //
@@ -52,7 +54,7 @@
 // 128 to 256 bytes each, spread over (B, L, heads) strides, which 128
 // threads issue in 8 copies each.
 //
-// f32 (flash_attention_kernel, unchanged since its first version): CUDA
+// f32 (flash_attention_kernel, as first written but for the sinks): CUDA
 // cores. One block of 256 threads; the Q tile, one K or V tile and the
 // 64 x 64 weights live in shared memory as f32 (83 KB at D = 128: two
 // blocks an SM). The 16 x 16 threads each own a 4 x 4 patch of the scores
@@ -95,9 +97,31 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int B, Lq, Lk, H, HKV, causal, window;
+  int B, Lq, Lk, H, HKV, causal, window, n_sink;
   float scale;
 };
+
+// The live KV tiles of the query tile at row q0: the sink tiles [0,
+// sink_end), then [t_begin, t_end), from the window's first (query row q0)
+// to the causal edge (the tile's last real row). Negative bounds divide
+// toward 0 and clamp, so a tile that sees nothing loops over nothing; the
+// sink tiles stop where the window's begin, so no tile is walked twice.
+struct Tiles {
+  int sink_end, t_begin, t_end;
+  __device__ int first() const { return sink_end > 0 ? 0 : t_begin; }
+  __device__ int next(int t) const { return t + 1 == sink_end ? t_begin : t + 1; }
+};
+
+__device__ __forceinline__ Tiles live_tiles(const Args& a, int q0) {
+  const int q_lo = a.Lk - a.Lq + q0;
+  const int q_hi = a.Lk - a.Lq + min(q0 + BQ, a.Lq) - 1;
+  const int n_tiles = (a.Lk + BK - 1) / BK;
+  Tiles r;
+  r.t_end = a.causal ? min(n_tiles, (q_hi + BK) / BK) : n_tiles;
+  r.t_begin = a.window > 0 ? max(0, (q_lo - a.window + 1) / BK) : 0;
+  r.sink_end = min(min((a.n_sink + BK - 1) / BK, r.t_begin), r.t_end);
+  return r;
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -137,14 +161,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args a) {
 
   load_tile<T, D>(qs, q, b, h, a.H, q0, a.Lq);
 
-  // live KV tiles: from the window's first (query row q0) to the causal
-  // edge (the tile's last real row); negative bounds divide toward 0 and
-  // clamp, so a tile that sees nothing loops over nothing
   const int q_lo = offset + q0;
-  const int q_hi = offset + min(q0 + BQ, a.Lq) - 1;
-  const int n_tiles = (a.Lk + BK - 1) / BK;
-  const int t_end = a.causal ? min(n_tiles, (q_hi + BK) / BK) : n_tiles;
-  const int t_begin = a.window > 0 ? max(0, (q_lo - a.window + 1) / BK) : 0;
+  const Tiles tiles = live_tiles(a, q0);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -155,7 +173,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args a) {
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int t = tiles.first(); t < tiles.t_end; t = tiles.next(t)) {
     const int k0 = t * BK;
     __syncthreads();   // the previous V tile is consumed
     load_tile<T, D>(kvs, k, b, kvh, a.HKV, k0, a.Lk);
@@ -186,7 +204,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args a) {
         const int kp = k0 + tx + 16 * j;
         bool vis = kp < a.Lk;
         if (a.causal) vis = vis && kp <= qp;
-        if (a.window > 0) vis = vis && kp > qp - a.window;
+        if (a.window > 0) vis = vis && (kp > qp - a.window || kp < a.n_sink);
         s[i][j] = vis ? s[i][j] * a.scale : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
       }
@@ -337,17 +355,15 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
 
   // live KV tiles, as in the f32 kernel
   const int q_lo = offset + q0;
-  const int q_hi = offset + min(q0 + BQ, a.Lq) - 1;
-  const int n_tiles = (a.Lk + BK - 1) / BK;
-  const int t_end = a.causal ? min(n_tiles, (q_hi + BK) / BK) : n_tiles;
-  const int t_begin = a.window > 0 ? max(0, (q_lo - a.window + 1) / BK) : 0;
+  const Tiles tiles = live_tiles(a, q0);
+  const int t_first = tiles.first();
 
-  // cp.async groups, in order: {Q, K(t_begin)}, {V(t_begin)}, then one
-  // {K(t+1), V(t+1)} after each tile but the last
+  // cp.async groups, in order: {Q, K(t_first)}, {V(t_first)}, then one
+  // {K(next), V(next)} after each tile but the last
   tc_load_tile<D>(qs, q, b, h, a.H, q0, a.Lq);
-  if (t_begin < t_end) tc_load_tile<D>(ks, k, b, kvh, a.HKV, t_begin * BK, a.Lk);
+  if (t_first < tiles.t_end) tc_load_tile<D>(ks, k, b, kvh, a.HKV, t_first * BK, a.Lk);
   cp_async_commit();
-  if (t_begin < t_end) tc_load_tile<D>(vs, v, b, kvh, a.HKV, t_begin * BK, a.Lk);
+  if (t_first < tiles.t_end) tc_load_tile<D>(vs, v, b, kvh, a.HKV, t_first * BK, a.Lk);
   cp_async_commit();
 
   // this thread's two rows in the fragments: warp * 16 + g and + 8
@@ -360,9 +376,9 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int t = t_first; t < tiles.t_end; t = tiles.next(t)) {
     const int k0 = t * BK;
-    const bool first = t == t_begin;
+    const bool first = t == t_first;
     if (first) {
       cp_async_wait<1>();   // Q and K(t) have landed, V(t) may be in flight
     } else {
@@ -402,16 +418,18 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qp = r ? qp1 : qp0;
-      // key k0 + 2 tig + kr is visible when lo <= kr <= hi
+      // key k0 + 2 tig + kr is visible when kr <= hi and kr >= lo (the
+      // window) or kr <= sk (a sink)
       const int hi = min(a.Lk - 1, a.causal ? qp : a.Lk) - k0 - 2 * tig;
       const int lo = a.window > 0 ? qp - a.window + 1 - k0 - 2 * tig : -BK;
+      const int sk = a.n_sink - 1 - k0 - 2 * tig;
       float tmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < TC_NS; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kr = 8 * j + e;
-          const bool vis = j < n_live && kr <= hi && kr >= lo;
+          const bool vis = j < n_live && kr <= hi && (kr >= lo || kr <= sk);
           float& x = s[j][2 * r + e];
           x = vis ? x * a.scale : -INFINITY;
           tmax = fmaxf(tmax, x);
@@ -469,10 +487,11 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
         mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
       }
     }
-    if (t + 1 < t_end) {
+    const int tn = tiles.next(t);
+    if (tn < tiles.t_end) {
       __syncthreads();   // every warp is done with K(t) and V(t)
-      tc_load_tile<D>(ks, k, b, kvh, a.HKV, k0 + BK, a.Lk);
-      tc_load_tile<D>(vs, v, b, kvh, a.HKV, k0 + BK, a.Lk);
+      tc_load_tile<D>(ks, k, b, kvh, a.HKV, tn * BK, a.Lk);
+      tc_load_tile<D>(vs, v, b, kvh, a.HKV, tn * BK, a.Lk);
       cp_async_commit();
     }
   }
@@ -549,14 +568,15 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = float32,
 // 1 = bfloat16, for q, k, v and out alike; every tensor contiguous in the
-// layout of the header. causal: 0 or 1; window <= 0 means no window.
+// layout of the header. causal: 0 or 1; window <= 0 means no window; with a
+// window, keys j < n_sink (>= 0) stay visible.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int dtype,
                            int B, int Lq, int Lk, int H, int HKV, int D, int causal, int window,
-                           float scale, void* stream) {
+                           int n_sink, float scale, void* stream) {
   if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || HKV < 1 || H < HKV || H > 65535 ||
-      H % HKV != 0 || (D != 64 && D != 128))
+      H % HKV != 0 || (D != 64 && D != 128) || n_sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, out, B, Lq, Lk, H, HKV, causal, window, scale};
+  const Args a{q, k, v, out, B, Lq, Lk, H, HKV, causal, window, n_sink, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(launch_d(a, dtype, D, st));
 }

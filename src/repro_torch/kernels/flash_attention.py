@@ -6,11 +6,11 @@ Contract (that of ``repro_torch.kernels.ref.flash_attention_ref``): q
 (B, Lq, H, D), k and v (B, Lk, HKV, D), all float32 or all bfloat16, D 64
 or 128, H a multiple of HKV; query row i sits at position ``i + Lk - Lq``
 and sees key j when ``j <= i + Lk - Lq`` (causal) and, with a window,
-``j > i + Lk - Lq - window``. Returns (B, Lq, H, D) in q's dtype, sums in
-f32: f32 inputs on CUDA cores; bf16 inputs on the tensor cores, with P
-carried into P V as two bf16 parts (about 16 bits, within one bf16 ulp of
-the output of the plain version). Attention sinks (``n_sink``) arrive with
-the hybrid slice.
+``j > i + Lk - Lq - window`` or, with attention sinks (hymba's meta
+tokens), ``j < n_sink``. Returns (B, Lq, H, D) in q's dtype, sums in f32:
+f32 inputs on CUDA cores; bf16 inputs on the tensor cores, with P carried
+into P V as two bf16 parts (about 16 bits, within one bf16 ulp of the
+output of the plain version).
 
 The wrapper checks its arguments, allocates the output with
 ``torch.empty``, launches on the current stream without synchronizing,
@@ -39,7 +39,7 @@ def reset_launches() -> None:
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               window: int | None = None) -> None:
+               window: int | None = None, n_sink: int = 0) -> None:
     """Raise ValueError on anything the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k and v must be 4-D, got {tuple(q.shape)}, "
@@ -61,6 +61,8 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"HKV={hkv}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if n_sink < 0:
+        raise ValueError(f"n_sink must be >= 0, got {n_sink}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("every operand must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -74,9 +76,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if lib.flash_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v out dtype B Lq Lk H HKV D causal window scale stream
+        # q k v out dtype B Lq Lk H HKV D causal window n_sink scale stream
         lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                               i, i, i, ctypes.c_float, p]
+                                               i, i, i, i, ctypes.c_float, p]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -85,10 +87,11 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
-                         scale: float | None = None) -> torch.Tensor:
+                         n_sink: int = 0, scale: float | None = None
+                         ) -> torch.Tensor:
     """Attention of every query row over its live keys; the (Lq, Lk) scores
     never reach device memory."""
-    check_args(q, k, v, window=window)
+    check_args(q, k, v, window=window, n_sink=n_sink)
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"the CUDA flash attention takes CUDA tensors, got "
@@ -104,7 +107,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPE_CODE[q.dtype], b, lq, lk, h, hkv, d, int(causal),
-            -1 if window is None else window, scale,
+            -1 if window is None else window, n_sink, scale,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: "

@@ -122,16 +122,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     n_sink: int = 0, scale: float | None = None
                     ) -> torch.Tensor:
     """Prefill attention: q (B, Lq, H, D), k/v (B, Lk, HKV, D), query
-    offset ``Lk - Lq``. ``n_sink > 0`` (hymba's meta-token sinks) runs on
-    the CPU only until the hybrid slice brings it to the kernel."""
+    offset ``Lk - Lq``; with a window, keys ``j < n_sink`` stay visible
+    (hymba's meta-token sinks)."""
     if q.device.type == "cuda":
-        if n_sink > 0:
-            raise NotImplementedError(
-                "attention sinks (n_sink > 0) in prefill arrive on CUDA with "
-                "the hybrid slice of the port")
         return kflash.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, scale=scale)
-    kflash.check_args(q, k, v, window=window)
+                                           window=window, n_sink=n_sink,
+                                           scale=scale)
+    kflash.check_args(q, k, v, window=window, n_sink=n_sink)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    n_sink=n_sink, scale=scale)
 

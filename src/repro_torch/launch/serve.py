@@ -42,14 +42,20 @@ takes a mesh.
 
 ``--backend model`` answers the misses with a real decoder instead of the
 simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
-(default ``yi-6b``, dense family only) at its reduced width, weights drawn
-from a seeded generator on the device (nothing is downloaded). ``build``
-takes ``reduced=False`` for the full published width.
+(default ``yi-6b``; any dense, moe, ssm or hybrid config, e.g.
+``grok-1-314b``, ``llama4-maverick-400b-a17b``, ``mamba2-130m``,
+``hymba-1.5b``; audio and vlm raise NotImplementedError) at its reduced
+width, weights drawn from a seeded generator on the device (nothing is
+downloaded). ``--full-width`` takes the published width instead
+(``build(reduced=False)``), and ``--n-layers N`` cuts the depth: grok-1 and
+llama4 do not fit one 80 GB card whole (``--n-layers 2``: two MoE layers
+of grok-1, one dense and one MoE layer of llama4).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 
 import torch
@@ -90,14 +96,16 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
           fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
           tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
           backend: str = "sim", arch: str = "yi-6b", reduced: bool = True,
-          tracer: Tracer | None = None, shards: int = 0, log=print
+          n_layers: int | None = None, tracer: Tracer | None = None,
+          shards: int = 0, log=print
           ) -> tuple[CachedEngine, list[Request]]:
     """The warmed engine and the requests to serve. ``tenants > 0``
     partitions the slab into that many uniform tenant regions and builds a
     multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``.
-    ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``)
-    behind the cache, its weights drawn from a generator on ``device``
-    seeded with 0 (``repro.launch.serve`` draws them from ``PRNGKey(0)``).
+    ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``;
+    ``n_layers`` layers if given) behind the cache, its weights drawn from
+    a generator on ``device`` seeded with 0 (``repro.launch.serve`` draws
+    them from ``PRNGKey(0)``).
     ``tracer`` goes to the engine. ``shards > 0`` serves through a
     ``DistributedCache`` of that many shards on ``device``."""
     pairs = build_corpus(corpus, seed=0)
@@ -123,6 +131,8 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         config = get_arch(arch)
         if reduced:
             config = config.reduced()
+        if n_layers is not None:
+            config = dataclasses.replace(config, n_layers=n_layers)
         model = Model(config, device=device)
         model.init_params(torch.Generator(device=model.device).manual_seed(0))
         llm = ModelBackend(model, HashTokenizer(vocab_size=config.vocab))
@@ -195,6 +205,10 @@ def main(argv=None):
     ap.add_argument("--backend", choices=("sim", "model"), default="sim")
     ap.add_argument("--arch", default="yi-6b",
                     help="arch for --backend model (reduced variant)")
+    ap.add_argument("--full-width", dest="reduced", action="store_false",
+                    help="--backend model at the arch's published width")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="--backend model: cut the arch to this many layers")
     ap.add_argument("--corpus", type=int, default=2000,
                     help="QA pairs per category")
     ap.add_argument("--queries", type=int, default=500,
@@ -259,7 +273,8 @@ def main(argv=None):
         ttl=args.ttl, batch=args.batch, policy=args.policy, fused=args.fused,
         device=args.device, key_dtype=args.key_dtype, tenants=args.tenants,
         tenant_skew=args.tenant_skew, index=args.index, backend=args.backend,
-        arch=args.arch, tracer=tracer, shards=args.shards)
+        arch=args.arch, reduced=args.reduced, n_layers=args.n_layers,
+        tracer=tracer, shards=args.shards)
     if args.scheduler == "sync":
         print(f"serving {len(requests)} queries (sync batches) ...")
         engine.process(requests)

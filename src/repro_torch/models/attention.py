@@ -31,8 +31,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         n_sink: int = 0, scale: float | None = None
                         ) -> torch.Tensor:
     """q (B, Lq, H, D), RoPE applied; k/v (B, Lk, HKV, D); query offset
-    ``Lk - Lq`` (ends aligned). The (Lq, Lk) scores never reach device
-    memory on CUDA. ``n_sink > 0`` raises on CUDA until the hybrid slice."""
+    ``Lk - Lq`` (ends aligned); with a window, keys ``j < n_sink`` stay
+    visible (attention sinks). The (Lq, Lk) scores never reach device
+    memory on CUDA."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                n_sink=n_sink, scale=scale)
 

@@ -1,9 +1,11 @@
 """Weights across packages: the JAX ``Model.init_params`` tree, as numpy
 arrays, into the port's ``Model`` state.
 
-Every leaf maps one to one (``embed``, ``lm_head``, ``final_norm`` and
-``blocks/<name>`` -> ``blocks.<name>``), with its shape and dtype kept;
-bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
+Every leaf maps one to one (``embed``, ``lm_head``, ``final_norm``,
+``meta_tokens``, ``blocks/<name>`` -> ``blocks.<name>`` and the SSM
+layers' ``blocks/ssm/<name>`` -> ``blocks.ssm.<name>``), with its shape
+and dtype kept; bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
+carried bit for bit.
 Nothing here imports JAX: the caller turns the tree into numpy first, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``.
 """
@@ -24,16 +26,14 @@ def to_tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """The JAX parameter tree (nested dicts of numpy arrays) as a state
-    dict for ``Model.load_state_dict`` (strict: every leaf must match)."""
+    dict for ``Model.load_state_dict`` (strict: every leaf must match):
+    the path's keys joined by dots, e.g. ``blocks/ssm/in_proj`` ->
+    ``blocks.ssm.in_proj``."""
     state = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
-            for sub, arr in leaf.items():
-                if isinstance(arr, dict):
-                    raise NotImplementedError(
-                        f"nested leaf {name}/{sub} (SSM parameters) arrives "
-                        "with the ssm slice of the port")
-                state[f"{name}.{sub}"] = to_tensor(arr)
+            for sub, arr in params_from_jax(leaf).items():
+                state[f"{name}.{sub}"] = arr
         else:
             state[name] = to_tensor(leaf)
     return state

@@ -1,5 +1,6 @@
 """Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings (PyTorch port
-of ``repro.models.layers``).
+of ``repro.models.layers``), and hymba's per-branch norm (``_branch_norm``
+of ``repro.models.model``).
 
 The rounding points are the JAX package's: ``rms_norm`` computes in f32
 and casts back to the input's dtype; ``apply_rope`` multiplies the input
@@ -64,6 +65,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _branch_norm(x: torch.Tensor) -> torch.Tensor:
+    """Parameter-free per-branch RMS normalization (hymba's output fusion
+    of its attention and SSM branches), f32 out."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return x32 * torch.rsqrt(var + 1e-6)
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,11 @@ calls on cache misses: returns the corpus's gold answer for known/paraphrased
 queries (keyed by the query's semantic source) and a templated answer
 otherwise, charging a configurable latency + dollar cost per call.
 
-``ModelBackend`` — a real decoder (``repro_torch.models.Model``, dense
-family, any width) behind the same interface: tokenize, prefill, greedy
-decode, on the model's device; on CUDA its attention runs through the
-hand-written flash-attention (prefill) and decode-attention kernels.
+``ModelBackend`` — a real decoder (``repro_torch.models.Model``: the
+dense, moe, ssm and hybrid families, any width) behind the same interface:
+tokenize, prefill, greedy decode, on the model's device; on CUDA its
+attention runs through the hand-written flash-attention (prefill) and
+decode-attention kernels.
 """
 from __future__ import annotations
 
@@ -92,9 +93,11 @@ class ModelBackend:
     """Greedy decoding with a real (usually reduced) architecture, call for
     call as the JAX package's ``ModelBackend``: the prompts padded to
     ``max_prompt_len`` (PAD tokens stay part of the prompt), one prefill
-    that builds the KV caches, a second full forward for the first token's
-    logits (the JAX backend's double prefill, kept as its cost), then
-    ``max_new_tokens - 1`` decode steps. Runs under
+    that builds the caches (KV caches of ``max_prompt_len + max_new_tokens
+    + 8`` slots, a ring where the prefill is longer, as hymba's 128 meta
+    tokens make it; SSM states), a second full forward for the first
+    token's logits (the JAX backend's double prefill, kept as its cost),
+    then ``max_new_tokens - 1`` decode steps. Runs under
     ``torch.inference_mode()`` on the model's device; ``latency_s`` reads
     the clock after the generated tokens reach the host."""
 

@@ -16,7 +16,9 @@ async front end's lockstep waves on CUDA against the sync card run and the
 CPU, the tracing engine's spans on CUDA, sessions, near-hit bands and
 resilience on CUDA against the CPU, and the sharded cache (four shards on
 the card: the serve loop against the unsharded card run and the CPU, IVF
-against a restored CPU engine, reshard on load). Every test here needs a CUDA
+against a restored CPU engine, reshard on load), the flash kernel with
+attention sinks, and the moe, ssm and hybrid families' reduced models on
+CUDA against the CPU. Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -1046,6 +1048,37 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, b, lq, lk,
                                **ATTN_TOL[dtype])
 
 
+FLASH_SINK_CUDA_CASES = [  # (B, Lq, Lk, H, HKV, D, window, n_sink)
+    (2, 96, 96, 4, 2, 64, 32, 8),         # n_sink < one 64-key tile
+    (1, 300, 300, 5, 1, 64, 48, 100),     # sinks span tiles, G=5
+    (1, 130, 130, 6, 1, 128, 40, 200),    # n_sink >= Lk, G=6
+    (2, 64, 256, 10, 2, 64, 50, 70),      # Lk > Lq with sinks
+    (40, 192, 192, 25, 5, 64, 1024, 128),  # hymba's serve shape
+    (2, 2048, 2048, 25, 5, 64, 1024, 128),  # the window drops keys
+    (3, 200, 200, 48, 8, 128, 64, 16),    # grok-1's heads, G=6
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,window,n_sink",
+                         FLASH_SINK_CUDA_CASES)
+def test_cuda_flash_attention_with_sinks_matches_plain_version(
+        cuda_device, b, lq, lk, h, hkv, d, window, n_sink, dtype):
+    """Attention sinks in the hand-written kernel, through ``ops`` as the
+    model calls it: one launch, the plain version's output."""
+    rng = np.random.default_rng(lq + n_sink + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32) * sc).to(dtype).to(cuda_device) for shape, sc in (
+        ((b, lq, h, d), 0.3), ((b, lk, hkv, d), 0.3), ((b, lk, hkv, d), 1.0)))
+    before = kflash.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window, n_sink=n_sink)
+    assert kflash.launches["flash_attention"] == before + 1
+    want = tref.flash_attention_ref(q, k, v, window=window, n_sink=n_sink)
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(),
+                               **ATTN_TOL[dtype])
+
+
 DECODE_CUDA_CASES = [  # (B, S, H, HKV, D, window, n_sink, ring)
     (5, 96, 32, 4, 128, None, 0, False),    # the serve path's heads
     (2, 512, 8, 2, 64, None, 0, True),      # a ring with empty slots
@@ -1058,6 +1091,8 @@ DECODE_CUDA_CASES = [  # (B, S, H, HKV, D, window, n_sink, ring)
     (3, 512, 32, 4, 128, None, 0, True),    # whole splits empty: m = -inf
     (1, 1024, 16, 1, 256, 300, 2, True),    # G=16, D=256, split, window
     (1, 20000, 4, 1, 64, None, 0, True),    # 128 splits of two tiles each
+    (4, 96, 25, 5, 64, 1024, 128, True),    # hymba's heads and sinks, G=5
+    (3, 96, 48, 8, 128, 40, 8, True),       # grok-1's heads, G=6, window
 ]
 
 
@@ -1123,8 +1158,8 @@ def test_cuda_attention_wrappers_refuse(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kflash.flash_attention_cuda(q.transpose(1, 2).contiguous()
                                     .transpose(1, 2), kv, kv)
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        ops.flash_attention(q, kv, kv, n_sink=4)
+    with pytest.raises(ValueError, match="n_sink"):
+        ops.flash_attention(q, kv, kv, window=4, n_sink=-1)
     q1 = torch.zeros((1, 1, 34, 64), device=dev)
     c = torch.zeros((1, 8, 2, 64), device=dev)
     sp = torch.arange(8, dtype=torch.int32, device=dev)
@@ -1174,6 +1209,46 @@ def test_model_backend_launches_and_answers_on_cuda(cuda_device):
         dg, _ = card.decode_step(caches, nt.to(cuda_device))
         dc, _ = cpu.decode_step(cc, nt)
         torch.testing.assert_close(dg.cpu(), dc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b",
+                                  "mamba2-130m", "hymba-1.5b"])
+def test_model_families_on_cuda_match_cpu(cuda_device, arch):
+    """One generate of each reduced family (f32) on the card: two prefills
+    and 23 decode steps of each attention layer through the kernels (none
+    for mamba2), the MoE and SSM layers in PyTorch; logits, SSM states and
+    answers equal to the same weights on the CPU."""
+    cfg = get_arch(arch).reduced()
+    card = Model(cfg, device=cuda_device).init_params(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    queries = ["how do I reset my router", "what is a python list",
+               "where is my order"]
+    kflash.reset_launches()
+    kdec.reset_launches()
+    res = ModelBackend(card, HashTokenizer(vocab_size=1024)).generate(queries)
+    layers = cfg.n_layers if cfg.has_attention else 0
+    assert kflash.launches["flash_attention"] == 2 * layers
+    assert kdec.launches["decode_attention"] == 23 * layers
+    want = ModelBackend(cpu, HashTokenizer(vocab_size=1024)).generate(queries)
+    assert res.answers == want.answers
+    toks = torch.randint(0, 1024, (3, 64), generator=torch.Generator()
+                         .manual_seed(1))
+    with torch.inference_mode():
+        lg, cg = card(toks.to(cuda_device), collect_cache=True, cache_size=80)
+        lc, cc = cpu(toks, collect_cache=True, cache_size=80)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        nt = lc[:, -1:].argmax(-1)
+        for _ in range(3):
+            dg, cg = card.decode_step(cg, nt.to(cuda_device))
+            dc, cc = cpu.decode_step(cc, nt)
+            torch.testing.assert_close(dg.cpu(), dc, rtol=0, atol=1e-4)
+            nt = dc.argmax(-1)
+        if cfg.has_ssm:
+            torch.testing.assert_close(cg.ssm.ssd.cpu(), cc.ssm.ssd,
+                                       rtol=1e-5, atol=1e-4)
 
 
 def _waves(eng, requests, batch):

@@ -92,6 +92,14 @@ def test_sharded_cache_slice_files_are_checked():
             "training/checkpoint.py", "serving/engine.py"} <= names
 
 
+def test_model_families_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"models/moe.py", "models/ssm.py", "models/model.py",
+            "models/layers.py", "models/convert.py",
+            "kernels/flash_attention.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -127,6 +135,9 @@ def test_imports_with_jax_and_repro_blocked():
         "    make_mesh, shard_axes)\n"
         "from repro_torch.training.checkpoint import (load_checkpoint_flat,\n"
         "    reshard_runtime)\n"
+        "from repro_torch.models.moe import dispatch_indices, moe_ffn, router\n"
+        "from repro_torch.models.ssm import (SSMState, ssd_scan,\n"
+        "    ssm_decode_step, ssm_forward)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -47,6 +47,7 @@ from repro.serving import ModelBackend as JModelBackend
 from repro.serving import Request as JRequest
 from repro_torch.configs import ARCHITECTURES, get_arch
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve
@@ -82,18 +83,23 @@ def torch_of(x: np.ndarray, dtype: str):
 
 
 def configs(arch: str, bf16_small: bool = False):
-    """(JAX config, port config): reduced, or yi-6b's geometry in bf16."""
+    """(JAX config, port config): reduced, or the arch's published
+    attention, expert and SSM geometry in bf16 at ``SMALL_BF16``'s width
+    (an MLP only where the arch has one)."""
     if bf16_small:
-        return (dataclasses.replace(jget_arch(arch), **SMALL_BF16),
-                dataclasses.replace(get_arch(arch), **SMALL_BF16))
+        small = dict(SMALL_BF16, d_ff=SMALL_BF16["d_ff"]
+                     if get_arch(arch).d_ff else 0)
+        return (dataclasses.replace(jget_arch(arch), **small),
+                dataclasses.replace(get_arch(arch), **small))
     return jget_arch(arch).reduced(), get_arch(arch).reduced()
 
 
 def models(jcfg, tcfg, seed=0):
-    """The JAX model with its random init, and the port's with the same
-    weights."""
+    """The JAX model with its random init (jitted: one compile, where the
+    eager init of the moe and hybrid trees takes seconds), and the port's
+    with the same weights."""
     jm = JModel(jcfg)
-    params = jm.init_params(jax.random.PRNGKey(seed))
+    params = jax.jit(jm.init_params)(jax.random.PRNGKey(seed))
     tm = Model(tcfg, device="cpu")
     tm.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))
@@ -374,12 +380,28 @@ def _tokens(vocab, b, l, seed):
         np.int32)
 
 
-def _check_caches(jc, tc, tol):
-    for name in ("k", "v"):
-        np.testing.assert_allclose(f32(getattr(tc.kv, name)),
-                                   f32(getattr(jc.kv, name)), **tol)
-    assert np.array_equal(tc.kv.slot_pos.numpy(), np.asarray(jc.kv.slot_pos))
-    assert tc.kv.pos == int(jc.kv.pos)
+def _check_caches(jc, tc, tol, ssm_tol=None):
+    """KV caches within ``tol``, slot positions and position exactly; SSM
+    states (f32) within ``ssm_tol``, or, where it is None (a bf16 model),
+    within ``BF16_MODEL_REL`` of each state's largest magnitude, as bf16
+    logits are held: the states sum bf16 projections whose rounding flips
+    between the packages over every position."""
+    assert (tc.kv is None) == (jc.kv is None)
+    assert (tc.ssm is None) == (jc.ssm is None)
+    if tc.kv is not None:
+        for name in ("k", "v"):
+            np.testing.assert_allclose(f32(getattr(tc.kv, name)),
+                                       f32(getattr(jc.kv, name)), **tol)
+        assert np.array_equal(tc.kv.slot_pos.numpy(),
+                              np.asarray(jc.kv.slot_pos))
+        assert tc.kv.pos == int(jc.kv.pos)
+    if tc.ssm is not None:
+        for name in ("conv", "ssd"):
+            t, j = getattr(tc.ssm, name), getattr(jc.ssm, name)
+            assert t.dtype == torch.float32 and t.shape == j.shape
+            j = np.asarray(j)
+            np.testing.assert_allclose(t.numpy(), j, **(ssm_tol or dict(
+                rtol=0, atol=BF16_MODEL_REL * np.abs(j).max())))
 
 
 def _logit_tol(jcfg, ref):
@@ -404,16 +426,22 @@ def _same_greedy(jlogits: np.ndarray, tlogits: np.ndarray, where: str,
     return int(ties.sum())
 
 
-@pytest.mark.parametrize("arch,bf16_small", [(a, False) for a in DENSE]
-                         + [("yi-6b", True)])
-def test_model_forward_and_decode_match_jax(arch, bf16_small):
-    """Logits and prefill caches of ``forward``, then 8 ``decode_step``s
-    fed JAX's greedy tokens, against the JAX ``Model`` with the same
-    weights."""
-    jcfg, tcfg = configs(arch, bf16_small)
+# SSM states (f32): the scan's sums run in other orders, over states of
+# magnitude up to ~20 (measured: 3e-5 after four decode steps)
+SSM_STATE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def model_matches_jax(arch, bf16_small, *, cfgs=None, toks=None,
+                      cache_size=None, steps=8):
+    """Logits and prefill caches of ``forward``, then ``steps``
+    ``decode_step``s fed JAX's greedy tokens, against the JAX ``Model``
+    with the same weights (``cfgs``: a (JAX, port) config pair in place of
+    ``configs(arch, bf16_small)``). Returns the two models' last caches."""
+    jcfg, tcfg = cfgs or configs(arch, bf16_small)
     jm, params, tm = models(jcfg, tcfg)
-    toks = _tokens(jcfg.vocab, 3, 16, seed=2)
-    cache_size = 16 + 8 + 2
+    if toks is None:
+        toks = _tokens(jcfg.vocab, 3, 16, seed=2)
+    cache_size = cache_size or toks.shape[1] + jcfg.n_meta_tokens + 8 + 2
     jl, jc, _ = jm.forward(params, jnp.asarray(toks), collect_cache=True,
                            cache_size=cache_size)
     with torch.inference_mode():
@@ -424,22 +452,30 @@ def test_model_forward_and_decode_match_jax(arch, bf16_small):
     np.testing.assert_allclose(f32(tl), jl, **tol)
     cache_tol = dict(rtol=0, atol=F32_TOL) if jcfg.dtype == "float32" else \
         dict(rtol=2 * BF16_ULP, atol=0.05)
-    _check_caches(jc, tc, cache_tol)
+    ssm_tol = SSM_STATE_TOL if jcfg.dtype == "float32" else None
+    _check_caches(jc, tc, cache_tol, ssm_tol)
     tie_tol = 2 * np.abs(f32(tl) - jl).max() if bf16_small else TIE_TOL
-    _same_greedy(jl, f32(tl), f"{arch} forward", tie_tol)
+    _same_greedy(jl, f32(tl), f"{jcfg.name} forward", tie_tol)
     nt = jl[:, -1:].argmax(-1)
     decode = jax.jit(jm.decode_step)
-    for step in range(8):
+    for step in range(steps):
         jd, jc = decode(params, jc, jnp.asarray(nt))
         with torch.inference_mode():
             td, tc = tm.decode_step(tc, torch.from_numpy(nt).long())
         jd = f32(jd)
         tol = _logit_tol(jcfg, jd)
         np.testing.assert_allclose(f32(td), jd, **tol)
-        _check_caches(jc, tc, cache_tol)
+        _check_caches(jc, tc, cache_tol, ssm_tol)
         tie_tol = 2 * np.abs(f32(td) - jd).max() if bf16_small else TIE_TOL
-        _same_greedy(jd, f32(td), f"{arch} decode step {step}", tie_tol)
+        _same_greedy(jd, f32(td), f"{jcfg.name} decode step {step}", tie_tol)
         nt = jd.argmax(-1)
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch,bf16_small", [(a, False) for a in DENSE]
+                         + [("yi-6b", True)])
+def test_model_forward_and_decode_match_jax(arch, bf16_small):
+    model_matches_jax(arch, bf16_small)
 
 
 def test_ring_prefill_and_int8_decode_match_jax():
@@ -471,8 +507,7 @@ def test_ring_prefill_and_int8_decode_match_jax():
         nt = f32(jd).argmax(-1)
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_decode_matches_own_forward(arch):
+def decode_matches_own_forward(arch):
     """Prefill -> decode equals the forward of the extended sequence, as
     ``tests/test_arch_smoke.py`` checks for JAX."""
     _, tcfg = configs(arch)
@@ -488,6 +523,11 @@ def test_decode_matches_own_forward(arch):
     assert float((dl[:, 0] - lg2[:, -1]).abs().max()) < F32_TOL
     assert last.shape == (2, 1, tcfg.padded_vocab)
     assert float((last - lg[:, -1:]).abs().max()) < F32_TOL
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_own_forward(arch):
+    decode_matches_own_forward(arch)
 
 
 def test_params_from_jax_keeps_every_leaf_and_dtype():
@@ -521,13 +561,22 @@ def test_init_params_scales_and_generator():
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
-def test_non_dense_archs_raise(arch):
+def test_each_arch_runs_or_names_its_slice(arch):
+    """The dense, moe, ssm and hybrid families build and run a reduced
+    forward; audio and vlm raise, naming the slice that brings them."""
     cfg = get_arch(arch).reduced()
-    if cfg.arch_type == "dense":
-        assert Model(cfg, device="cpu").config is cfg
+    if cfg.arch_type in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{cfg.arch_type} slice"):
+            Model(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"{cfg.arch_type} slice"):
-        Model(cfg, device="cpu")
+    m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    assert m.config is cfg
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 5, seed=1)).long()
+    with torch.inference_mode():
+        logits = m(toks)
+    assert logits.shape == (2, 5, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_cuda_is_the_default_device():
@@ -539,13 +588,27 @@ def test_cuda_is_the_default_device():
         serve.build(corpus=2, queries=1, backend="model")
 
 
-def test_cuda_prefill_with_sinks_raises():
-    """n_sink > 0 has no CUDA kernel yet; ``ops`` refuses it before any
-    launch, so a stand-in for a CUDA tensor shows it without a card."""
+def test_cuda_prefill_with_sinks_goes_to_the_kernel(monkeypatch):
+    """``ops`` sends a CUDA prefill with sinks (``n_sink > 0``) to the
+    hand-written kernel's wrapper, never to the plain version: a stand-in
+    for a CUDA tensor shows the route without a card. ``n_sink < 0`` is
+    refused on both routes."""
     class OnCuda:
         device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        ops.flash_attention(OnCuda(), None, None, n_sink=4)
+    calls = []
+    monkeypatch.setattr(kflash, "flash_attention_cuda",
+                        lambda *a, **kw: calls.append(kw) or "kernel")
+    monkeypatch.setattr(tref, "flash_attention_ref",
+                        lambda *a, **kw: pytest.fail("plain version called"))
+    q = OnCuda()
+    assert ops.flash_attention(q, q, q, window=16, n_sink=4) == "kernel"
+    assert calls == [dict(causal=True, window=16, n_sink=4, scale=None)]
+    monkeypatch.undo()
+    q, k, v = map(torch.from_numpy, _qkv(1, 8, 8, 4, 2, 64, seed=0))
+    with pytest.raises(ValueError, match="n_sink"):
+        ops.flash_attention(q, k, v, window=4, n_sink=-1)
+    with pytest.raises(ValueError, match="n_sink"):
+        kflash.flash_attention_cuda(q, k, v, window=4, n_sink=-1)
 
 
 # --------------------------------------------------------------------- #
@@ -602,9 +665,9 @@ def test_model_backend_generate_matches_jax():
         assert a == b, (i, a, b)
 
 
-def _jax_serve(corpus, queries, batch, jparams):
-    """``repro.launch.serve --backend model`` (reduced yi-6b), built as its
-    ``main`` builds it, with the given weights."""
+def jax_serve(arch, corpus, queries, batch, jparams):
+    """``repro.launch.serve --backend model --arch <arch>`` (reduced),
+    built as its ``main`` builds it, with the given weights."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -612,7 +675,7 @@ def _jax_serve(corpus, queries, batch, jparams):
     def judge(req, sid):
         return sid >= 0 and sid in by_id and \
             by_id[sid].semantic_key == req.semantic_key
-    cfg = jget_arch("yi-6b").reduced()
+    cfg = jget_arch(arch).reduced()
     backend = JModelBackend(JModel(cfg), jparams,
                             JTokenizer(vocab_size=cfg.vocab))
     engine = JEngine(JConfig(dim=384, capacity=max(16384, 8 * corpus),
@@ -625,15 +688,16 @@ def _jax_serve(corpus, queries, batch, jparams):
     return engine, engine.process(reqs)
 
 
-def test_serve_backend_model_matches_jax_serve():
-    """``launch.serve --backend model --device cpu`` with JAX's weights
-    gives ``repro.launch.serve``'s hits and answers request by request."""
+def serve_matches_jax(arch):
+    """``launch.serve --backend model --arch <arch> --device cpu`` with
+    JAX's weights gives ``repro.launch.serve``'s hits and answers request
+    by request."""
     kw = dict(corpus=20, queries=5, batch=16)
-    jparams = JModel(jget_arch("yi-6b").reduced()).init_params(
+    jparams = jax.jit(JModel(jget_arch(arch).reduced()).init_params)(
         jax.random.PRNGKey(0))
-    jeng, jresp = _jax_serve(jparams=jparams, **kw)
-    teng, treq = serve.build(device="cpu", backend="model", log=lambda *a:
-                             None, **kw)
+    jeng, jresp = jax_serve(arch, jparams=jparams, **kw)
+    teng, treq = serve.build(device="cpu", backend="model", arch=arch,
+                             log=lambda *a: None, **kw)
     teng.backend.model.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, jparams)))
     tresp = teng.process(treq)
@@ -647,6 +711,10 @@ def test_serve_backend_model_matches_jax_serve():
         for field in ("lookups", "cache_hits", "positive_hits"):
             assert ts["categories"][cat][field] == m[field], (cat, field)
     assert teng.backend.calls == jeng.backend.calls
+
+
+def test_serve_backend_model_matches_jax_serve():
+    serve_matches_jax("yi-6b")
 
 
 def test_serve_cli_backend_model_runs_on_cpu(capsys):
