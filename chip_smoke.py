@@ -140,7 +140,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
             cases G = 5 and 6 and hymba's ring with 128 sinks
   model_families
             the moe, ssm and hybrid families behind the main configuration
-            for 4 batches, each at full width in bf16: grok-1 and
+            for 2 batches, each at full width in bf16: grok-1 and
             llama4-maverick at 2 layers (reduced depth), mamba2-130m and
             hymba-1.5b whole; launches per batch with misses, finite
             logits, every hit decision equal to the sim backend's in the
@@ -152,8 +152,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
             vs CPU; the flash kernel with sinks timed at hymba's serve
             shape beside its bound, the plain version and SDPA with a
             boolean mask
-The last three lines are the card's name and power limit as nvidia-smi
-gives them, the per-kernel summary, and ``{"ok": true, "device": ...}``.
+  model_modalities
+            the audio and vlm families at full width in bf16:
+            qwen2-vl-2b (all 28 layers, text only) behind the main
+            configuration for 3 batches as ``model_families`` serves its
+            archs (hit decisions the sim backend's, kernels vs plain
+            attention), the reduced qwen2-vl card vs CPU; musicgen-large
+            (all 48 layers) behind its 64-slot conditioning prefix on
+            delayed codebook tokens: a prefill and 16 greedy decode steps
+            (launches, finite logits, -1e9 padding columns), again through
+            the plain attention fed the same tokens (bf16, and an f32
+            twin), the reduced musicgen card vs CPU
+  train     the flash-attention backward (row 9b) against its plain
+            version over causal, window, sinks, G = 1/4/5/6, D = 64/128,
+            Lk > Lq, Lk < Lq (rows that see nothing), not causal, f32 and
+            bf16 (within 1e-4 / 2e-2 of the largest |gradient|), the
+            forward's log-sum-exp against the plain one and its output
+            unmoved, two runs bit for bit; one training step of qwen2-vl
+            (full width, f32, 4 layers) through the kernels against plain
+            attention, every gradient; ``launch.train --arch qwen2-vl-2b
+            --full`` for 10 AdamW steps on a fixed batch and musicgen-large
+            through ``loss_fn`` for 6 steps at full width, the loss
+            falling, the kernels' launches counted; row 9b timed at the
+            qwen2-vl step's shape beside its bound, its plain version and
+            SDPA's backward, and row 9 with and without the log-sum-exp
+Each phase's seconds follow it on a ``phase_seconds`` line, and all of
+them come before the end. The last three lines are the card's name and
+power limit as nvidia-smi gives them, the per-kernel summary, and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -180,9 +206,9 @@ SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-5, "quant": 1e-5}
 MAIN_BATCHES = 16          # 2,000 test queries in batches of 128
 TENANTS = 4                # launch.serve --tenants 4: 4 x 16,384 slots
 KERNELS = ("cosine_topk", "cosine_topk_interval", "cosine_topk_masked",
-           "ivf_topk", "flash_attention", "decode_attention",
-           "quant_cosine_topk", "quant_cosine_topk_interval",
-           "quant_cosine_topk_masked")
+           "ivf_topk", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "quant_cosine_topk",
+           "quant_cosine_topk_interval", "quant_cosine_topk_masked")
 DECISION_FIELDS = ("lookups", "cache_hits", "hit_rate", "api_call_fraction")
 THRESHOLD = 0.8
 
@@ -3308,8 +3334,8 @@ def phase_model(torch, card: str, sim_cached: list) -> dict:
 # not fit one 80 GB card, so they run at full width and reduced depth
 FAMILIES = (("grok-1-314b", 2), ("llama4-maverick-400b-a17b", 2),
             ("mamba2-130m", None), ("hymba-1.5b", None))
-FAMILY_BATCHES = 4          # of the main configuration's 16
-VS_PLAIN = ("yi-6b", "grok-1-314b", "hymba-1.5b")
+FAMILY_BATCHES = 2          # of the main configuration's 16
+VS_PLAIN = ("yi-6b", "grok-1-314b", "hymba-1.5b", "qwen2-vl-2b")
 CONTINUATION_STEPS = 8      # mamba2: decode after prefill vs the forward
 CONTINUATION_F32_REL = 1e-3  # f32: max |diff| / max |logit|
 
@@ -3692,6 +3718,593 @@ def phase_model_families(torch, card: str, sim_cached: list) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# the audio and vlm families
+# --------------------------------------------------------------------- #
+MODALITY_BATCHES = 3        # of the main configuration's 16 (qwen2-vl)
+AUDIO_BATCH = 4             # musicgen: sequences generated at once
+AUDIO_FRAMES = 60           # EnCodec frames of each prompt (delayed: +3)
+AUDIO_NEW = 16              # greedy decode steps after the prefill
+
+
+def _audio_inputs(torch, cfg, b: int, frames: int, seed: int):
+    """Delayed codebook tokens (B, frames + C - 1, C) from random frames
+    (``data.audio_delay.apply_delay``, pad 0) and the stub conditioning
+    frames (B, n_prefix, d) in the model's dtype, on the card."""
+    import numpy as np
+    from repro_torch.data.audio_delay import apply_delay
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(1, cfg.vocab, (b, frames, cfg.n_codebooks))
+    toks = torch.as_tensor(apply_delay(grid), dtype=torch.long,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pre = torch.randn((b, cfg.n_prefix, cfg.d_model), generator=gen,
+                      device="cuda")
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return toks, pre.to(dt)
+
+
+def _audio_generate(torch, model, toks, pre, new: int, forced=None):
+    """Prefill behind the prefix, then ``new`` greedy decode steps on (B,
+    1, C) tokens (``forced``: teacher forcing with another run's tokens).
+    Returns the prefill logits, the first decode step's logits, the
+    (B, new + 1, C) tokens and the prefill and decode seconds."""
+    l = toks.shape[1] + pre.shape[1]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model(toks, prefix_emb=pre, collect_cache=True,
+                               cache_size=l + new + 8)
+        nt = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, first = [nt], None
+        for i in range(new):
+            feed = out[-1] if forced is None else forced[:, i:i + 1]
+            dl, caches = model.decode_step(caches, feed)
+            first = dl if first is None else first
+            out.append(torch.argmax(dl, dim=-1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return logits, first, torch.cat(out, dim=1), t1 - t0, t2 - t1
+
+
+def _audio_run(torch) -> dict:
+    """musicgen-large at full width (bf16, all 48 layers) with its 64-slot
+    conditioning prefix: a prefill of delayed codebook tokens and
+    ``AUDIO_NEW`` greedy decode steps, the kernels' launches counted,
+    every logit finite and its padding columns -1e9; the same run again
+    through the plain attention fed the kernel run's tokens (bf16 bounds
+    of yi-6b, an f32 twin held to ``TWIN_F32_REL``); the reduced model
+    card vs CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("musicgen-large")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    toks, pre = _audio_inputs(torch, cfg, AUDIO_BATCH, AUDIO_FRAMES, 71)
+    _reset_launches()
+    logits, first, gen, prefill_s, decode_s = _audio_generate(
+        torch, model, toks, pre, AUDIO_NEW)
+    launches = _launches()
+    _expect_launches(launches, {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": AUDIO_NEW * cfg.n_layers},
+        "full-width musicgen-large generation")
+    c, vp = cfg.n_codebooks, cfg.padded_vocab
+    if logits.shape != (AUDIO_BATCH, toks.shape[1], c, vp) or \
+            first.shape != (AUDIO_BATCH, 1, c, vp) or \
+            not bool(torch.isfinite(logits).all() & torch.isfinite(first)
+                     .all()) or not bool((logits[..., cfg.vocab:] == -1e9)
+                                         .all()):
+        fail("full-width musicgen-large: logits of the wrong shape, "
+             "non-finite, or padding columns not -1e9")
+    gaps = {}
+    for name, m in (("bf16", model), ("f32_twin", None)):
+        if m is None:
+            m = Model(dataclasses.replace(cfg, dtype="float32"),
+                      device="cuda")
+            m.load_state_dict(model.state_dict())       # cast to f32
+            pre_m = pre.float()
+            ref_run = _audio_generate(torch, m, toks, pre_m, 1,
+                                      forced=gen)
+        else:
+            pre_m, ref_run = pre, (logits, first)
+        undo = _plain_attention()
+        try:
+            p_logits, p_first, *_ = _audio_generate(torch, m, toks, pre_m, 1,
+                                                    forced=gen)
+        finally:
+            undo()
+        gaps[name] = {
+            "prefill_logits": _logit_gap(ref_run[0], p_logits, cfg.vocab),
+            "first_decode_logits": _logit_gap(ref_run[1], p_first,
+                                              cfg.vocab)}
+        if m is not model:
+            del m
+            _free_card(torch)
+    for key in ("prefill_logits", "first_decode_logits"):
+        g, t = gaps["bf16"][key], gaps["f32_twin"][key]
+        if not (g["max_rel"] <= MODEL_LOGIT_REL
+                and g["mean_rel"] <= MODEL_LOGIT_MEAN_REL):
+            fail(f"full-width musicgen-large {key}: kernels vs plain "
+                 f"attention {g}")
+        if t["max_rel"] > TWIN_F32_REL:
+            fail(f"full-width musicgen-large f32 twin {key}: kernels vs "
+                 f"plain attention {t}")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "param_count": cfg.param_count(), "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "codebooks": c, "n_prefix": cfg.n_prefix,
+           "dtype": cfg.dtype, "batch": AUDIO_BATCH, "frames": AUDIO_FRAMES,
+           "delayed_tokens": toks.shape[1],
+           "prefill_positions": toks.shape[1] + cfg.n_prefix,
+           "decode_steps": AUDIO_NEW, "build_s": build_s,
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_s_per_step": decode_s / AUDIO_NEW,
+           "card_memory_peak": torch.cuda.max_memory_allocated(),
+           "kernel_launches": launches, "all_logits_finite": True,
+           "vs_plain": gaps,
+           "tolerance": {"max_rel": MODEL_LOGIT_REL,
+                         "mean_rel": MODEL_LOGIT_MEAN_REL,
+                         "f32_twin_max_rel": TWIN_F32_REL}}
+    emit("model_modalities", check="full-width musicgen-large generation",
+         **out)
+    del model
+    _free_card(torch)
+    out["reduced_card_vs_cpu"] = _audio_reduced_card_vs_cpu(torch)
+    return out
+
+
+def _audio_reduced_card_vs_cpu(torch) -> dict:
+    """The reduced musicgen (f32) on the card and the CPU with the same
+    weights: prefill behind the prefix and three decode steps, logits
+    within 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = get_arch("musicgen-large").reduced()
+    card = Model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    toks, pre = _audio_inputs(torch, cfg, 3, 20, 73)
+    a = _audio_generate(torch, card, toks, pre, 3)
+    with torch.inference_mode():
+        lc, cc = cpu(toks.cpu(), prefix_emb=pre.cpu(), collect_cache=True,
+                     cache_size=toks.shape[1] + cfg.n_prefix + 11)
+        worst = float((a[0].cpu() - lc).abs().max())
+        for i in range(3):
+            dc, cc = cpu.decode_step(cc, a[2][:, i:i + 1].cpu())
+            if i == 0:
+                worst = max(worst, float((a[1].cpu() - dc).abs().max()))
+    if worst > 1e-4:
+        fail(f"reduced musicgen card vs cpu: logits differ by {worst}")
+    out = {"max_abs_logit_diff": worst, "tolerance": 1e-4}
+    emit("model_modalities", check="reduced musicgen-large f32, card vs cpu",
+         **out)
+    return out
+
+
+def phase_model_modalities(torch, card: str, sim_cached: list) -> dict:
+    """qwen2-vl-2b at full width (bf16, all 28 layers) behind the main
+    configuration for ``MODALITY_BATCHES`` batches, text only (its hit
+    decisions the sim backend's, the kernels against the plain attention),
+    the reduced qwen2-vl card vs CPU; musicgen-large at full width with
+    its prefix (``_audio_run``)."""
+    vlm = _model_serve(torch, "qwen2-vl-2b", None, sim_cached,
+                       batches=MODALITY_BATCHES, phase="model_modalities")
+    _reduced_card_vs_cpu(torch, "qwen2-vl-2b")
+    audio = _audio_run(torch)
+    launches = {name: vlm["kernel_launches"][name]
+                + audio["kernel_launches"].get(name, 0)
+                for name in ("cosine_topk", "flash_attention",
+                             "decode_attention")}
+    return {"launches": launches, "vlm": vlm, "audio": audio}
+
+
+# --------------------------------------------------------------------- #
+# training on the card: the flash-attention backward (row 9b), one step's
+# gradients through the kernels against plain attention, AdamW steps
+# --------------------------------------------------------------------- #
+# the backward kernel sums f32 products in another order than its plain
+# version (f32); a bf16 gradient is that sum rounded once, from operands
+# and an output the plain version reads in f32 as they are
+BWD_TOL = {"f32": 1e-4, "bf16": 2e-2}   # of the largest |gradient|
+LSE_TOL = 1e-4                          # the forward's row log-sum-exp
+BWD_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window, n_sink)
+    (2, 128, 128, 4, 4, 64, True, None, 0),      # G=1, causal
+    (2, 100, 100, 8, 2, 128, True, None, 0),     # G=4, ragged
+    (1, 256, 256, 10, 2, 64, True, 70, 0),       # G=5, window drops keys
+    (1, 300, 300, 12, 2, 128, True, 50, 128),    # G=6, sinks span tiles
+    (2, 192, 192, 25, 5, 64, True, 1024, 128),   # hymba's shape, G=5
+    (2, 64, 200, 6, 1, 128, True, 90, 70),       # Lk > Lq with sinks, G=6
+    (1, 100, 60, 4, 2, 64, True, None, 0),       # Lk < Lq: 40 rows see nothing
+    (2, 96, 96, 4, 2, 64, False, None, 0),       # not causal
+    (8, 128, 128, 12, 2, 128, True, None, 0),    # qwen2-vl's training step
+    (2, 128, 128, 32, 32, 64, True, None, 0),    # musicgen's geometry, G=1
+]
+
+
+def _grad_err(torch, got, want, tol_share, where) -> float:
+    """max |got - want| (both read in f32), which must stay within
+    ``tol_share`` of the largest |want|."""
+    torch.cuda.synchronize()
+    a, b = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(a).all()):
+        fail(f"{where}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or "
+             "a non-finite gradient")
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    if err > tol_share * max(scale, 1e-30):
+        fail(f"{where}: kernel and plain version differ by {err}, over "
+             f"{tol_share} of the largest |gradient| {scale}")
+    return err
+
+
+def _flash_bwd_cases(torch) -> dict:
+    """Row 9b against its plain version in f32 on the same inputs (the
+    kernel's bf16 operands and output read in f32), over causal, window,
+    sinks, G = 1, 4, 5, 6, D = 64 and 128, ragged lengths, Lk > Lq and
+    rows that see nothing (zero gradient), f32 and bf16; the forward's
+    log-sum-exp against the plain one, its output bit for bit the output
+    without it; each backward run twice, bit for bit the same (no
+    atomics)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as kflash
+    worst = {"f32": 0.0, "bf16": 0.0}
+    lse_worst = 0.0
+    torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for dtype in ("f32", "bf16"):
+        gen = torch.Generator(device="cuda").manual_seed(61)
+        for b, lq, lk, h, hkv, d, causal, window, sink in BWD_CASES:
+            where = (f"flash backward {dtype} B={b} Lq={lq} Lk={lk} H={h} "
+                     f"HKV={hkv} D={d} causal={causal} window={window} "
+                     f"n_sink={sink}")
+            q, k, v, dout = _attn_inputs(torch, gen, (
+                (b, lq, h, d), (b, lk, hkv, d), (b, lk, hkv, d),
+                (b, lq, h, d)), torch_dtype[dtype])
+            kw = dict(causal=causal, window=window, n_sink=sink)
+            out, lse = kflash.flash_attention_fwd_cuda(q, k, v, **kw)
+            plain_out = kflash.flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, plain_out):
+                fail(f"{where}: the forward's output moved when it also "
+                     "wrote the log-sum-exp")
+            f32 = [x.float() for x in (q, k, v)]
+            _, want_lse = ref.flash_attention_lse_ref(*f32, **kw)
+            seen = torch.isfinite(want_lse)
+            if not torch.equal(seen, torch.isfinite(lse)):
+                fail(f"{where}: rows that see nothing differ in the lse")
+            lse_err = float((lse[seen] - want_lse[seen]).abs().max()) \
+                if bool(seen.any()) else 0.0
+            if lse_err > LSE_TOL:
+                fail(f"{where}: lse differs by {lse_err} (> {LSE_TOL})")
+            lse_worst = max(lse_worst, lse_err)
+            got = kflash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                  **kw)
+            again = kflash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                    **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"{where}: two runs of the backward differ")
+            want = ref.flash_attention_bwd_ref(*f32, out.float(),
+                                               dout.float(), lse, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                if g.dtype != q.dtype:
+                    fail(f"{where}: {name} is {g.dtype}, not {q.dtype}")
+                worst[dtype] = max(worst[dtype], _grad_err(
+                    torch, g, w, BWD_TOL[dtype], f"{where} {name}"))
+            if not seen.all():   # rows that see no key: zero dq
+                dead = ~seen[0, 0]
+                if bool(got[0][:, dead].float().abs().max() > 0):
+                    fail(f"{where}: a row that sees nothing has a gradient")
+        emit("train", kernel="flash_attention_bwd", dtype=dtype,
+             cases=len(BWD_CASES), max_abs_err=worst[dtype],
+             tol_share_of_max_grad=BWD_TOL[dtype], lse_max_err=lse_worst)
+    return {"max_abs_err": max(worst.values()), "lse_max_err": lse_worst}
+
+
+def _bwd_bound(q, k, visible_pairs: int) -> dict:
+    """Row 9b's least time: five GEMM-sized products (S, dP, dV, dQ, dK:
+    2 D FLOP each per visible (query, key, head)) at the bf16 tensor-core
+    rate, against q, k, v, out, dout and lse read and dq, dk, dv written
+    once at the memory rate."""
+    b, lq, h, d = q.shape
+    e = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * e + b * h * lq * 4 \
+        + (q.numel() + 2 * k.numel()) * e
+    return _bound(10.0 * d * h * visible_pairs * b, nbytes, PEAK_BF16_FLOPS)
+
+
+def _flash_bwd_timing(torch, card: str, shape: tuple) -> dict:
+    """Row 9b at a training step's shape (bf16, causal): the backward
+    kernel, its plain version and the backward of
+    ``scaled_dot_product_attention`` (a yardstick the port never calls),
+    timed in turns and the kernel and SDPA from CUDA graphs; beside them
+    row 9's forward with and without the log-sum-exp."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as kflash
+    b, l, h, hkv, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    q, k, v, dout = _attn_inputs(torch, gen, (
+        (b, l, h, d), (b, l, hkv, d), (b, l, hkv, d), (b, l, h, d)),
+        torch.bfloat16)
+    out, lse = kflash.flash_attention_fwd_cuda(q, k, v)
+    f32 = [x.float() for x in (q, k, v, out, dout)]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_dout = dout.transpose(1, 2)
+    kernel = lambda: kflash.flash_attention_bwd_cuda(q, k, v, out, dout,  # noqa: E731
+                                                     lse)
+    ms, times = _time_turns(torch, {
+        "kernel": kernel,
+        "plain": lambda: ref.flash_attention_bwd_ref(*f32, lse),
+        "library": lambda: torch.autograd.grad(sdpa, (qt, kt, vt), sdpa_dout,
+                                               retain_graph=True)}, 50)
+    # the autograd engine runs SDPA's backward on its own thread, which a
+    # CUDA graph cannot capture: SDPA is timed by events only, and the
+    # kernel both ways
+    graph = [_time_graph(torch, kernel, 50) for _ in range(2)]
+    row = {"kernel_ms": ms["kernel"], "graph_ms": min(graph),
+           "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "library_timed": "events (host)", "runs_ms": times,
+           "graph_runs_ms": graph}
+    pairs = l * (l + 1) // 2
+    bound = _bwd_bound(q, k, pairs)
+    out = {**row, **bound, "visible_pairs": pairs,
+           "share_of_bound": bound["bound_ms"] / row["graph_ms"],
+           "forward": _lse_timing(torch, q, k, v)}
+    emit("timing", kernel="flash_attention_bwd", shape="train", B=b, L=l,
+         H=h, HKV=hkv, D=d, dtype="bf16", causal=True, card=card, **out)
+    return out
+
+
+def _lse_timing(torch, q, k, v) -> dict:
+    """Row 9's forward from CUDA graphs without and with the log-sum-exp
+    written (the serve path's form and the training form), in turns
+    (without, with, with, without; best of two)."""
+    from repro_torch.kernels import flash_attention as kflash
+    fns = {"without_lse": lambda: kflash.flash_attention_cuda(q, k, v),
+           "with_lse": lambda: kflash.flash_attention_fwd_cuda(q, k, v)}
+    runs = {name: [] for name in fns}
+    for name in ("without_lse", "with_lse", "with_lse", "without_lse"):
+        runs[name].append(_time_graph(torch, fns[name], 100))
+    return {"graph_ms": {n: min(t) for n, t in runs.items()},
+            "graph_runs_ms": runs}
+
+
+def _serve_shape_lse_timing(torch, card: str) -> dict:
+    """Row 9 at the serve path's prefill shape (B=40, L=64, 32/4 heads of
+    128, bf16, causal) without and with the log-sum-exp."""
+    gen = torch.Generator(device="cuda").manual_seed(69)
+    q, k, v = _attn_inputs(torch, gen, ((40, 64, 32, 128), (40, 64, 4, 128),
+                                        (40, 64, 4, 128)), torch.bfloat16)
+    out = _lse_timing(torch, q, k, v)
+    emit("timing", kernel="flash_attention", shape="serve, with and without "
+         "the log-sum-exp", B=40, L=64, H=32, HKV=4, D=128, dtype="bf16",
+         card=card, **out)
+    return out
+
+
+TRAIN_STEPS = 10            # launch.train --arch qwen2-vl-2b --full
+TRAIN_BATCH, TRAIN_SEQ = 8, 128   # launch.train's defaults
+AUDIO_TRAIN_STEPS = 6       # musicgen-large through loss_fn, one batch
+# launch.train's 3e-3 overshoots at 48 layers of width 2,048 (the loss rose
+# at the third step on an H100: 8.13, 7.66, 8.45); at 5e-4 it falls each
+# step (8.13 to 5.45 in six)
+AUDIO_TRAIN_LR = 5e-4
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_FRAMES = 4, 125   # 128 delayed positions
+GRAD_CHECK_LAYERS = 4       # the kernels-vs-plain step: qwen2-vl, f32
+GRAD_SHARE = 1e-3           # of each leaf's largest |gradient|
+LOSS_FALL = 0.8             # the last loss under this share of the first
+
+
+def _grads_vs_plain(torch) -> dict:
+    """One training step's loss and every parameter gradient of qwen2-vl
+    at full width in f32 (``GRAD_CHECK_LAYERS`` layers: the f32 model's
+    weights and moments need not fit beside it), through the kernels
+    (forward with the log-sum-exp, backward kernel) against the same step
+    through the plain attention (autograd through
+    ``ref.flash_attention_ref``) on the same weights and tokens; ``wq``'s
+    gradient is not zero."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data.qa_dataset import build_corpus
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("qwen2-vl-2b"), dtype="float32",
+                              n_layers=GRAD_CHECK_LAYERS)
+    model = Model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(True)
+    toks = torch.as_tensor(next(make_batches(
+        HashTokenizer(vocab_size=cfg.vocab), build_corpus(500), TRAIN_BATCH,
+        TRAIN_SEQ, cfg.vocab)), dtype=torch.long, device="cuda")
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        kflash.reset_launches()
+        undo = _plain_attention() if plain else (lambda: None)
+        try:
+            loss = model.loss_fn(toks)
+            loss.backward()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        # prefix_proj takes no part in text-only training: no gradient
+        runs.append((float(loss.detach()), dict(kflash.launches),
+                     {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None}))
+    (k_loss, k_launch, k_grads), (p_loss, p_launch, p_grads) = runs
+    if k_launch["flash_attention_bwd"] != cfg.n_layers or \
+            p_launch["flash_attention_bwd"] != 0:
+        fail(f"kernels-vs-plain step: backward launches {k_launch} (kernels)"
+             f", {p_launch} (plain)")
+    if set(k_grads) != set(p_grads):
+        fail("kernels-vs-plain step: the two runs reached other leaves")
+    worst = {}
+    for name, want in p_grads.items():
+        err = float((k_grads[name] - want).abs().max())
+        scale = float(want.abs().max())
+        worst[name] = err / max(scale, 1e-30)
+        if err > GRAD_SHARE * max(scale, 1e-30) or not bool(
+                torch.isfinite(k_grads[name]).all()):
+            fail(f"kernels-vs-plain step: {name}'s gradient differs by {err}"
+                 f" (largest |gradient| {scale})")
+    if float(k_grads["blocks.wq"].abs().max()) == 0.0 or \
+            abs(k_loss - p_loss) > 1e-4 * abs(p_loss):
+        fail(f"kernels-vs-plain step: wq's gradient is zero or the losses "
+             f"differ ({k_loss} vs {p_loss})")
+    out = {"arch": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_kernels": k_loss,
+           "loss_plain": p_loss, "launches_kernels": k_launch,
+           "worst_leaf_share": max(worst.values()),
+           "worst_leaf": max(worst, key=worst.get),
+           "wq_grad_max": float(k_grads["blocks.wq"].abs().max()),
+           "tolerance_share": GRAD_SHARE, "leaves": len(worst)}
+    emit("train", check="one step's gradients, kernels vs plain attention",
+         **out)
+    del model, k_grads, p_grads
+    _free_card(torch)
+    return out
+
+
+def _train_qwen2(torch) -> dict:
+    """``launch.train --arch qwen2-vl-2b --full``: AdamW for
+    ``TRAIN_STEPS`` steps at full width (bf16 weights, f32 moments, remat
+    "full") on a fixed batch, launch.train's first (8 x 128 tokens of the QA
+    corpus; its sampler repeats that draw here); every loss finite, the
+    last under ``LOSS_FALL`` of the first; seconds a step after the
+    first."""
+    import itertools
+    from repro_torch.launch import train
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    sampler = train.make_batches   # a fixed batch: the sampler's first
+    train.make_batches = lambda *a, **kw: itertools.repeat(next(sampler(
+        *a, **kw)))
+
+    def log(line):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+    t0 = time.perf_counter()
+    try:
+        out = train.train("qwen2-vl-2b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, full=True, log_every=1, log=log,
+                          device="cuda")
+    finally:
+        train.make_batches = sampler
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = out["loss"]
+    step_s = [b - a for a, b in zip(times[1:], times[2:])]
+    if not all(math.isfinite(x) for x in losses) or \
+            losses[-1] > LOSS_FALL * losses[0]:
+        fail(f"qwen2-vl-2b training: losses {losses}")
+    res = {"arch": "qwen2-vl-2b", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "n_layers": out["model"].config.n_layers,
+           "params": sum(p.numel() for p in out["model"].parameters()),
+           "losses": losses, "lr": out["lr"], "grad_norm": out["grad_norm"],
+           "wall_s": wall, "step_s": step_s,
+           "step_s_median": sorted(step_s)[len(step_s) // 2],
+           "card_memory_peak": torch.cuda.max_memory_allocated()}
+    emit("train", check="launch.train --arch qwen2-vl-2b --full", **res)
+    del out
+    _free_card(torch)
+    return res
+
+
+def _train_musicgen(torch) -> dict:
+    """musicgen-large at full width (bf16, all 48 layers) through
+    ``Model.loss_fn`` and ``make_train_step`` (AdamW, launch.train's
+    settings) for ``AUDIO_TRAIN_STEPS`` steps on one batch of delayed
+    codebook tokens behind the 64-slot prefix; the loss falls."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import (AdamWConfig, init_adamw,
+                                                make_train_step)
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("musicgen-large")
+    model = Model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(True)
+    toks, pre = _audio_inputs(torch, cfg, AUDIO_TRAIN_BATCH,
+                              AUDIO_TRAIN_FRAMES, 79)
+    named = dict(model.named_parameters())
+    opt = init_adamw(named)
+    step = make_train_step(
+        lambda _p, batch: model.loss_fn(batch[0], prefix_emb=batch[1]),
+        AdamWConfig(lr=AUDIO_TRAIN_LR, warmup_steps=1,
+                    total_steps=AUDIO_TRAIN_STEPS))
+    losses, step_s = [], []
+    for _ in range(AUDIO_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        named, opt, metrics = step(named, opt, (toks, pre))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses) or \
+            losses[-1] > LOSS_FALL * losses[0]:
+        fail(f"musicgen-large training: losses {losses}")
+    res = {"arch": cfg.name, "steps": AUDIO_TRAIN_STEPS,
+           "n_layers": cfg.n_layers,
+           "batch": AUDIO_TRAIN_BATCH, "delayed_tokens": toks.shape[1],
+           "positions": toks.shape[1] + cfg.n_prefix,
+           "params": sum(p.numel() for p in named.values()),
+           "losses": losses, "step_s": step_s,
+           "card_memory_peak": torch.cuda.max_memory_allocated()}
+    emit("train", check="musicgen-large through loss_fn, full width", **res)
+    del model, named, opt
+    _free_card(torch)
+    return res
+
+
+def phase_train(torch, card: str) -> dict:
+    """Training on the card: row 9b against its plain version, one step's
+    gradients through the kernels against plain attention, then the main
+    path's training runs (``launch.train`` on qwen2-vl-2b, musicgen-large
+    through ``loss_fn``) with the flash kernels' launches counted, and
+    row 9b timed at the qwen2-vl step's shape."""
+    from repro_torch.kernels import flash_attention as kflash
+    cases = _flash_bwd_cases(torch)
+    grads = _grads_vs_plain(torch)
+    kflash.reset_launches()
+    vlm = _train_qwen2(torch)
+    audio = _train_musicgen(torch)
+    launches = dict(kflash.launches)
+    # remat "full" runs each layer's forward twice a step (the forward,
+    # then its recomputation in the backward)
+    layer_steps = vlm["n_layers"] * TRAIN_STEPS \
+        + audio["n_layers"] * AUDIO_TRAIN_STEPS
+    want = {"flash_attention": 2 * layer_steps,
+            "flash_attention_bwd": layer_steps}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    emit("train", check="flash kernel launches in the training runs",
+         launches=launches)
+    timing = _flash_bwd_timing(torch, card, (TRAIN_BATCH, TRAIN_SEQ, 12, 2,
+                                             128))
+    return {"launches": launches, "max_err": cases["max_abs_err"],
+            "timing": timing, "serve_lse": _serve_shape_lse_timing(torch,
+                                                                  card),
+            "grads": grads, "qwen2": vlm, "musicgen": audio}
+
+
+# --------------------------------------------------------------------- #
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3701,38 +4314,59 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, str(SRC))
 
-    card = phase_card(torch)
-    phase_build()
-    max_err = phase_kernel(torch)
-    main_launches, _, main_served, sync = phase_main(torch)
-    tenancy_launches, tenancy_served = phase_tenancy(torch)
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit("phase_seconds", of=name, seconds=seconds[name],
+             since_start=time.perf_counter() - t_start)
+        return out
+
+    card = timed("card", phase_card, torch)
+    timed("build", phase_build)
+    max_err = timed("kernel", phase_kernel, torch)
+    main_launches, _, main_served, sync = timed("main", phase_main, torch)
+    tenancy_launches, tenancy_served = timed("tenancy", phase_tenancy, torch)
     launches = {"cosine_topk": main_launches, **tenancy_launches}
     with tempfile.TemporaryDirectory() as scratch:
-        launches["ivf_topk"] = phase_ivf(torch, Path(scratch))["ivf_topk"]
-    quant_launches, quant_err = phase_quant(
-        torch, {"main": main_served, "tenancy": tenancy_served})
+        launches["ivf_topk"] = timed("ivf", phase_ivf, torch,
+                                     Path(scratch))["ivf_topk"]
+    quant_launches, quant_err = timed(
+        "quant", phase_quant, torch,
+        {"main": main_served, "tenancy": tenancy_served})
     del main_served, tenancy_served
     launches.update(quant_launches)
     for name, err in quant_err.items():
         max_err[name] = max(max_err[name], err)
     sim_cached = [r.cached for r in sync["responses"]]
-    phase_serve_async(torch, sync)
-    ctx_launches = phase_serve_context(torch, sync)
+    timed("serve_async", phase_serve_async, torch, sync)
+    ctx_launches = timed("serve_context", phase_serve_context, torch, sync)
     with tempfile.TemporaryDirectory() as scratch:
-        sharded_launches = phase_serve_sharded(torch, card, sync,
-                                               Path(scratch))
+        sharded_launches = timed("serve_sharded", phase_serve_sharded, torch,
+                                 card, sync, Path(scratch))
     del sync
     for name in ("cosine_topk", "cosine_topk_interval"):
         launches[name] += ctx_launches[name]
     for name in ("cosine_topk", "cosine_topk_interval", "ivf_topk"):
         launches[name] += sharded_launches[name]
-    timing = phase_timing(torch, card)
-    model = phase_model(torch, card, sim_cached)
-    families = phase_model_families(torch, card, sim_cached)
+    timing = timed("timing", phase_timing, torch, card)
+    model = timed("model", phase_model, torch, card, sim_cached)
+    families = timed("model_families", phase_model_families, torch, card,
+                     sim_cached)
+    modalities = timed("model_modalities", phase_model_modalities, torch,
+                       card, sim_cached)
+    train = timed("train", phase_train, torch, card)
     launches["cosine_topk"] += model["launches"]["cosine_topk"] \
-        + families["launches"]["cosine_topk"]
+        + families["launches"]["cosine_topk"] \
+        + modalities["launches"]["cosine_topk"]
     for name in ("flash_attention", "decode_attention"):
-        model["launches"][name] += families["launches"][name]
+        model["launches"][name] += families["launches"][name] \
+            + modalities["launches"][name]
+    model["launches"]["flash_attention"] += \
+        train["launches"]["flash_attention"]
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3782,6 +4416,19 @@ def main() -> None:
             "max_abs_err": model["max_err"][name], "ms": row["graph_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = train["timing"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": csrc + "flash_attention.cu",
+        # no TPU kernel: the reference differentiates its jnp
+        # blockwise_attention with XLA
+        "replaces": "src/repro/models/attention.py:32",
+        "launches": train["launches"]["flash_attention_bwd"],
+        "max_abs_err": train["max_err"], "ms": row["graph_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    seconds["total"] = time.perf_counter() - t_start
+    emit("phase_seconds", of="all", seconds=seconds)
     summary = {"kernels": kernels}
     print(nvidia_smi())
     print(json.dumps(summary))

@@ -89,7 +89,7 @@ def main() -> None:
                  ptxas_after(lambda line: "bf16_kernelILi128" in line))
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib, _ in libs.values():
-        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 10 + [
+        lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 10 + [
             ctypes.c_float, p]
         lib.flash_attention_launch.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(47)
@@ -99,8 +99,8 @@ def main() -> None:
         b, lq, h, d = q.shape
         lk, hkv = k.shape[1], k.shape[2]
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
-            lq, lk, h, hkv, d, 1, -1 if window is None else window, 0,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 1,
+            b, lq, lk, h, hkv, d, 1, -1 if window is None else window, 0,
             1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise SystemExit(f"flash_variants: launch failed ({err})")

@@ -1,2 +1,2 @@
-"""Data substrate: tokenizer and synthetic QA corpus (numpy-only copies of
-``repro.data``'s modules)."""
+"""Data substrate: tokenizer, synthetic QA corpus and MusicGen's codebook
+delay pattern (numpy-only copies of ``repro.data``'s modules)."""

@@ -65,6 +65,33 @@
 // to 10 bits, past what the f32 models' card-vs-CPU checks allow.
 // Shared-memory rows are padded to D + 1 floats so the 16 key rows of a
 // score step fall in 16 banks. D is 64 or 128.
+//
+// Both kernels write each row's log-sum-exp of its visible scaled scores,
+// m + log(l) (-inf for a row that sees nothing), to a (B, H, Lq) f32
+// tensor when given one (the training form); the serve path passes none
+// and runs as before.
+//
+// Backward (row 9b; the TPU package has no backward kernel: it
+// differentiates its jnp blockwise attention with XLA). Three launches on
+// one stream, plain f32 FMAs on CUDA cores, operands staged to f32 shared
+// memory as in the f32 forward, f32 or bf16 operands and gradients:
+//   flash_bwd_dot_kernel   Di = rowsum(dO * O), one warp a row;
+//   flash_bwd_dkdv_kernel  one block a (key tile of 64, KV head, batch
+//                          row): K and V stay in shared memory while it
+//                          loops over the group's G query heads and the
+//                          query tiles that see a key of the tile; per
+//                          (head, tile) it recomputes P^T = exp(S^T * scale
+//                          - lse) and dP^T = V dO^T, forms dS^T = P^T *
+//                          (dP^T - Di), and adds P^T dO to dV and dS^T Q to
+//                          dK in registers, so GQA's sum over the group is
+//                          done in the block;
+//   flash_bwd_dq_kernel    one block a (query tile, head, batch row),
+//                          walking the forward's live KV tiles (sinks, then
+//                          the window's): dQ += dS K.
+// No atomics: every gradient element is written once by one block, so a
+// gradient is the same from run to run. A row that sees no key has P = 0
+// and adds nothing. Shared memory: 166 KB (dK/dV) and 149 KB (dQ) at
+// D = 128, one block an SM. Tensor cores, TMA and wgmma are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,6 +124,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;   // (B, H, Lq) row log-sum-exp for the backward, or null
   int B, Lq, Lk, H, HKV, causal, window, n_sink;
   float scale;
 };
@@ -112,7 +140,8 @@ struct Tiles {
   __device__ int next(int t) const { return t + 1 == sink_end ? t_begin : t + 1; }
 };
 
-__device__ __forceinline__ Tiles live_tiles(const Args& a, int q0) {
+template <typename A>
+__device__ __forceinline__ Tiles live_tiles(const A& a, int q0) {
   const int q_lo = a.Lk - a.Lq + q0;
   const int q_hi = a.Lk - a.Lq + min(q0 + BQ, a.Lq) - 1;
   const int n_tiles = (a.Lk + BK - 1) / BK;
@@ -248,6 +277,9 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= a.Lq) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<size_t>(b) * a.H + h) * a.Lq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = out + ((static_cast<size_t>(b) * a.Lq + row) * a.H + h) * D;
 #pragma unroll
@@ -496,6 +528,15 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
     }
   }
   cp_async_wait<0>();
+  if (a.lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < a.Lq)
+        a.lse[(static_cast<size_t>(b) * a.H + h) * a.Lq + row] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+    }
+  }
 
   // normalized rows into the Q tile (every warp is past its last read of
   // it), then out in 16-byte rows; a reciprocal and multiplies, since 64
@@ -521,17 +562,22 @@ __global__ void __launch_bounds__(TC_NT, TC_MIN_BLOCKS) flash_attention_bf16_ker
   }
 }
 
+// the dynamic shared-memory opt-in of a kernel, once per instantiation
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;   // one opt-in per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static bool configured = false;
+  const cudaError_t err = opt_in(flash_attention_kernel<T, D>, smem, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
   flash_attention_kernel<T, D><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
@@ -540,14 +586,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
-  static bool configured = false;   // one opt-in per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static bool configured = false;
+  const cudaError_t err = opt_in(flash_attention_bf16_kernel<D>, smem, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
   flash_attention_bf16_kernel<D><<<grid, TC_NT, smem, stream>>>(a);
   return cudaGetLastError();
@@ -562,6 +603,344 @@ cudaError_t launch_d(const Args& a, int dtype, int D, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------
+// backward (row 9b): dQ, dK, dV on CUDA cores, f32 sums
+// ---------------------------------------------------------------------
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* dout;
+  const float* lse;   // (B, H, Lq) from the forward
+  float* di;          // (B, H, Lq) scratch: rowsum(dO * O)
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Lq, Lk, H, HKV, causal, window, n_sink;
+  float scale;
+};
+
+// key position kp is visible to query position qp (the forward's rule)
+__device__ __forceinline__ bool sees(const BwdArgs& a, int qp, int kp) {
+  return kp < a.Lk && (!a.causal || kp <= qp) &&
+         (a.window <= 0 || kp > qp - a.window || kp < a.n_sink);
+}
+
+// Di[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: one warp a row
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dot_kernel(BwdArgs a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * (NT / 32) + warp;
+  if (r >= static_cast<long long>(a.B) * a.Lq * a.H) return;
+  const T* o = static_cast<const T*>(a.out) + r * D;
+  const T* dout = static_cast<const T*>(a.dout) + r * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) acc = fmaf(attn::to_f32(dout[c]), attn::to_f32(o[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % a.H);
+    const long long bi = r / a.H;   // b * Lq + i
+    const int i = static_cast<int>(bi % a.Lq), b = static_cast<int>(bi / a.Lq);
+    a.di[(static_cast<size_t>(b) * a.H + h) * a.Lq + i] = acc;
+  }
+}
+
+template <int D>
+constexpr size_t bwd_dkdv_smem_bytes() {
+  return sizeof(float) * (4 * BQ * (D + 1) + 2 * BK * PS + 2 * BQ);
+}
+
+// dK and dV of one key tile of one KV head: one block a (key tile, KV
+// head, batch row), looping over the group's G query heads and the query
+// tiles that see a key of the tile, so the group's sum stays in the
+// block's registers (no atomics: the same gradient in every run). The
+// 16 x 16 threads own keys ty * 4 + i and, for S^T and dP^T, query rows
+// tx + 16 j; for dK and dV columns tx + 16 j, as the f32 forward.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(BwdArgs a) {
+  constexpr int QS = D + 1;
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;               // (BK, QS)
+  float* vs = ks + BK * QS;       // (BK, QS)
+  float* qs = vs + BK * QS;       // (BQ, QS)
+  float* dos = qs + BQ * QS;      // (BQ, QS)
+  float* pts = dos + BQ * QS;     // (BK, PS) P^T
+  float* dss = pts + BK * PS;     // (BK, PS) dS^T
+  float* lse_s = dss + BK * PS;   // (BQ,)
+  float* di_s = lse_s + BQ;       // (BQ,)
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.HKV, offset = a.Lk - a.Lq;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+
+  load_tile<T, D>(ks, static_cast<const T*>(a.k), b, kvh, a.HKV, k0, a.Lk);
+  load_tile<T, D>(vs, static_cast<const T*>(a.v), b, kvh, a.HKV, k0, a.Lk);
+
+  // the query tiles with a row that may see a key of this tile: from the
+  // first row at or past the tile's first key (causal) to the last row
+  // whose window reaches the tile's last key, unless the tile holds sinks
+  const int nq = (a.Lq + BQ - 1) / BQ;
+  const int qt_begin = a.causal ? max(0, k0 - offset) / BQ : 0;
+  int qt_end = nq;
+  if (a.window > 0 && k0 >= a.n_sink) {
+    const int hi_row = k0 + BK - 1 + a.window - 1 - offset;
+    qt_end = hi_row < 0 ? 0 : min(nq, hi_row / BQ + 1);
+  }
+
+  float dk[4][NC], dv[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int hg = 0; hg < G; ++hg) {
+    const int h = kvh * G + hg;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();   // the previous tile's reads are done
+      load_tile<T, D>(qs, q, b, h, a.H, q0, a.Lq);
+      load_tile<T, D>(dos, dout, b, h, a.H, q0, a.Lq);
+      if (tid < BQ) {
+        const int row = q0 + tid;
+        const size_t at = (static_cast<size_t>(b) * a.H + h) * a.Lq + row;
+        lse_s[tid] = row < a.Lq ? a.lse[at] : 0.f;
+        di_s[tid] = row < a.Lq ? a.di[at] : 0.f;
+      }
+      __syncthreads();
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float ka[4], va[4], qb[4], ob[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = ks[(ty * 4 + i) * QS + d];
+          va[i] = vs[(ty * 4 + i) * QS + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qb[j] = qs[(tx + 16 * j) * QS + d];
+          ob[j] = dos[(tx + 16 * j) * QS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
+            dpt[i][j] = fmaf(va[i], ob[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = k0 + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qr = tx + 16 * j, row = q0 + qr;
+          const bool vis = row < a.Lq && sees(a, offset + row, kp);
+          const float p = vis ? expf(st[i][j] * a.scale - lse_s[qr]) : 0.f;
+          pts[(ty * 4 + i) * PS + qr] = p;
+          dss[(ty * 4 + i) * PS + qr] = p * (dpt[i][j] - di_s[qr]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pa[4], sa[4], ob[NC], qb[NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = pts[(ty * 4 + i) * PS + qq];
+          sa[i] = dss[(ty * 4 + i) * PS + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          ob[j] = dos[qq * QS + tx + 16 * j];
+          qb[j] = qs[qq * QS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
+            dk[i][j] = fmaf(sa[i], qb[j], dk[i][j]);
+          }
+      }
+    }
+  }
+
+  T* dk_out = static_cast<T*>(a.dk);
+  T* dv_out = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= a.Lk) continue;
+    const size_t at = ((static_cast<size_t>(b) * a.Lk + row) * a.HKV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      dk_out[at + tx + 16 * j] = from_f32<T>(dk[i][j] * a.scale);
+      dv_out[at + tx + 16 * j] = from_f32<T>(dv[i][j]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t bwd_dq_smem_bytes() {
+  return sizeof(float) * (4 * BQ * (D + 1) + BQ * PS);
+}
+
+// dQ of one query tile of one head: one block a (query tile, head, batch
+// row), walking the forward's live KV tiles (sinks, then the window's);
+// the threads own query rows ty * 4 + i and keys (for dS) or columns
+// (for dQ) tx + 16 j.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdArgs a) {
+  constexpr int QS = D + 1;
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;               // (BQ, QS)
+  float* dos = qs + BQ * QS;      // (BQ, QS)
+  float* ks = dos + BQ * QS;      // (BK, QS)
+  float* vs = ks + BK * QS;       // (BK, QS)
+  float* dss = vs + BK * QS;      // (BQ, PS) dS
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.HKV), offset = a.Lk - a.Lq;
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+
+  load_tile<T, D>(qs, static_cast<const T*>(a.q), b, h, a.H, q0, a.Lq);
+  load_tile<T, D>(dos, static_cast<const T*>(a.dout), b, h, a.H, q0, a.Lq);
+  float lse_r[4], di_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const size_t at = (static_cast<size_t>(b) * a.H + h) * a.Lq + row;
+    lse_r[i] = row < a.Lq ? a.lse[at] : 0.f;
+    di_r[i] = row < a.Lq ? a.di[at] : 0.f;
+  }
+  const Tiles tiles = live_tiles(a, q0);
+
+  float dq[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) dq[i][j] = 0.f;
+
+  for (int t = tiles.first(); t < tiles.t_end; t = tiles.next(t)) {
+    const int k0 = t * BK;
+    __syncthreads();   // the previous tile's reads are done
+    load_tile<T, D>(ks, k, b, kvh, a.HKV, k0, a.Lk);
+    load_tile<T, D>(vs, v, b, kvh, a.HKV, k0, a.Lk);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qa[4], oa[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = qs[(ty * 4 + i) * QS + d];
+        oa[i] = dos[(ty * 4 + i) * QS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = ks[(tx + 16 * j) * QS + d];
+        vb[j] = vs[(tx + 16 * j) * QS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kr = tx + 16 * j;
+        const bool vis = row < a.Lq && sees(a, offset + row, k0 + kr);
+        const float p = vis ? expf(s[i][j] * a.scale - lse_r[i]) : 0.f;
+        dss[(ty * 4 + i) * PS + kr] = p * (dp[i][j] - di_r[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float sa[4], kb[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i] = dss[(ty * 4 + i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) kb[j] = ks[kk * QS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
+    }
+  }
+
+  T* dq_out = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= a.Lq) continue;
+    const size_t at = ((static_cast<size_t>(b) * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) dq_out[at + tx + 16 * j] = from_f32<T>(dq[i][j] * a.scale);
+  }
+}
+
+// three launches on one stream: Di, then dK/dV and dQ (both read Di)
+template <typename T, int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  static bool dkdv_ok = false, dq_ok = false;
+  constexpr size_t dkdv_smem = bwd_dkdv_smem_bytes<D>(), dq_smem = bwd_dq_smem_bytes<D>();
+  cudaError_t err = opt_in(flash_bwd_dkdv_kernel<T, D>, dkdv_smem, dkdv_ok);
+  if (err != cudaSuccess) return err;
+  err = opt_in(flash_bwd_dq_kernel<T, D>, dq_smem, dq_ok);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(a.B) * a.Lq * a.H;
+  const long long dot_blocks = (rows + NT / 32 - 1) / (NT / 32);
+  if (dot_blocks > 2147483647LL) return cudaErrorInvalidValue;
+  flash_bwd_dot_kernel<T, D><<<static_cast<unsigned>(dot_blocks), NT, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<T, D>
+      <<<dim3((a.Lk + BK - 1) / BK, a.HKV, a.B), NT, dkdv_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D><<<dim3((a.Lq + BQ - 1) / BQ, a.H, a.B), NT, dq_smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_d(const BwdArgs& a, int dtype, int D, cudaStream_t stream) {
+  if (dtype == 0 && D == 64) return launch_bwd<float, 64>(a, stream);
+  if (dtype == 0 && D == 128) return launch_bwd<float, 128>(a, stream);
+  if (dtype == 1 && D == 64) return launch_bwd<__nv_bfloat16, 64>(a, stream);
+  if (dtype == 1 && D == 128) return launch_bwd<__nv_bfloat16, 128>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+bool valid_shape(int B, int Lq, int Lk, int H, int HKV, int D, int n_sink) {
+  return !(B < 1 || B > 65535 || Lq < 1 || Lk < 1 || HKV < 1 || H < HKV || H > 65535 ||
+           H % HKV != 0 || (D != 64 && D != 128) || n_sink < 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -569,16 +948,31 @@ extern "C" {
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = float32,
 // 1 = bfloat16, for q, k, v and out alike; every tensor contiguous in the
 // layout of the header. causal: 0 or 1; window <= 0 means no window; with a
-// window, keys j < n_sink (>= 0) stay visible.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int dtype,
-                           int B, int Lq, int Lk, int H, int HKV, int D, int causal, int window,
-                           int n_sink, float scale, void* stream) {
-  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || HKV < 1 || H < HKV || H > 65535 ||
-      H % HKV != 0 || (D != 64 && D != 128) || n_sink < 0)
+// window, keys j < n_sink (>= 0) stay visible. lse is null (the serve path)
+// or (B, H, Lq) f32 for each row's log-sum-exp of its visible scaled scores
+// (-inf for a row that sees nothing): the training form, whose backward is
+// flash_attention_bwd_launch.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int dtype, int B, int Lq, int Lk, int H, int HKV, int D, int causal,
+                           int window, int n_sink, float scale, void* stream) {
+  if (!valid_shape(B, Lq, Lk, H, HKV, D, n_sink)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, out, lse, B, Lq, Lk, H, HKV, causal, window, n_sink, scale};
+  return static_cast<int>(launch_d(a, dtype, D, static_cast<cudaStream_t>(stream)));
+}
+
+// dQ (B, Lq, H, D), dK and dV (B, Lk, HKV, D), in the operands' dtype,
+// from q, k, v, the forward's out and lse, and dout (the layout of out);
+// di is (B, H, Lq) f32 scratch. Same contract as the forward.
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* out,
+                               const void* dout, const float* lse, float* di, void* dq,
+                               void* dk, void* dv, int dtype, int B, int Lq, int Lk, int H,
+                               int HKV, int D, int causal, int window, int n_sink, float scale,
+                               void* stream) {
+  if (!valid_shape(B, Lq, Lk, H, HKV, D, n_sink) || lse == nullptr || di == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, out, B, Lq, Lk, H, HKV, causal, window, n_sink, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch_d(a, dtype, D, st));
+  const BwdArgs a{q, k, v, out, dout, lse, di, dq, dk, dv,
+                  B, Lq, Lk, H, HKV, causal, window, n_sink, scale};
+  return static_cast<int>(launch_bwd_d(a, dtype, D, static_cast<cudaStream_t>(stream)));
 }
 
 const char* flash_attention_error_string(int err) {

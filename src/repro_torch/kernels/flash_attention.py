@@ -16,7 +16,21 @@ The wrapper checks its arguments, allocates the output with
 ``torch.empty``, launches on the current stream without synchronizing,
 raises if the launch was refused, and counts its launches in
 ``launches["flash_attention"]``. It takes CUDA tensors only: ``ops`` sends
-CPU tensors to the plain version.
+CPU tensors to the plain version. Its output has no autograd history, so
+it refuses operands that require grad while grad mode is on: training
+goes through ``ops.flash_attention``, whose ``torch.autograd.Function``
+runs ``flash_attention_fwd_cuda`` (the same kernel, also writing each
+row's log-sum-exp) and, in the backward, ``flash_attention_bwd_cuda``.
+
+The backward (row 9b, no TPU counterpart: the JAX package differentiates
+its jnp blockwise attention with XLA) computes dQ, dK and dV from q, k,
+v, the forward's output and log-sum-exp and the output's gradient, in
+three launches on the current stream (``Di = rowsum(dO * O)``; dK and dV,
+one block a key tile and KV head, summing its query-head group in the
+block; dQ, one block a query tile and head), f32 FMAs on CUDA cores, no
+atomics (a gradient is the same from run to run). It has the forward's
+contract and returns the gradients in the operands' dtype; each call adds
+one to ``launches["flash_attention_bwd"]``.
 """
 from __future__ import annotations
 
@@ -28,14 +42,15 @@ from repro_torch.kernels import build
 
 #: kernel launches in this process; a run sets it to 0 (``reset_launches``)
 #: and reads it back to show which path went through the kernel
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 HEAD_DIMS = (64, 128)   # the kernel's instantiations (D in the source)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,27 +91,42 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if lib.flash_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v out dtype B Lq Lk H HKV D causal window n_sink scale stream
-        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                               i, i, i, i, ctypes.c_float, p]
+        # q k v out lse dtype B Lq Lk H HKV D causal window n_sink scale stream
+        lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, i, i, i, i, ctypes.c_float,
+                                               p]
         lib.flash_attention_launch.restype = ctypes.c_int
+        # q k v out dout lse di dq dk dv dtype B Lq Lk H HKV D causal window
+        # n_sink scale stream
+        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 10 + [
+            ctypes.c_float, p]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int | None = None,
-                         n_sink: int = 0, scale: float | None = None
-                         ) -> torch.Tensor:
-    """Attention of every query row over its live keys; the (Lq, Lk) scores
-    never reach device memory."""
-    check_args(q, k, v, window=window, n_sink=n_sink)
-    dev = q.device
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on these operands."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
     if dev.type != "cuda":
-        raise RuntimeError(f"the CUDA flash attention takes CUDA tensors, got "
-                           f"{dev}; ops routes CPU tensors to the plain "
-                           "version")
+        raise RuntimeError(f"the CUDA {name} takes CUDA tensors, got {dev}; "
+                           "ops routes CPU tensors to the plain version")
+    return dev
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+
+
+def _forward(q, k, v, causal, window, n_sink, scale, lse):
+    dev = _check_cuda("flash attention", q, k, v)
     lib = _lib()
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
@@ -106,11 +136,92 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[q.dtype], b, lq, lk, h, hkv, d, int(causal),
-            -1 if window is None else window, n_sink, scale,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"{lib.flash_attention_error_string(err).decode()}")
+            None if lse is None else lse.data_ptr(), DTYPE_CODE[q.dtype], b,
+            lq, lk, h, hkv, d, int(causal), -1 if window is None else window,
+            n_sink, scale, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "flash_attention")
     build.count_launch(launches, "flash_attention")
     return out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         n_sink: int = 0, scale: float | None = None
+                         ) -> torch.Tensor:
+    """Attention of every query row over its live keys; the (Lq, Lk) scores
+    never reach device memory. Refuses operands that require grad (its
+    output would carry no gradient): ``ops.flash_attention`` takes them."""
+    check_args(q, k, v, window=window, n_sink=n_sink)
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention_cuda returns no autograd history; "
+                           "call ops.flash_attention, whose autograd Function "
+                           "runs the backward kernel, for operands that "
+                           "require grad")
+    return _forward(q, k, v, causal, window, n_sink, scale, None)
+
+
+def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int | None = None, n_sink: int = 0,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's training form, run by ``ops``' autograd
+    Function: (out, lse), lse (B, H, Lq) f32 the log-sum-exp of each row's
+    visible scaled scores (-inf for a row that sees nothing). Counted as a
+    ``flash_attention`` launch."""
+    check_args(q, k, v, window=window, n_sink=n_sink)
+    b, lq, h, _ = q.shape
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, n_sink, scale, lse), lse
+
+
+def check_bwd_args(q, k, v, out, dout, lse, *, window=None, n_sink=0) -> None:
+    """Raise ValueError on anything the backward kernel does not take: the
+    forward's contract, ``out`` and ``dout`` shaped and typed as q, ``lse``
+    (B, H, Lq) f32, all contiguous on one device."""
+    check_args(q, k, v, window=window, n_sink=n_sink)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be shaped and typed as q "
+                             f"{tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    b, lq, h, _ = q.shape
+    if tuple(lse.shape) != (b, h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {lq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not all(t.is_contiguous() for t in (out, dout, lse)):
+        raise ValueError("every operand must be contiguous")
+    if any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("every operand must start on a 16-byte boundary")
+    if len({t.device for t in (q, out, dout, lse)}) != 1:
+        raise ValueError("every operand must be on one device")
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             n_sink: int = 0, scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dQ, dK, dV of the prefill attention (the plain version is
+    ``ref.flash_attention_bwd_ref``), in the operands' dtype."""
+    check_bwd_args(q, k, v, out, dout, lse, window=window, n_sink=n_sink)
+    dev = _check_cuda("flash attention backward", q, k, v, out, dout, lse)
+    lib = _lib()
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPE_CODE[q.dtype], b, lq, lk, h,
+            hkv, d, int(causal), -1 if window is None else window, n_sink,
+            scale, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    build.count_launch(launches, "flash_attention_bwd")
+    return dq, dk, dv

@@ -117,13 +117,51 @@ def ivf_topk(queries: torch.Tensor, keys: torch.Tensor, cand: torch.Tensor,
     return ref.ivf_topk_ref(queries, keys, cand, k)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Prefill attention with its backward: on CUDA tensors the forward
+    kernel in its training form (it also writes each row's log-sum-exp)
+    and the backward kernel (row 9b); on CPU tensors their plain versions
+    (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``), so
+    the CPU runs the same wiring. ``ops.flash_attention`` takes this route
+    whenever an operand requires grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, n_sink, scale):
+        kw = dict(causal=causal, window=window, n_sink=n_sink, scale=scale)
+        if q.device.type == "cuda":
+            out, lse = kflash.flash_attention_fwd_cuda(q, k, v, **kw)
+        else:
+            kflash.check_args(q, k, v, window=window, n_sink=n_sink)
+            out, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cuda":
+            grads = kflash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                    **ctx.kw)
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                                **ctx.kw)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     n_sink: int = 0, scale: float | None = None
                     ) -> torch.Tensor:
     """Prefill attention: q (B, Lq, H, D), k/v (B, Lk, HKV, D), query
     offset ``Lk - Lq``; with a window, keys ``j < n_sink`` stay visible
-    (hymba's meta-token sinks)."""
+    (hymba's meta-token sinks). When an operand requires grad (and grad
+    mode is on) it runs through ``FlashAttention``, whose backward is the
+    backward kernel on CUDA; otherwise the forward kernel alone."""
+    if kflash.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, n_sink, scale)
     if q.device.type == "cuda":
         return kflash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, n_sink=n_sink,
@@ -140,8 +178,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_scale: torch.Tensor | None = None,
                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Decode attention: q (B, 1, H, D) over one layer's (B, S, HKV, D)
-    cache, int8 with (B, S, HKV) scales."""
+    cache, int8 with (B, S, HKV) scales. Inference only: it raises for
+    operands that require grad on either device."""
     kw = dict(window=window, n_sink=n_sink, k_scale=k_scale, v_scale=v_scale)
+    if kflash.needs_grad(q, k_cache, v_cache):
+        raise RuntimeError("decode attention has no backward (neither its "
+                           "kernel nor, to keep one wiring, its plain "
+                           "version here): decode under torch.no_grad()")
     if q.device.type == "cuda":
         return kdecode.decode_attention_cuda(q, k_cache, v_cache, slot_pos,
                                              pos, scale=scale, **kw)

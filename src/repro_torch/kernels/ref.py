@@ -196,17 +196,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       (B, Lq, H, D) in q's dtype. Products and sums in f32; a row with
       nothing visible is 0.
     """
-    b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
-    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
-    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-    kpos = torch.arange(lk, device=q.device)[None, :]
-    visible = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    s, _, _ = _flash_scores(q, k, scale)
+    visible = _flash_visible(q.shape[1], k.shape[1], causal, window, n_sink,
+                             q.device)
+    vf = v.to(torch.float32).repeat_interleave(q.shape[2] // v.shape[2],
+                                               dim=2)
+    p = _softmax_visible(s, visible)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def _flash_visible(lq: int, lk: int, causal: bool, window: int | None,
+                   n_sink: int, device) -> torch.Tensor:
+    """(Lq, Lk) visibility of the prefill kernels (query row i at position
+    ``i + Lk - Lq``)."""
+    qpos = torch.arange(lq, device=device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=device)[None, :]
+    visible = torch.ones((lq, lk), dtype=torch.bool, device=device)
     if causal:
         visible &= kpos <= qpos
     if window is not None:
@@ -214,8 +219,72 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if n_sink > 0:
             wmask |= kpos < n_sink
         visible &= wmask
-    p = _softmax_visible(s, visible)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return visible
+
+
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, scale: float | None):
+    """f32 scores (B, H, Lq, Lk), K expanded to H heads, and the scale."""
+    g = q.shape[2] // k.shape[2]
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    return torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale, \
+        kf, scale
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None, n_sink: int = 0,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel's training form: the output of
+    ``flash_attention_ref`` and each row's log-sum-exp of its visible
+    scaled scores, (B, H, Lq) f32, -inf for a row that sees nothing."""
+    out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              n_sink=n_sink, scale=scale)
+    s, _, _ = _flash_scores(q, k, scale)
+    visible = _flash_visible(q.shape[1], k.shape[1], causal, window, n_sink,
+                             q.device)
+    lse = torch.logsumexp(s.masked_fill(~visible, float("-inf")), dim=-1)
+    return out, lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True, window: int | None = None,
+                            n_sink: int = 0, scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the backward kernel (row 9b): dQ, dK, dV of the
+    prefill attention from its operands, its output ``out``, the output's
+    gradient ``dout`` and the forward's row log-sum-exp ``lse`` (B, H, Lq),
+    by the explicit formulas in f32:
+
+        P = exp(S - lse) on visible entries, 0 elsewhere (S scaled)
+        dV = P^T dO;  dP = dO V^T;  Di = rowsum(dO * O)
+        dS = P * (dP - Di);  dQ = scale dS K;  dK = scale dS^T Q
+
+    dK and dV sum over the query heads of each KV head's group. A row
+    that sees no key has P = 0 and adds nothing. Returns the three
+    gradients in the operands' dtype."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    s, kf, scale = _flash_scores(q, k, scale)
+    visible = _flash_visible(lq, lk, causal, window, n_sink, q.device)
+    p = torch.where(visible, torch.exp(s - lse[..., None]), 0.0)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    dof = dout.to(torch.float32)
+    di = torch.einsum("bqhd,bqhd->bhq", dof, out.to(torch.float32))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32)) * scale
+    dk = dk.reshape(b, lk, hkv, g, d).sum(dim=3)
+    dv = dv.reshape(b, lk, hkv, g, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -42,10 +42,12 @@ takes a mesh.
 
 ``--backend model`` answers the misses with a real decoder instead of the
 simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
-(default ``yi-6b``; any dense, moe, ssm or hybrid config, e.g.
+(default ``yi-6b``; any dense, moe, ssm, hybrid or vlm config, e.g.
 ``grok-1-314b``, ``llama4-maverick-400b-a17b``, ``mamba2-130m``,
-``hymba-1.5b``; audio and vlm raise NotImplementedError) at its reduced
-width, weights drawn from a seeded generator on the device (nothing is
+``hymba-1.5b``, ``qwen2-vl-2b`` (text only, no prefix); the audio
+``musicgen-large`` raises a ValueError: the text miss path has one
+codebook, and the reference fails there too) at its reduced width,
+weights drawn from a seeded generator on the device (nothing is
 downloaded). ``--full-width`` takes the published width instead
 (``build(reduced=False)``), and ``--n-layers N`` cuts the depth: grok-1 and
 llama4 do not fit one 80 GB card whole (``--n-layers 2``: two MoE layers

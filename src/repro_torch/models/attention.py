@@ -33,7 +33,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Lq, H, D), RoPE applied; k/v (B, Lk, HKV, D); query offset
     ``Lk - Lq`` (ends aligned); with a window, keys ``j < n_sink`` stay
     visible (attention sinks). The (Lq, Lk) scores never reach device
-    memory on CUDA."""
+    memory on CUDA. Differentiable: with operands that require grad it
+    runs ``ops.FlashAttention`` (on CUDA the forward kernel, which also
+    writes each row's log-sum-exp, and the backward kernel), where JAX
+    differentiates this jnp function with XLA."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                n_sink=n_sink, scale=scale)
 

@@ -1,11 +1,12 @@
 """Weights across packages: the JAX ``Model.init_params`` tree, as numpy
 arrays, into the port's ``Model`` state.
 
-Every leaf maps one to one (``embed``, ``lm_head``, ``final_norm``,
+Every leaf maps one to one (``embed``, ``lm_head`` (audio: with a
+leading codebook axis), ``final_norm``, ``prefix_proj`` (audio, vlm),
 ``meta_tokens``, ``blocks/<name>`` -> ``blocks.<name>`` and the SSM
 layers' ``blocks/ssm/<name>`` -> ``blocks.ssm.<name>``), with its shape
 and dtype kept; bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
-carried bit for bit.
+carried bit for bit. The same renaming carries a gradient tree across.
 Nothing here imports JAX: the caller turns the tree into numpy first, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``.
 """

@@ -1,11 +1,11 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings (PyTorch port
-of ``repro.models.layers``), and hymba's per-branch norm (``_branch_norm``
-of ``repro.models.model``).
+"""Shared model layers: RMSNorm, RoPE and M-RoPE, SwiGLU MLP, embeddings
+(PyTorch port of ``repro.models.layers``), and hymba's per-branch norm
+(``_branch_norm`` of ``repro.models.model``).
 
 The rounding points are the JAX package's: ``rms_norm`` computes in f32
-and casts back to the input's dtype; ``apply_rope`` multiplies the input
-by f32 cos/sin (a bf16 input is promoted to f32, as jnp promotes it) and
-casts back. M-RoPE (qwen2-vl) arrives with the vlm slice.
+and casts back to the input's dtype; ``apply_rope`` and ``apply_mrope``
+multiply the input by f32 cos/sin (a bf16 input is promoted to f32, as
+jnp promotes it) and cast back.
 """
 from __future__ import annotations
 
@@ -44,20 +44,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): positions3 (..., S, 3) = (t, h, w) per token.
+
+    The head_dim/2 frequency slots are split into three contiguous
+    sections; each section rotates by its own coordinate. Text tokens carry
+    t == h == w, for which M-RoPE is standard RoPE."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to head_dim/2 "
+                         f"= {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, n in enumerate(sections)])         # (D/2,)
+    pos = positions3.to(torch.float32)[..., sec_id]               # (..., S, D/2)
+    angles = pos * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def positionize(config: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """Positions in the arch's expected rank: (..., S) for standard RoPE.
-    M-RoPE's (..., S, 3) arrives with the vlm slice."""
-    if config.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) arrives with the vlm "
-                                  "slice of the port")
+    """Positions in the arch's expected rank: (..., S) for standard RoPE,
+    (..., S, 3) for M-RoPE, where (..., S) text positions become t = h = w.
+    As in JAX, positions whose last axis is already 3 are taken as
+    triples."""
+    if config.mrope and positions.shape[-1] != 3:
+        positions = torch.stack([positions] * 3, dim=-1)
     return positions
 
 
 def rope_for(config: ModelConfig, x: torch.Tensor, positions: torch.Tensor
              ) -> torch.Tensor:
     if config.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) arrives with the vlm "
-                                  "slice of the port")
+        return apply_mrope(x, positions, config.rope_theta,
+                           config.mrope_sections)
     return apply_rope(x, positions, config.rope_theta)
 
 

@@ -7,10 +7,11 @@ queries (keyed by the query's semantic source) and a templated answer
 otherwise, charging a configurable latency + dollar cost per call.
 
 ``ModelBackend`` — a real decoder (``repro_torch.models.Model``: the
-dense, moe, ssm and hybrid families, any width) behind the same interface:
-tokenize, prefill, greedy decode, on the model's device; on CUDA its
-attention runs through the hand-written flash-attention (prefill) and
-decode-attention kernels.
+dense, moe, ssm, hybrid and vlm families, any width; vlm text-only) behind
+the same interface: tokenize, prefill, greedy decode, on the model's
+device; on CUDA its attention runs through the hand-written
+flash-attention (prefill) and decode-attention kernels. The audio family
+is refused: the text miss path has one codebook.
 """
 from __future__ import annotations
 
@@ -103,6 +104,15 @@ class ModelBackend:
 
     def __init__(self, model, tokenizer: HashTokenizer, *,
                  max_prompt_len: int = 64, max_new_tokens: int = 24):
+        cfg = model.config
+        if cfg.n_codebooks > 1:
+            # the reference's backend feeds the (B, L) text tokens to
+            # ``_embed``, which reads their last axis as codebooks and
+            # fails inside the forward
+            raise ValueError(
+                f"{cfg.name} models {cfg.n_codebooks} audio codebooks, and "
+                "the text miss path has one codebook: an audio model cannot "
+                "answer text queries")
         self.model = model
         self.tokenizer = tokenizer
         self.max_prompt_len = max_prompt_len

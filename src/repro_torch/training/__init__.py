@@ -1,1 +1,2 @@
-"""Checkpoint format shared with ``repro.training.checkpoint``."""
+"""Training: AdamW (``optimizer``) and checkpoints in the format shared
+with ``repro.training.checkpoint`` (``checkpoint``)."""

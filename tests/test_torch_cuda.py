@@ -17,8 +17,11 @@ CPU, the tracing engine's spans on CUDA, sessions, near-hit bands and
 resilience on CUDA against the CPU, and the sharded cache (four shards on
 the card: the serve loop against the unsharded card run and the CPU, IVF
 against a restored CPU engine, reshard on load), the flash kernel with
-attention sinks, and the moe, ssm and hybrid families' reduced models on
-CUDA against the CPU. Every test here needs a CUDA
+attention sinks, the moe, ssm, hybrid, audio and vlm families' reduced
+models on CUDA against the CPU, and training: the flash-attention
+backward kernel against its plain version, a training step's loss and
+gradients through the kernels and the training driver against the CPU.
+Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -1517,3 +1520,152 @@ def test_reshard_on_cuda(cuda_device, tmp_path):
     back.load_cache(str(tmp_path / "four"))
     # both hold the entries of two passes now
     assert _served(back.process(reqs))[0] == _served(one.process(reqs))[0]
+
+
+# --------------------------------------------------------------------- #
+# training on the card: the flash-attention backward (row 9b), the
+# audio and vlm families, a training step through the kernels
+# --------------------------------------------------------------------- #
+FLASH_BWD_CUDA_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window, n_sink)
+    (2, 100, 100, 4, 4, 64, True, None, 0),      # G=1, ragged
+    (1, 256, 256, 10, 2, 64, True, 70, 0),       # G=5, window drops keys
+    (1, 300, 300, 12, 2, 128, True, 50, 128),    # G=6, sinks span tiles
+    (2, 64, 200, 6, 1, 128, True, 90, 70),       # Lk > Lq with sinks
+    (1, 100, 60, 4, 2, 64, True, None, 0),       # 40 rows see nothing
+    (2, 96, 96, 4, 2, 64, False, None, 0),       # not causal
+]
+# of the largest |gradient|: f32 sums in another order; bf16 gradients
+# rounded once from f32 sums of bf16 operands
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,window,n_sink",
+                         FLASH_BWD_CUDA_CASES)
+def test_cuda_flash_attention_backward_matches_plain_version(
+        cuda_device, b, lq, lk, h, hkv, d, causal, window, n_sink, dtype):
+    """``ops.flash_attention`` with operands that require grad: an output
+    with a grad_fn, one forward launch (with the log-sum-exp) and one
+    backward call of the hand-written kernel; dq, dk, dv in the operands'
+    dtype, within ``BWD_TOL`` of the plain backward in f32 of the same
+    operands, the same bits in a second run, zero for rows that see no
+    key."""
+    rng = np.random.default_rng(lq + lk + h + n_sink)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32) * sc).to(dtype).to(cuda_device) for shape, sc in (
+        ((b, lq, h, d), 0.3), ((b, lk, hkv, d), 0.3), ((b, lk, hkv, d), 1.0),
+        ((b, lq, h, d), 1.0)))
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    kflash.reset_launches()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    assert kflash.launches == {"flash_attention": 1,
+                               "flash_attention_bwd": 1}
+    _, lse = tref.flash_attention_lse_ref(q.float(), k.float(), v.float(),
+                                          **kw)
+    want = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                        out.detach().float(), g.float(), lse,
+                                        **kw)
+    again = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, g)
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == dtype and torch.equal(x, y)
+        err = float((x.float() - w).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.abs().max())
+    if lk < lq:   # rows before the keys' positions see nothing
+        assert float(got[0][:, :lq - lk].float().abs().max()) == 0.0
+    with pytest.raises(RuntimeError, match="autograd"):
+        kflash.flash_attention_cuda(*leaves, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "llama4-maverick-400b-a17b",
+                                  "hymba-1.5b", "musicgen-large",
+                                  "qwen2-vl-2b"])
+def test_training_step_through_the_kernels_matches_cpu(cuda_device, arch):
+    """The reduced model's ``loss_fn`` and every parameter's gradient on
+    the card (flash forward and backward kernels) against the same weights
+    on the CPU (the plain versions through the same autograd Function);
+    ``wq``'s gradient is not zero, and the backward kernel ran once a
+    layer."""
+    cfg = get_arch(arch).reduced()
+    card = Model(cfg, device=cuda_device).init_params(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    rng = np.random.default_rng(3)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40) + books))
+    prefix = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_prefix, cfg.d_model)).astype(np.float32)) \
+        if cfg.n_prefix else None
+    losses, grads = [], []
+    kflash.reset_launches()
+    for m, dev in ((card, cuda_device), (cpu, "cpu")):
+        m.requires_grad_(True)
+        loss = m.loss_fn(toks.to(dev), prefix_emb=None if prefix is None
+                         else prefix.to(dev))
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert kflash.launches["flash_attention_bwd"] == cfg.n_layers
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    assert float(grads[0]["blocks.wq"].abs().max()) > 0
+    for name, want in grads[1].items():
+        err = float((grads[0][name] - want).abs().max())
+        assert err <= 1e-3 * max(float(want.abs().max()), 1e-6), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
+def test_audio_and_vlm_on_cuda_match_cpu(cuda_device, arch):
+    """The reduced audio and vlm models (f32) behind their prefix: prefill
+    through the flash kernel and three decode steps through the decode
+    kernel, logits and caches equal to the same weights on the CPU."""
+    cfg = get_arch(arch).reduced()
+    card = Model(cfg, device=cuda_device).init_params(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    rng = np.random.default_rng(5)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 24) + books))
+    prefix = torch.from_numpy(rng.standard_normal(
+        (3, cfg.n_prefix, cfg.d_model)).astype(np.float32))
+    kflash.reset_launches()
+    kdec.reset_launches()
+    with torch.inference_mode():
+        lg, cg = card(toks.to(cuda_device), prefix_emb=prefix.to(cuda_device),
+                      collect_cache=True, cache_size=64)
+        lc, cc = cpu(toks, prefix_emb=prefix, collect_cache=True,
+                     cache_size=64)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        torch.testing.assert_close(cg.kv.k.cpu(), cc.kv.k, rtol=0, atol=1e-4)
+        nt = lc[:, -1:].argmax(-1)
+        for _ in range(3):
+            dg, cg = card.decode_step(cg, nt.to(cuda_device))
+            dc, cc = cpu.decode_step(cc, nt)
+            torch.testing.assert_close(dg.cpu(), dc, rtol=0, atol=1e-4)
+            nt = dc.argmax(-1)
+    assert kflash.launches["flash_attention"] == cfg.n_layers
+    assert kdec.launches["decode_attention"] == 3 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_train_driver_on_cuda_matches_cpu(cuda_device):
+    """``launch.train`` on the reduced deepseek-7b: three AdamW steps on
+    the card from the CPU run's initial weights, losses and gradient norms
+    within 1e-4 of the CPU's, through the backward kernel."""
+    from repro_torch.launch import train as tr
+    init = Model(get_arch("deepseek-7b").reduced(), device="cpu").init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    kflash.reset_launches()
+    card = tr.train(steps=3, batch=2, seq=32, device="cuda", params=init,
+                    log=lambda *a: None)
+    assert kflash.launches["flash_attention_bwd"] == 3 * 2
+    cpu = tr.train(steps=3, batch=2, seq=32, device="cpu", params=init,
+                   log=lambda *a: None)
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-4)
+    np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-4)

@@ -100,6 +100,14 @@ def test_model_families_slice_files_are_checked():
             "kernels/flash_attention.py"} <= names
 
 
+def test_training_and_modalities_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"data/audio_delay.py", "training/optimizer.py",
+            "training/__init__.py", "launch/train.py", "models/layers.py",
+            "models/model.py", "kernels/ops.py", "kernels/ref.py"} <= names
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -138,6 +146,16 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.models.moe import dispatch_indices, moe_ffn, router\n"
         "from repro_torch.models.ssm import (SSMState, ssd_scan,\n"
         "    ssm_decode_step, ssm_forward)\n"
+        "from repro_torch.data.audio_delay import apply_delay, remove_delay\n"
+        "from repro_torch.models.layers import apply_mrope, positionize\n"
+        "from repro_torch.training.optimizer import (AdamWConfig,\n"
+        "    adamw_update, init_adamw, make_train_step)\n"
+        "from repro_torch.launch.train import make_batches, train\n"
+        "from repro_torch.kernels.ops import FlashAttention\n"
+        "from repro_torch.kernels.flash_attention import (\n"
+        "    flash_attention_bwd_cuda, flash_attention_fwd_cuda)\n"
+        "from repro_torch.kernels.ref import (flash_attention_bwd_ref,\n"
+        "    flash_attention_lse_ref)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

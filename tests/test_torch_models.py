@@ -156,12 +156,21 @@ def test_layers_match_jax(dtype):
 
 
 def test_mrope_raises():
+    """M-RoPE (qwen2-vl, ported with the vlm family) raises only where its
+    sections do not cover head_dim/2; text positions become t = h = w
+    triples, on which it equals standard RoPE (the full comparison with
+    JAX is in ``tests/test_torch_vlm.py``)."""
     cfg = get_arch("qwen2-vl-2b").reduced()
-    x = torch.zeros((1, 2, 2, 64))
-    with pytest.raises(NotImplementedError, match="vlm slice"):
-        tlayers.rope_for(cfg, x, torch.zeros((1, 2), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="vlm slice"):
-        tlayers.positionize(cfg, torch.zeros((1, 2), dtype=torch.int32))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 5, 2, 64)).astype(np.float32))
+    pos = torch.arange(5, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="sections"):
+        tlayers.apply_mrope(x, tlayers.positionize(cfg, pos), 1e4, (8, 8, 8))
+    pos3 = tlayers.positionize(cfg, pos)
+    assert pos3.shape == (1, 5, 3) and bool(torch.all(pos3 == pos[..., None]))
+    torch.testing.assert_close(tlayers.rope_for(cfg, x, pos3),
+                               tlayers.apply_rope(x, pos, cfg.rope_theta),
+                               rtol=0, atol=1e-6)
 
 
 # --------------------------------------------------------------------- #
@@ -562,20 +571,21 @@ def test_init_params_scales_and_generator():
 
 @pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
 def test_each_arch_runs_or_names_its_slice(arch):
-    """The dense, moe, ssm and hybrid families build and run a reduced
-    forward; audio and vlm raise, naming the slice that brings them."""
+    """Every family builds and runs a reduced forward: audio on (B, L, C)
+    codebook tokens with per-codebook logits, audio and vlm also behind
+    their frontend's prefix embeddings."""
     cfg = get_arch(arch).reduced()
-    if cfg.arch_type in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.arch_type} slice"):
-            Model(cfg, device="cpu")
-        return
     m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
     assert m.config is cfg
-    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 5, seed=1)).long()
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 5) + books)).long()
+    prefix = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, cfg.n_prefix, cfg.d_model)).astype(np.float32)) \
+        if cfg.n_prefix else None
     with torch.inference_mode():
-        logits = m(toks)
-    assert logits.shape == (2, 5, cfg.padded_vocab)
+        logits = m(toks, prefix_emb=prefix)
+    assert logits.shape == (2, 5) + books + (cfg.padded_vocab,)
     assert bool(torch.isfinite(logits).all())
 
 
@@ -595,6 +605,7 @@ def test_cuda_prefill_with_sinks_goes_to_the_kernel(monkeypatch):
     refused on both routes."""
     class OnCuda:
         device = torch.device("cuda")
+        requires_grad = False   # a training operand takes the Function
     calls = []
     monkeypatch.setattr(kflash, "flash_attention_cuda",
                         lambda *a, **kw: calls.append(kw) or "kernel")
