@@ -3927,6 +3927,8 @@ BWD_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window, n_sink)
     (2, 96, 96, 4, 2, 64, False, None, 0),       # not causal
     (8, 128, 128, 12, 2, 128, True, None, 0),    # qwen2-vl's training step
     (2, 128, 128, 32, 32, 64, True, None, 0),    # musicgen's geometry, G=1
+    (3, 200, 200, 12, 2, 128, True, 90, 70),     # sliced dK/dV (S > 1), sinks
+    (4, 192, 192, 32, 32, 64, True, None, 0),    # musicgen's step: one slice
 ]
 
 
@@ -3953,18 +3955,30 @@ def _flash_bwd_cases(torch) -> dict:
     rows that see nothing (zero gradient), f32 and bf16; the forward's
     log-sum-exp against the plain one, its output bit for bit the output
     without it; each backward run twice, bit for bit the same (no
-    atomics)."""
+    atomics, the slices' partials summed in order). Prints each case's
+    plan: the slices S of a key tile's work and the dK/dV grid. Fails
+    unless the cases take both ways of writing dK and dV on this card: one
+    slice (straight to dK and dV) and several (partials, then their sum)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as kflash
     worst = {"f32": 0.0, "bf16": 0.0}
     lse_worst = 0.0
     torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {kflash.bwd_plan(*case[:6], n_sm).splits for case in BWD_CASES}
+    if 1 not in splits or max(splits) == 1:
+        fail(f"BWD_CASES take slices {sorted(splits)} on {n_sm} SMs: one "
+             "slice and several must both be checked")
     for dtype in ("f32", "bf16"):
         gen = torch.Generator(device="cuda").manual_seed(61)
         for b, lq, lk, h, hkv, d, causal, window, sink in BWD_CASES:
             where = (f"flash backward {dtype} B={b} Lq={lq} Lk={lk} H={h} "
                      f"HKV={hkv} D={d} causal={causal} window={window} "
                      f"n_sink={sink}")
+            plan = kflash.bwd_plan(b, lq, lk, h, hkv, d, n_sm)
+            emit("train", case=where, splits=plan.splits,
+                 dkdv_blocks=plan.dkdv_blocks, dq_blocks=plan.dq_blocks,
+                 scratch_bytes=plan.scratch_bytes)
             q, k, v, dout = _attn_inputs(torch, gen, (
                 (b, lq, h, d), (b, lk, hkv, d), (b, lk, hkv, d),
                 (b, lq, h, d)), torch_dtype[dtype])
@@ -4021,12 +4035,32 @@ def _bwd_bound(q, k, visible_pairs: int) -> dict:
     return _bound(10.0 * d * h * visible_pairs * b, nbytes, PEAK_BF16_FLOPS)
 
 
+def _sdpa_bwd(torch, q, k, v, out_grad):
+    """SDPA's backward as one ATen call a CUDA graph can capture (causal,
+    q (B, L, H, D), k and v (B, L, HKV, D)): the flash backend's forward
+    once, for its output, log-sum-exp and RNG state, then a callable of
+    ``_scaled_dot_product_flash_attention_backward`` over (B, H, L, D)
+    views with k and v expanded to H heads (the op takes no grouped heads;
+    the expansion and the group's sum of dK and dV are left out). A
+    yardstick the port never calls."""
+    aten = torch.ops.aten
+    g = q.shape[2] // k.shape[2]
+    qt, dot = q.transpose(1, 2), out_grad.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    o, lse, cq, ck, mq, mk, seed, offset = \
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)[:8]
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
 def _flash_bwd_timing(torch, card: str, shape: tuple) -> dict:
     """Row 9b at a training step's shape (bf16, causal): the backward
-    kernel, its plain version and the backward of
-    ``scaled_dot_product_attention`` (a yardstick the port never calls),
-    timed in turns and the kernel and SDPA from CUDA graphs; beside them
-    row 9's forward with and without the log-sum-exp."""
+    kernel, its plain version and SDPA's backward (a yardstick the port
+    never calls), timed in turns by events, and the kernel and SDPA's
+    backward (``_sdpa_bwd``, one ATen call) from CUDA graphs; SDPA's
+    backward through autograd by events beside them (the autograd engine
+    runs it on its own thread, which a graph cannot capture); row 9's
+    forward with and without the log-sum-exp; the backward's plan."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as kflash
@@ -4042,26 +4076,32 @@ def _flash_bwd_timing(torch, card: str, shape: tuple) -> dict:
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                           enable_gqa=True)
     sdpa_dout = dout.transpose(1, 2)
+    library = _sdpa_bwd(torch, q, k, v, dout)
     kernel = lambda: kflash.flash_attention_bwd_cuda(q, k, v, out, dout,  # noqa: E731
                                                      lse)
     ms, times = _time_turns(torch, {
         "kernel": kernel,
         "plain": lambda: ref.flash_attention_bwd_ref(*f32, lse),
-        "library": lambda: torch.autograd.grad(sdpa, (qt, kt, vt), sdpa_dout,
-                                               retain_graph=True)}, 50)
-    # the autograd engine runs SDPA's backward on its own thread, which a
-    # CUDA graph cannot capture: SDPA is timed by events only, and the
-    # kernel both ways
-    graph = [_time_graph(torch, kernel, 50) for _ in range(2)]
-    row = {"kernel_ms": ms["kernel"], "graph_ms": min(graph),
-           "plain_ms": ms["plain"], "library_ms": ms["library"],
-           "library_timed": "events (host)", "runs_ms": times,
+        "autograd": lambda: torch.autograd.grad(
+            sdpa, (qt, kt, vt), sdpa_dout, retain_graph=True)}, 50)
+    graph = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        graph[name].append(_time_graph(
+            torch, kernel if name == "kernel" else library, 50))
+    row = {"kernel_ms": ms["kernel"], "graph_ms": min(graph["kernel"]),
+           "plain_ms": ms["plain"], "library_ms": min(graph["library"]),
+           "library_timed": "graph of aten._scaled_dot_product_flash_"
+           "attention_backward, k and v expanded to H heads",
+           "library_autograd_ms": ms["autograd"],
+           "library_autograd_fn": sdpa.grad_fn.name(), "runs_ms": times,
            "graph_runs_ms": graph}
     pairs = l * (l + 1) // 2
     bound = _bwd_bound(q, k, pairs)
+    plan = kflash.bwd_plan(b, l, l, h, hkv, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     out = {**row, **bound, "visible_pairs": pairs,
            "share_of_bound": bound["bound_ms"] / row["graph_ms"],
-           "forward": _lse_timing(torch, q, k, v)}
+           "plan": plan._asdict(), "forward": _lse_timing(torch, q, k, v)}
     emit("timing", kernel="flash_attention_bwd", shape="train", B=b, L=l,
          H=h, HKV=hkv, D=d, dtype="bf16", causal=True, card=card, **out)
     return out
@@ -4298,9 +4338,13 @@ def phase_train(torch, card: str) -> dict:
          launches=launches)
     timing = _flash_bwd_timing(torch, card, (TRAIN_BATCH, TRAIN_SEQ, 12, 2,
                                              128))
+    # musicgen-large's step: 64 prefix slots and 128 delayed positions,
+    # 32 heads of 64
+    timing_audio = _flash_bwd_timing(torch, card, (AUDIO_TRAIN_BATCH, 192,
+                                                   32, 32, 64))
     return {"launches": launches, "max_err": cases["max_abs_err"],
-            "timing": timing, "serve_lse": _serve_shape_lse_timing(torch,
-                                                                  card),
+            "timing": timing, "timing_musicgen": timing_audio,
+            "serve_lse": _serve_shape_lse_timing(torch, card),
             "grads": grads, "qwen2": vlm, "musicgen": audio}
 
 

@@ -24,17 +24,28 @@ row's log-sum-exp) and, in the backward, ``flash_attention_bwd_cuda``.
 
 The backward (row 9b, no TPU counterpart: the JAX package differentiates
 its jnp blockwise attention with XLA) computes dQ, dK and dV from q, k,
-v, the forward's output and log-sum-exp and the output's gradient, in
-three launches on the current stream (``Di = rowsum(dO * O)``; dK and dV,
-one block a key tile and KV head, summing its query-head group in the
-block; dQ, one block a query tile and head), f32 FMAs on CUDA cores, no
-atomics (a gradient is the same from run to run). It has the forward's
-contract and returns the gradients in the operands' dtype; each call adds
-one to ``launches["flash_attention_bwd"]``.
+v, the forward's output and log-sum-exp and the output's gradient. It has
+the forward's contract and returns the gradients in the operands' dtype;
+each call adds one to ``launches["flash_attention_bwd"]``, however many
+launches it makes. At qwen2-vl-2b's training step (B=8, L=128, H=12,
+HKV=2, D=128, bf16, causal) it is bound by bytes: 14.7 MB, 0.0044 ms on
+an H100. The work: dK and dV, one block a key tile, KV head and slice of
+the tile's (query head, query tile) items, summing its share of the
+query-head group in the block; dQ, one block a query tile and head.
+Launches on the current stream: ``Di = rowsum(dO * O)``; the dK/dV and
+dQ blocks (bf16: in one launch; f32: two); with more than one slice, a
+launch that sums the slices' f32 partials in their order. bf16 runs every
+product on the tensor cores (P and dS carried as two bf16 parts), f32 on
+CUDA-core FMAs. ``bwd_plan`` picks the slices: the fewest that give the
+dK/dV blocks one an SM (5 at qwen2-vl's shape, where one block a key
+tile gives 32), and the wrapper allocates their partials (10.5 MB there,
+in the L2). No atomics: a gradient is the same from run to run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +56,7 @@ from repro_torch.kernels import build
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 HEAD_DIMS = (64, 128)   # the kernel's instantiations (D in the source)
+TILE = 64               # query rows and keys of a tile (BQ, BK in the source)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,11 +108,11 @@ def _lib() -> ctypes.CDLL:
                                                i, i, i, i, i, ctypes.c_float,
                                                p]
         lib.flash_attention_launch.restype = ctypes.c_int
-        # q k v out dout lse di dq dk dv dtype B Lq Lk H HKV D causal window
-        # n_sink scale stream
-        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 10 + [
+        # q k v out dout lse di part dq dk dv dtype B Lq Lk H HKV D causal
+        # window n_sink splits scale stream
+        lib.flash_attention_bwd_split_launch.argtypes = [p] * 11 + [i] * 11 + [
             ctypes.c_float, p]
-        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_split_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -197,6 +209,41 @@ def check_bwd_args(q, k, v, out, dout, lse, *, window=None, n_sink=0) -> None:
         raise ValueError("every operand must be on one device")
 
 
+class BwdPlan(NamedTuple):
+    """How the backward cuts its work: ``splits`` slices of each key
+    tile's items, the dK/dV blocks and the dQ blocks, and the bytes of the
+    f32 partials the wrapper allocates (0 with one slice)."""
+
+    splits: int
+    dkdv_blocks: int
+    dq_blocks: int
+    scratch_bytes: int
+
+
+def bwd_plan(b: int, lq: int, lk: int, h: int, hkv: int, d: int,
+             n_sm: int) -> BwdPlan:
+    """The backward's plan for an (B, Lq, H, D) q and (B, Lk, HKV, D) k on
+    a card of ``n_sm`` SMs. One dK/dV block a (key tile, KV head, batch
+    row) walks all of its tile's items, the (query head, query tile) pairs
+    of the group's G = H / HKV heads: few blocks at a small batch with
+    grouped heads (32 at qwen2-vl-2b's training step). So each tile's items
+    are cut into S contiguous slices, one block each: the smallest S that
+    gives at least ``n_sm`` blocks, at most G times the query tiles (the
+    most items a key tile has), and 1 where the grid already fills the
+    card. Each slice then writes f32 partial dK and dV, (2, S, B, Lk,
+    HKV, D), which a last launch sums in slice order."""
+    tiles = -(-lk // TILE) * hkv * b
+    q_tiles = -(-lq // TILE)
+    splits = max(1, min((h // hkv) * q_tiles, -(-n_sm // tiles)))
+    scratch = 0 if splits == 1 else 2 * splits * b * lk * hkv * d * 4
+    return BwdPlan(splits, tiles * splits, q_tiles * h * b, scratch)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
@@ -213,15 +260,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lk, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    # a CUDA tensor's device always carries its index
+    plan = bwd_plan(b, lq, lk, h, hkv, d, _sm_count(dev.index))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     di = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    part = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                       device=dev) if plan.splits > 1 else None
     with torch.cuda.device(dev):
-        err = lib.flash_attention_bwd_launch(
+        err = lib.flash_attention_bwd_split_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            None if part is None else part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPE_CODE[q.dtype], b, lq, lk, h,
             hkv, d, int(causal), -1 if window is None else window, n_sink,
-            scale, torch.cuda.current_stream(dev).cuda_stream)
+            plan.splits, scale, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "flash_attention_bwd")
     build.count_launch(launches, "flash_attention_bwd")
     return dq, dk, dv

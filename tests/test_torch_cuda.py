@@ -1533,10 +1533,23 @@ FLASH_BWD_CUDA_CASES = [  # (B, Lq, Lk, H, HKV, D, causal, window, n_sink)
     (2, 64, 200, 6, 1, 128, True, 90, 70),       # Lk > Lq with sinks
     (1, 100, 60, 4, 2, 64, True, None, 0),       # 40 rows see nothing
     (2, 96, 96, 4, 2, 64, False, None, 0),       # not causal
+    (8, 128, 128, 12, 2, 128, True, None, 0),    # qwen2-vl's step: 5 slices
+    (3, 200, 200, 12, 2, 128, True, 90, 70),     # sliced, with sinks
+    (4, 192, 192, 32, 32, 64, True, None, 0),    # musicgen's step: one slice
 ]
 # of the largest |gradient|: f32 sums in another order; bf16 gradients
 # rounded once from f32 sums of bf16 operands
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def test_flash_bwd_card_cases_take_both_ways_of_writing_dk_dv():
+    """On an H100's 132 SMs the card cases of the backward take one slice
+    (dK and dV written by their block) and several (f32 partials summed by
+    a last launch), so both ways of writing them are held to the plain
+    version."""
+    splits = {kflash.bwd_plan(*case[:6], 132).splits
+              for case in FLASH_BWD_CUDA_CASES}
+    assert 1 in splits and max(splits) > 1
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ def _port_files():
         ROOT / name for name in ("chip_smoke.py", "flash_variants.py",
                                  "decode_variants.py", "cosine_variants.py",
                                  "ivf_variants.py", "masked_variants.py",
-                                 "variant_harness.py")]
+                                 "variant_harness.py", "train_turns.py")]
     assert len(files) > 10
     return files
 

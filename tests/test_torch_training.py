@@ -194,6 +194,32 @@ def test_flash_backward_plain_version_matches_jax(b, lq, lk, h, hkv, d,
         torch.testing.assert_close(x, w, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,splits,scratch", [
+    (8, 128, 128, 12, 2, 128, 5, 10_485_760),   # qwen2-vl-2b's training step
+    (4, 192, 192, 32, 32, 64, 1, 0),            # musicgen-large's: 384 blocks
+    (2, 192, 192, 25, 5, 64, 5, 4_915_200),     # hymba-1.5b's geometry
+    (1, 64, 64, 4, 4, 64, 1, 0),                # one tile, one item a tile
+])
+def test_bwd_plan_fills_the_card_with_the_fewest_slices(b, lq, lk, h, hkv, d,
+                                                        splits, scratch):
+    """``bwd_plan`` on an H100's 132 SMs: at least one slice; at least one
+    dK/dV block an SM wherever a key tile's items allow, with the fewest
+    slices that give it (one where the grid already fills the card); dQ one
+    block a query tile and head; the f32 partials' bytes the wrapper
+    allocates, (2, S, B, Lk, HKV, D), none with one slice."""
+    n_sm = 132
+    plan = kflash.bwd_plan(b, lq, lk, h, hkv, d, n_sm)
+    tiles = -(-lk // 64) * hkv * b
+    items = (h // hkv) * -(-lq // 64)
+    assert (plan.splits, plan.scratch_bytes) == (splits, scratch)
+    assert plan.splits >= 1 and plan.dkdv_blocks == tiles * plan.splits
+    assert plan.dkdv_blocks >= n_sm or plan.splits == items
+    assert plan.splits == 1 or (plan.splits - 1) * tiles < n_sm
+    assert plan.dq_blocks == -(-lq // 64) * h * b
+    assert plan.scratch_bytes == (0 if plan.splits == 1 else
+                                  2 * plan.splits * b * lk * hkv * d * 4)
+
+
 def test_lse_of_rows_that_see_nothing_and_their_zero_gradient():
     """A causal query row before the first key (Lk < Lq) sees nothing: its
     log-sum-exp is -inf, its output 0 and its dq 0; no NaN reaches dk or
