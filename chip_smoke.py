@@ -176,6 +176,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
             falling, the kernels' launches counted; row 9b timed at the
             qwen2-vl step's shape beside its bound, its plain version and
             SDPA's backward, and row 9 with and without the log-sum-exp
+  tools     the last modules: the MiniLM encoder at full width on the card
+            over the main configuration's 2,000 test queries (16 batches
+            of 128), every row within 1e-5 of the same weights on the CPU
+            and of unit norm, a batch timed by events and from a CUDA
+            graph beside its bound and the host HashEmbedder's time a
+            batch; the port's HNSW over 2,048 keys of d=384, its top-1 for
+            128 noisy queries against the cosine kernel's exact top-1 on
+            the card (at least 0.9 agree); the dry run's sharded cache pair
+            (``DistributedCache.make_lookup_insert``, four shards, capacity
+            1,048,576, B=256, f32 and int8) on the card beside its roofline
+            terms, and two model pairs on the meta device
 Each phase's seconds follow it on a ``phase_seconds`` line, and all of
 them come before the end. The last three lines are the card's name and
 power limit as nvidia-smi gives them, the per-kernel summary, and
@@ -194,12 +205,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+    print(f"chip_smoke: FAIL: no src/repro_torch beside {Path(__file__).name}:"
+          " run it from a checkout of the repository", file=sys.stderr)
+    sys.exit(1)
+sys.path.insert(0, str(SRC))
 
-# published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense TF32 on them, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 494.7e12
-PEAK_BYTES = 3.35e12
+# published H100 SXM peaks (NVIDIA data sheet), one source with the roofline
+# model: f32 outside the tensor cores, dense TF32 and bf16 on them, and HBM3
+# bandwidth
+from repro_torch.launch.roofline import (PEAK_BF16_FLOPS,  # noqa: E402
+                                         PEAK_BYTES, PEAK_F32_FLOPS,
+                                         PEAK_TF32_FLOPS)
 # bf16 keys and the plain version's operands are the same bf16 numbers, exact
 # in f32, so bf16 is held to the f32 tolerance
 SCORE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-5, "quant": 1e-5}
@@ -2825,7 +2842,6 @@ def _ivf_timing(torch, card: str) -> dict:
 # --------------------------------------------------------------------- #
 # the model-backed miss path (``launch.serve --backend model``)
 # --------------------------------------------------------------------- #
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 # kernel and plain version both take f32 products and sums, in other
 # orders: f32 outputs agree to 2e-5; a bf16 output may round the other way
 # once, one bf16 ulp (at most 2**-7 of the value)
@@ -4349,14 +4365,189 @@ def phase_train(torch, card: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# the last modules: the MiniLM encoder, HNSW and the dry run
+# --------------------------------------------------------------------- #
+ENCODER_TOL = 1e-5          # card rows vs the CPU's, f32, absolute
+ENCODER_BATCH = 128         # the main configuration's batch
+HNSW_N, HNSW_QUERIES = 2048, 128   # keys of d=384; noisy queries
+HNSW_M, HNSW_EF_CONSTRUCTION = 16, 100   # benchmarks/kernel_bench.py's
+HNSW_RECALL = 0.9           # tests/test_index_and_policy.py's bar
+DRYRUN_PAIRS = (("mamba2-130m", "decode_32k"), ("yi-6b", "decode_32k"))
+
+
+def _encoder_tokens(torch):
+    """The main configuration's 2,000 test queries as HashTokenizer ids,
+    padded to the longest (queries and corpus questions) and capped at
+    the encoder's 256 positions; and the queries themselves."""
+    from repro_torch.data.qa_dataset import build_corpus, build_test_queries
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.embedding import MINILM_L6
+    pairs = build_corpus(2000, seed=0)
+    queries = [q.query for q in build_test_queries(pairs, n_per_category=500,
+                                                   seed=1)]
+    tok = HashTokenizer(vocab_size=MINILM_L6.vocab)
+    longest = max(len(tok.encode(t)) for t in
+                  queries + [p.question for p in pairs])
+    tokens, lens = tok.encode_batch(queries, min(longest, MINILM_L6.max_len))
+    return queries, torch.from_numpy(tokens), torch.from_numpy(lens)
+
+
+def _tools_encoder(torch, card: str) -> dict:
+    """MiniLM at full width on the card, 16 batches of 128 queries, held
+    row by row against the same weights on the CPU; one batch timed by
+    events and from a CUDA graph, beside the host HashEmbedder's time a
+    batch over the same queries."""
+    from repro_torch.embedding import MINILM_L6, encode, init_encoder_params
+    from repro_torch.embedding.hash_embedder import HashEmbedder
+    queries, tokens, lens = _encoder_tokens(torch)
+    params = init_encoder_params(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    card_params = {k: ({n: t.cuda() for n, t in v.items()}
+                       if isinstance(v, dict) else v.cuda())
+                   for k, v in params.items()}
+    max_err, batches = 0.0, 0
+    with torch.no_grad():
+        for lo in range(0, len(queries), ENCODER_BATCH):
+            t, n = tokens[lo:lo + ENCODER_BATCH], lens[lo:lo + ENCODER_BATCH]
+            got = encode(card_params, t.cuda(), n.cuda()).cpu()
+            want = encode(params, t, n)
+            if not torch.isfinite(got).all():
+                fail(f"encoder batch {batches}: non-finite card rows")
+            norms = torch.linalg.vector_norm(got, dim=-1)
+            if (norms - 1).abs().max() > 1e-5:
+                fail(f"encoder batch {batches}: rows not of unit norm "
+                     f"({norms.min():.6f}..{norms.max():.6f})")
+            err = float((got - want).abs().max())
+            if err > ENCODER_TOL:
+                fail(f"encoder batch {batches}: card vs CPU {err:.3g} > "
+                     f"{ENCODER_TOL}")
+            max_err, batches = max(max_err, err), batches + 1
+        t = tokens[:ENCODER_BATCH].cuda()
+        n = lens[:ENCODER_BATCH].cuda()
+        events_ms = _time(torch, lambda: encode(card_params, t, n), 20)
+        graph_ms = _time_graph(torch, lambda: encode(card_params, t, n), 20)
+    hash_s = []
+    emb = HashEmbedder()
+    for lo in range(0, len(queries), ENCODER_BATCH):
+        t0 = time.perf_counter()
+        emb.embed_batch(queries[lo:lo + ENCODER_BATCH])
+        hash_s.append(time.perf_counter() - t0)
+    # a batch's products: the projections and the FFN, then the scores and
+    # the values over all L keys (the masked ones too)
+    cfg, (b, l) = MINILM_L6, t.shape
+    d, ff = cfg.d_model, cfg.d_ff
+    flops = cfg.n_layers * (2.0 * b * l * (4 * d * d + 2 * d * ff)
+                            + 4.0 * b * l * l * d)
+    # the blocks' weights, the embedding rows the tokens pick, the
+    # position rows, the tokens and lengths read; the pooled rows written
+    nbytes = sum(x.nbytes for x in card_params["blocks"].values()) \
+        + (b * l + l + 1 + b) * d * 4 + t.nbytes + n.nbytes
+    line = {"config": "MINILM_L6", "queries": len(queries),
+            "batches": batches, "seq": int(tokens.shape[1]),
+            "max_abs_err": max_err, "tol": ENCODER_TOL,
+            "batch_ms_events": events_ms, "batch_ms_graph": graph_ms,
+            "batch_gflop": flops / 1e9,
+            "tflops_graph": flops / graph_ms / 1e9,
+            **_bound(flops, nbytes, PEAK_F32_FLOPS),
+            "hash_embedder_host_ms_per_batch": 1e3 * sum(hash_s) / len(hash_s),
+            "card": card}
+    emit("tools", check="MiniLM encoder on the card vs the CPU", **line)
+    return line
+
+
+def _tools_hnsw(torch, card: str) -> dict:
+    """The port's HNSWIndex (host) over HNSW_N unit keys, its top-1 for
+    noisy queries against ``ops.cosine_topk``'s exact top-1 on the card."""
+    import numpy as np
+    from repro_torch.core import HNSWIndex
+    from repro_torch.kernels import ops
+    d = 384
+    rng = np.random.default_rng(0)
+    keys = rng.normal(size=(HNSW_N, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    queries = keys[:HNSW_QUERIES] + 0.05 * rng.normal(
+        size=(HNSW_QUERIES, d)).astype(np.float32)
+    idx = HNSWIndex(dim=d, max_elements=HNSW_N, m=HNSW_M,
+                    ef_construction=HNSW_EF_CONSTRUCTION, ef_search=64)
+    t0 = time.perf_counter()
+    for v in keys:
+        idx.add(v)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids, _ = idx.search_batch(queries, 1)
+    search_us = 1e6 * (time.perf_counter() - t0) / HNSW_QUERIES
+    q = torch.from_numpy(queries).cuda()
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    _, exact = ops.cosine_topk(q, torch.from_numpy(keys).cuda(),
+                               torch.ones(HNSW_N, dtype=torch.bool,
+                                          device="cuda"), k=1)
+    agreement = float(np.mean(ids[:, 0] == exact[:, 0].cpu().numpy()))
+    line = {"n": HNSW_N, "d": d, "m": HNSW_M,
+            "ef_construction": HNSW_EF_CONSTRUCTION, "ef_search": 64,
+            "queries": HNSW_QUERIES, "agreement_top1": agreement,
+            "build_s": build_s, "search_us_per_query": search_us,
+            "card": card}
+    emit("tools", check="HNSW top-1 vs the exact cosine top-1 on the card",
+         **line)
+    if agreement < HNSW_RECALL:
+        fail(f"HNSW top-1 agreement {agreement} < {HNSW_RECALL}")
+    return line
+
+
+def phase_tools(torch, card: str, scratch: Path) -> dict:
+    """The last modules: the MiniLM encoder on the card against the CPU,
+    HNSW against the cosine kernel's exact top-1, and the dry run (the
+    sharded cache pair on the card, f32 and int8, beside its roofline
+    terms; model pairs on ``meta``). Returns the cosine kernel's
+    launches."""
+    from repro_torch.kernels import cosine_topk as kmod
+    from repro_torch.launch import dryrun
+    kmod.reset_launches()
+    encoder = _tools_encoder(torch, card)
+    hnsw = _tools_hnsw(torch, card)
+    cache = {}
+    for variant in ("", "int8"):
+        art = dryrun.run_cache(str(scratch), variant, "cuda", verbose=False)
+        if not art["ok"]:
+            fail(f"dry run, cache pair {variant or 'f32'}: {art['error']}")
+        cache[variant or "f32"] = art
+        bound_ms = 1e3 * max(art["roofline"]["compute_s"],
+                             art["roofline"]["memory_s"])
+        emit("tools", check="dry run: sharded cache pair on the card",
+             key_dtype=variant or "f32", step_ms=art["step_ms"],
+             bound_ms=bound_ms, step_over_bound=art["step_ms"] / bound_ms,
+             step_ms_all=art["step_ms_all"], roofline=art["roofline"],
+             slab_bytes=art["slab_bytes"], state_bytes=art["state_bytes"],
+             capacity=art["capacity"], batch=art["batch"],
+             shards=art["shards"], card=card)
+        _free_card(torch)
+    pairs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        art = dryrun.run_one(arch, shape, out_dir=str(scratch),
+                             verbose=False)
+        if not art["ok"]:
+            fail(f"dry run {arch} x {shape} on meta: {art['error']} (op "
+                 f"{art['failed_op']})")
+        pairs[f"{arch}/{shape}"] = art
+        emit("tools", check="dry run on meta", arch=arch, shape=shape,
+             seconds=art["seconds"], flops=art["flops"],
+             counted_flops=art["counted_flops"], state_bytes=art["state_bytes"],
+             fits=art["fits"], roofline=art["roofline"])
+    launches = dict(kmod.launches)
+    # one search for HNSW; one lookup a shard and step (a warm-up, then the
+    # timed steps) for each cache pair
+    want = 1 + 2 * (1 + dryrun.CACHE_STEPS) * dryrun.CACHE_SHARDS
+    if launches["cosine_topk"] != want or sum(launches.values()) != want:
+        fail(f"tools launches {launches}: expected cosine_topk {want} only")
+    return {"launches": launches, "encoder": encoder, "hnsw": hnsw,
+            "cache": cache, "pairs": pairs}
+
+
+# --------------------------------------------------------------------- #
 def main() -> None:
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
-             "a checkout of the repository")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    sys.path.insert(0, str(SRC))
 
     seconds = {}
     t_start = time.perf_counter()
@@ -4403,6 +4594,9 @@ def main() -> None:
     modalities = timed("model_modalities", phase_model_modalities, torch,
                        card, sim_cached)
     train = timed("train", phase_train, torch, card)
+    with tempfile.TemporaryDirectory() as scratch:
+        tools = timed("tools", phase_tools, torch, card, Path(scratch))
+    launches["cosine_topk"] += tools["launches"]["cosine_topk"]
     launches["cosine_topk"] += model["launches"]["cosine_topk"] \
         + families["launches"]["cosine_topk"] \
         + modalities["launches"]["cosine_topk"]

@@ -1,9 +1,11 @@
 """Semantic-cache core: slab types, store, exact and IVF indexes, policies,
 the ``SemanticCache`` orchestrator and its sharded form
-``DistributedCache`` (PyTorch port of ``repro.core``)."""
+``DistributedCache``, and the paper's HNSW index on the host (PyTorch
+port of ``repro.core``)."""
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.distributed import (DistributedCache, ShardMesh,
                                           make_mesh, shard_axes)
+from repro_torch.core.hnsw import HNSWIndex
 from repro_torch.core.index import ExactIndex, ExactState, IVFIndex, IVFState
 from repro_torch.core.policy import (AdaptiveThreshold, FixedThreshold,
                                      PerCategoryThreshold, make_policy)
@@ -17,6 +19,7 @@ __all__ = [
     "init_cache_state", "resolve_device", "CacheRuntime", "Index", "Policy",
     "SemanticCache", "DistributedCache", "ShardMesh", "make_mesh",
     "shard_axes", "ExactIndex", "ExactState", "IVFIndex", "IVFState",
+    "HNSWIndex",
     "AdaptiveThreshold", "FixedThreshold", "PerCategoryThreshold",
     "make_policy",
 ]

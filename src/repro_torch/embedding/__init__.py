@@ -1,1 +1,7 @@
-"""Embedding generation (paper §2.2): the hash n-gram embedder."""
+"""Embedding generation (paper §2.2): the hash n-gram embedder and the
+MiniLM-class encoder. Both produce L2-normalized vectors compatible with
+the cache."""
+from repro_torch.embedding.encoder import (EncoderConfig, MINILM_L6, encode,
+                                           init_encoder_params)
+
+__all__ = ["EncoderConfig", "MINILM_L6", "encode", "init_encoder_params"]

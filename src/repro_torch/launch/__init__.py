@@ -1,1 +1,2 @@
-"""Command-line drivers of the port."""
+"""Command-line drivers of the port (serve, train, the dry run) and the
+roofline model the dry run reports with."""

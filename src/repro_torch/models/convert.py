@@ -7,6 +7,8 @@ leading codebook axis), ``final_norm``, ``prefix_proj`` (audio, vlm),
 layers' ``blocks/ssm/<name>`` -> ``blocks.ssm.<name>``), with its shape
 and dtype kept; bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
 carried bit for bit. The same renaming carries a gradient tree across.
+``tree_from_jax`` keeps a tree's nesting instead, for the MiniLM encoder
+(``embedding.encoder``), whose parameters are a plain dict tree.
 Nothing here imports JAX: the caller turns the tree into numpy first, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``.
 """
@@ -38,3 +40,11 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         else:
             state[name] = to_tensor(leaf)
     return state
+
+
+def tree_from_jax(tree: dict, device="cpu") -> dict:
+    """A JAX parameter tree (nested dicts of numpy arrays, e.g. the
+    encoder's ``init_encoder_params``) as the same nesting of tensors on
+    ``device``, each leaf's shape and dtype kept."""
+    return {name: tree_from_jax(leaf, device) if isinstance(leaf, dict)
+            else to_tensor(leaf).to(device) for name, leaf in tree.items()}

@@ -98,6 +98,18 @@ def _dots_policy(ctx, op, *args, **kwargs):
         else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def layer_window(config: ModelConfig, li: int) -> int | None:
+    """Attention window of layer ``li``, None for global: hybrid configs
+    with ``global_attn_every`` are global on every such layer and
+    ``sliding_window`` elsewhere; others use ``sliding_window``
+    everywhere, or are global. A function of the config alone, so the
+    roofline reads it without building a ``Model``."""
+    c = config
+    if c.arch_type == "hybrid" and c.global_attn_every:
+        return None if li % c.global_attn_every == 0 else c.sliding_window
+    return c.sliding_window or None
+
+
 def unembed_multi(logits: torch.Tensor, logical_vocab: int) -> torch.Tensor:
     """The padding columns of per-codebook logits set to -1e9, in place."""
     if logits.shape[-1] > logical_vocab:
@@ -311,11 +323,7 @@ class Model(nn.Module):
                 yield g, s, li, self._window(li)
 
     def _window(self, li: int) -> int | None:
-        c = self.config
-        if c.arch_type == "hybrid" and c.global_attn_every:
-            return None if li % c.global_attn_every == 0 \
-                else c.sliding_window
-        return c.sliding_window or None
+        return layer_window(self.config, li)
 
     def _prepend_context(self, x: torch.Tensor, positions: torch.Tensor,
                          prefix_emb: torch.Tensor | None = None):

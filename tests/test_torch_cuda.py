@@ -20,7 +20,9 @@ against a restored CPU engine, reshard on load), the flash kernel with
 attention sinks, the moe, ssm, hybrid, audio and vlm families' reduced
 models on CUDA against the CPU, and training: the flash-attention
 backward kernel against its plain version, a training step's loss and
-gradients through the kernels and the training driver against the CPU.
+gradients through the kernels and the training driver against the CPU;
+the MiniLM encoder on CUDA against the CPU, and the dry run's sharded
+cache pair on CUDA.
 Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
@@ -1682,3 +1684,37 @@ def test_train_driver_on_cuda_matches_cpu(cuda_device):
                    log=lambda *a: None)
     np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-4)
     np.testing.assert_allclose(card["grad_norm"], cpu["grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_encoder_on_cuda_matches_cpu(cuda_device):
+    """MiniLM at full width, the same weights on the card and the CPU,
+    ragged lengths with rows of length 1 and 0: within 1e-5 (f32, TF32
+    off)."""
+    from repro_torch.embedding import MINILM_L6, encode, init_encoder_params
+    params = init_encoder_params(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    card = {k: ({n: t.to(cuda_device) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(cuda_device))
+            for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, MINILM_L6.vocab, (5, 24)))
+    lens = torch.tensor([24, 9, 1, 0, 13])
+    want = encode(params, tokens, lens)
+    got = encode(card, tokens.to(cuda_device), lens.to(cuda_device)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got[3], torch.zeros(MINILM_L6.d_model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["", "int8"])
+def test_dryrun_cache_pair_on_cuda(cuda_device, tmp_path, variant):
+    """The dry run's sharded lookup+insert step on the card, four shards,
+    at a reduced capacity: one cosine launch a shard and step."""
+    from repro_torch.launch import dryrun
+    kmod.reset_launches()
+    art = dryrun.run_cache(str(tmp_path), variant, "cuda", capacity=65536,
+                           batch=128, steps=2, verbose=False)
+    assert art["ok"], art.get("traceback")
+    assert art["entries"] == 128 and art["hits_last_step"] == 128
+    assert kmod.launches["cosine_topk"] == 3 * dryrun.CACHE_SHARDS

@@ -108,6 +108,30 @@ def test_training_and_modalities_slice_files_are_checked():
             "models/model.py", "kernels/ops.py", "kernels/ref.py"} <= names
 
 
+def test_last_modules_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"embedding/encoder.py", "embedding/__init__.py", "core/hnsw.py",
+            "core/__init__.py", "launch/roofline.py", "launch/sharding.py",
+            "launch/dryrun.py", "models/convert.py",
+            "models/model.py"} <= names
+
+
+def test_dryrun_import_sets_no_environment_variable():
+    """The reference's dry run sets ``XLA_FLAGS`` when imported; the
+    port's changes nothing in the environment."""
+    code = ("import os\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun\n"
+            "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = (
         "import sys\n"
@@ -156,6 +180,11 @@ def test_imports_with_jax_and_repro_blocked():
         "    flash_attention_bwd_cuda, flash_attention_fwd_cuda)\n"
         "from repro_torch.kernels.ref import (flash_attention_bwd_ref,\n"
         "    flash_attention_lse_ref)\n"
+        "from repro_torch.embedding import (EncoderConfig, MINILM_L6,\n"
+        "    encode, init_encoder_params)\n"
+        "from repro_torch.core import HNSWIndex\n"
+        "from repro_torch.models.convert import tree_from_jax\n"
+        "from repro_torch.launch import dryrun, roofline, sharding\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
