@@ -187,6 +187,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
             (``DistributedCache.make_lookup_insert``, four shards, capacity
             1,048,576, B=256, f32 and int8) on the card beside its roofline
             terms, and two model pairs on the meta device
+  mesh      the multi-chip path on the one card: full-width yi-6b cut to
+            2 layers (bf16) as a ``Model`` on a (1, 1) mesh of one NCCL rank
+            (DTensor parameters, the attention kernels under ``local_map``),
+            its prefill and 4 decode steps bit for bit equal to the
+            unsharded model's, the flash and decode kernels launched; the
+            production dry run in the fake world (grok-1 decode_32k with
+            the sharded MoE and yi-6b train_4k on ``pod_16x16``, yi-6b
+            train_4k on ``multipod_2x16x16``: per-chip bytes, collectives
+            by kind, the dominant roofline term, seconds); the cache pair at
+            the pod's 16 shards on the card, f32 and int8, ms a step beside
+            its per-chip roofline terms
 Each phase's seconds follow it on a ``phase_seconds`` line, and all of
 them come before the end. The last three lines are the card's name and
 power limit as nvidia-smi gives them, the per-kernel summary, and
@@ -4543,6 +4554,203 @@ def phase_tools(torch, card: str, scratch: Path) -> dict:
             "cache": cache, "pairs": pairs}
 
 
+MESH_ARCH, MESH_LAYERS = "yi-6b", 2   # full width, cut to 2 layers, bf16
+MESH_BATCH, MESH_LEN, MESH_NEW = 4, 64, 4
+MESH_PAIRS = (("grok-1-314b", "decode_32k", "pod_16x16"),
+              ("yi-6b", "train_4k", "pod_16x16"),
+              ("yi-6b", "train_4k", "multipod_2x16x16"))
+MESH_DRYRUN_S = 300         # the production pairs' subprocesses, at most
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_generate(torch, model, tokens):
+    """Prefill, then ``MESH_NEW`` greedy decode steps: every step's logits
+    and the caches after the last, as full tensors."""
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    with torch.no_grad():
+        logits, caches = model.forward(
+            tokens, collect_cache=True, cache_size=MESH_LEN + MESH_NEW,
+            logits_last_only=True)
+        out = [full(logits)]
+        for _ in range(MESH_NEW):
+            nxt = out[-1][:, -1:].argmax(-1).to(torch.int32)
+            logits, caches = model.decode_step(caches, nxt)
+            out.append(full(logits))
+    torch.cuda.synchronize()
+    return out, [full(caches.kv.k), full(caches.kv.v)]
+
+
+def _mesh_one_card(torch) -> dict:
+    """(a) The sharded ``Model`` on a (1, 1) mesh of one NCCL rank against
+    the unsharded one, bit for bit, the attention kernels launched under
+    ``local_map``."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        plain = Model(cfg, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        sharded = Model(cfg, device="cuda", mesh=mesh)
+        sharded.load_state_dict(plain.state_dict())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_LEN),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        _reset_launches()
+        got, got_kv = _mesh_generate(torch, sharded, tokens)
+        launches = {k: v for k, v in _launches().items() if v}
+        want_launches = {"flash_attention": MESH_LAYERS,
+                         "decode_attention": MESH_LAYERS * MESH_NEW}
+        if launches != want_launches:
+            fail(f"mesh (1, 1): launches {launches}, expected "
+                 f"{want_launches}: the kernels must run under local_map")
+        want, want_kv = _mesh_generate(torch, plain, tokens)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.isfinite(a).all():
+                fail(f"mesh (1, 1): non-finite logits at step {i}")
+            if not torch.equal(a, b):
+                fail(f"mesh (1, 1): step {i} logits differ from the "
+                     f"unsharded model's by {(a - b).abs().max().item()}")
+        for a, b in zip(got_kv, want_kv):
+            if not torch.equal(a, b):
+                fail("mesh (1, 1): the KV caches differ from the unsharded "
+                     "model's")
+        placements = {n: str(p.placements) for n, p in
+                      list(sharded.named_parameters())[:3]}
+        del plain, sharded
+        _free_card(torch)
+    finally:
+        dist.destroy_process_group()
+    out = {"arch": cfg.name, "n_layers": MESH_LAYERS, "dtype": cfg.dtype,
+           "batch": MESH_BATCH, "prefill_len": MESH_LEN,
+           "decode_steps": MESH_NEW, "launches": launches,
+           "bit_equal_steps": len(got), "placements": placements}
+    emit("mesh", check="sharded Model on a (1, 1) NCCL mesh vs unsharded",
+         note="checks the mesh code path and the kernels on DTensor inputs "
+              "(local_map), not an exchange: NCCL refuses two ranks on one "
+              "GPU; the exchanges are held on the CPU by the gloo tests",
+         **out)
+    return out
+
+
+def _mesh_dryrun_start(scratch: Path) -> dict:
+    """(b) The production dry run in the fake world: each pair in a
+    process of its own (``launch.dryrun --mesh``), all started at once;
+    ``_mesh_dryrun`` collects them."""
+    import os
+    return {(arch, shape, mesh): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", mesh,
+         "--arch", arch, "--shape", shape, "--out", str(scratch)],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for arch, shape, mesh in MESH_PAIRS}
+
+
+def _mesh_dryrun(procs: dict, scratch: Path) -> dict:
+    arts = {}
+    for (arch, shape, mesh), proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=MESH_DRYRUN_S)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"dry run {arch} x {shape} on {mesh}: over "
+                 f"{MESH_DRYRUN_S} s")
+        path = scratch / f"{arch}_{shape}_{mesh}.json"
+        if proc.returncode != 0 or not path.exists():
+            fail(f"dry run {arch} x {shape} on {mesh}: exit "
+                 f"{proc.returncode}\n{text[-3000:]}")
+        art = json.loads(path.read_text())
+        want_chips = 512 if mesh.startswith("multipod") else 256
+        if not art["ok"] or art["chips"] != want_chips:
+            fail(f"dry run {arch} x {shape} on {mesh}: {art.get('error')}")
+        arts[f"{arch}/{shape}/{mesh}"] = art
+        emit("mesh", check="production dry run (fake world, meta)",
+             arch=arch, shape=shape, mesh=mesh, chips=art["chips"],
+             seconds=art["seconds"], param_bytes=art["param_bytes"],
+             opt_bytes=art["opt_bytes"], cache_bytes=art["cache_bytes"],
+             state_bytes=art["state_bytes"], fits=art["fits"],
+             memory=art["memory"],
+             collective_bytes=art["collectives"]["bytes"],
+             collective_total_bytes=art["collectives"]["total_bytes"],
+             dominant=art["roofline"]["dominant"],
+             roofline={k: art["roofline"][k] for k in (
+                 "compute_s", "memory_s", "collective_s")})
+    return arts
+
+
+def phase_mesh(torch, card: str, scratch: Path) -> dict:
+    """The multi-chip path on one card: (c) the cache pair at the pod's 16
+    shards on the card, f32 and int8, timed beside its per-chip roofline
+    terms, with the host to itself; then (a) the sharded ``Model`` on a
+    (1, 1) NCCL mesh bit for bit against the unsharded one, the flash and
+    decode kernels launched under ``local_map``, while (b) the production
+    dry run (grok-1 decode_32k with the sharded MoE and yi-6b train_4k on
+    ``pod_16x16``, yi-6b train_4k on ``multipod_2x16x16``) runs in the
+    fake world in processes of its own ((a) times nothing). Returns the
+    kernels' launches over the phase."""
+    from repro_torch.launch import dryrun
+    cache, cache_launches = _mesh_cache(torch, card, scratch, dryrun)
+    procs = _mesh_dryrun_start(scratch)
+    try:
+        one_card = _mesh_one_card(torch)
+        pairs = _mesh_dryrun(procs, scratch)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"launches": dict(one_card["launches"], **cache_launches),
+            "one_card": one_card, "cache": cache, "pairs": pairs}
+
+
+def _mesh_cache(torch, card: str, scratch: Path, dryrun) -> tuple:
+    """(c) of ``phase_mesh``: the artifacts and the launches."""
+    _reset_launches()
+    cache = {}
+    for variant in ("", "int8"):
+        art = dryrun.run_cache(str(scratch), variant, "cuda", verbose=False,
+                               mesh_name="pod_16x16")
+        if not art["ok"]:
+            fail(f"mesh: cache pair {variant or 'f32'} at 16 shards: "
+                 f"{art['error']}")
+        if art["shards"] != 16 or art["hits_last_step"] != art["batch"]:
+            fail(f"mesh: cache pair {variant or 'f32'}: {art['shards']} "
+                 f"shards, {art['hits_last_step']} hits of {art['batch']}")
+        terms = art["roofline"]
+        bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"],
+                             terms["collective_s"])
+        cache[variant or "f32"] = art
+        emit("mesh", check="cache pair at 16 shards on the card",
+             key_dtype=variant or "f32", step_ms=art["step_ms"],
+             step_ms_all=art["step_ms_all"], roofline=terms,
+             bound_ms_a_chip=bound_ms, collectives=art["collectives"],
+             slab_bytes=art["slab_bytes"], shards=art["shards"], card=card)
+        _free_card(torch)
+    launches = _launches()
+    want = 2 * (1 + dryrun.CACHE_STEPS) * 16
+    if launches["cosine_topk"] != want or sum(launches.values()) != want:
+        fail(f"mesh: cache pair launches {launches}: expected cosine_topk "
+             f"{want} only")
+    return cache, {"cosine_topk": want}
+
+
 # --------------------------------------------------------------------- #
 def main() -> None:
     import torch
@@ -4597,6 +4805,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as scratch:
         tools = timed("tools", phase_tools, torch, card, Path(scratch))
     launches["cosine_topk"] += tools["launches"]["cosine_topk"]
+    with tempfile.TemporaryDirectory() as scratch:
+        mesh = timed("mesh", phase_mesh, torch, card, Path(scratch))
+    launches["cosine_topk"] += mesh["launches"]["cosine_topk"]
     launches["cosine_topk"] += model["launches"]["cosine_topk"] \
         + families["launches"]["cosine_topk"] \
         + modalities["launches"]["cosine_topk"]
@@ -4605,6 +4816,8 @@ def main() -> None:
             + modalities["launches"][name]
     model["launches"]["flash_attention"] += \
         train["launches"]["flash_attention"]
+    for name in ("flash_attention", "decode_attention"):
+        model["launches"][name] += mesh["launches"][name]
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

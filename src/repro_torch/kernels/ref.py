@@ -292,8 +292,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          pos: int, *, window: int | None = None,
                          n_sink: int = 0, scale: float | None = None,
                          k_scale: torch.Tensor | None = None,
-                         v_scale: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         v_scale: torch.Tensor | None = None,
+                         return_lse: bool = False) -> torch.Tensor:
     """Plain version of the decode-attention kernel: one query token per
     sequence over every visible slot of a (ring) KV cache.
 
@@ -307,7 +307,10 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         <= pos`` and, with a window, ``slot_pos[s] > pos - window`` or
         ``slot_pos[s] < n_sink``.
     Returns:
-      (B, 1, H, D) in q's dtype; a row with no visible slot is 0.
+      (B, 1, H, D) in q's dtype; a row with no visible slot is 0. With
+      ``return_lse`` (merging attention over a cache split in parts, as
+      the model's context-parallel decode does): (o (B, 1, H, D) f32, lse
+      (B, H) f32, -inf where no slot is visible).
     """
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
@@ -327,5 +330,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
             wmask |= slot_pos < n_sink
         visible &= wmask
     p = _softmax_visible(s, visible)
-    o = torch.einsum("bhgs,bshd->bhgd", p, vf)
-    return o.reshape(b, 1, h, d).to(q.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vf).reshape(b, 1, h, d)
+    if return_lse:
+        lse = torch.logsumexp(s.masked_fill(~visible, float("-inf")), dim=-1)
+        return o, lse.reshape(b, h)
+    return o.to(q.dtype)

@@ -15,15 +15,32 @@ model's causal prefill and decode does.
 Unlike JAX's, the port's cache is updated in place: ``cache_write`` writes
 the new token's K/V into the layer's cache tensors (a copy into one slot)
 and returns them, so a decode step allocates no new cache.
+
+On a mesh (DTensor operands) the kernels take local tensors, so each entry
+point runs them under ``local_map``. Prefill: batch over the data axes
+(where it divides), query heads over ``model`` where their count divides,
+each rank slicing the KV heads its query heads read from a replicated
+KV where the KV heads do not divide (hymba's 25 heads replicate). Decode:
+the caches shard their sequence over ``model`` (context-parallel decode,
+``launch/sharding.py``); each rank attends over its own slots and the
+partial results merge by their log-sum-exp over ``model``. The card runs
+that merge only with ``model`` of size 1 (one card): the decode kernel
+writes no log-sum-exp, so a sequence split over several cards waits with
+them (ROADMAP A6b).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.types import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+
+DATA_AXES = ("pod", "data")
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,9 +53,69 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory on CUDA. Differentiable: with operands that require grad it
     runs ``ops.FlashAttention`` (on CUDA the forward kernel, which also
     writes each row's log-sum-exp, and the backward kernel), where JAX
-    differentiates this jnp function with XLA."""
+    differentiates this jnp function with XLA. DTensor operands run
+    under ``local_map`` (module docstring)."""
+    if isinstance(q, DTensor):
+        return _flash_on_mesh(q, k, v, causal=causal, window=window,
+                              n_sink=n_sink, scale=scale)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                n_sink=n_sink, scale=scale)
+
+
+def _dims_named(mesh, pick) -> list[int]:
+    return [i for i, n in enumerate(mesh.mesh_dim_names) if pick(n)]
+
+
+def head_split(h: int, hkv: int, n_model: int) -> str:
+    """How prefill attention splits heads over ``n_model`` ranks:
+    ``"shard"`` (query and KV heads both divide), ``"slice"`` (query heads
+    divide and each rank's query heads read a contiguous block of KV
+    heads, sliced from a replicated KV) or ``"replicate"`` (every rank
+    computes every head of its batch shard)."""
+    g = h // hkv
+    if h % n_model == 0 and hkv % n_model == 0:
+        return "shard"
+    if h % n_model == 0:
+        h_loc = h // n_model
+        if h_loc % g == 0 or g % h_loc == 0:
+            return "slice"
+    return "replicate"
+
+
+def _flash_on_mesh(q, k, v, *, causal, window, n_sink, scale):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    b, h, hkv = q.shape[0], q.shape[2], k.shape[2]
+    data = _dims_named(mesh, lambda n: n in DATA_AXES)
+    model = _dims_named(mesh, lambda n: n == "model")
+    n_data = math.prod(mesh.size(i) for i in data)
+    n_model = math.prod(mesh.size(i) for i in model)
+    split = head_split(h, hkv, n_model)
+    batch_p = Shard(0) if b % n_data == 0 and b >= n_data else Replicate()
+
+    def place(model_p):
+        return tuple(batch_p if i in data else model_p if i in model
+                     else Replicate() for i in range(mesh.ndim))
+
+    q_p = place(Replicate() if split == "replicate" else Shard(2))
+    kv_p = place(Shard(2) if split == "shard" else Replicate())
+    kv_grad = place(Partial()) if split == "slice" else kv_p
+    g = h // hkv
+
+    def fn(ql, kl, vl):
+        if split == "slice":
+            r = mesh.get_coordinate()[model[0]]
+            h_loc = h // n_model
+            lo, hi = (r * h_loc) // g, ((r + 1) * h_loc - 1) // g + 1
+            kl = kl[:, :, lo:hi].contiguous()
+            vl = vl[:, :, lo:hi].contiguous()
+        return ops.flash_attention(ql, kl, vl, causal=causal, window=window,
+                                   n_sink=n_sink, scale=scale)
+
+    return local_map(fn, out_placements=list(q_p),
+                     in_placements=(q_p, kv_p, kv_p),
+                     in_grad_placements=(q_p, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 @dataclasses.dataclass
@@ -120,7 +197,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ring never needs unrotating because visibility uses ``slot_pos``).
     q (B, 1, H, D) with RoPE at ``pos``; k/v one layer's (B, S, HKV, D)
     cache with the new token written; int8 caches take (B, S, HKV) scales,
-    dequantized in f32 (JAX's jnp path rounds them to q's dtype first)."""
+    dequantized in f32 (JAX's jnp path rounds them to q's dtype first).
+    DTensor caches run under ``local_map``, context-parallel where their
+    sequence is split (module docstring)."""
+    if isinstance(k_cache, DTensor):
+        return _decode_on_mesh(q, k_cache, v_cache, slot_pos, pos,
+                               window=window, n_sink=n_sink, scale=scale,
+                               k_scale=k_scale, v_scale=v_scale)
     return ops.decode_attention(q, k_cache, v_cache, slot_pos, pos,
                                 window=window, n_sink=n_sink, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale)
@@ -137,17 +220,104 @@ def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
     Returns (k_cache, v_cache, slot_pos[, k_scale, v_scale]) as JAX does:
     the cache tensors themselves, and a new ``slot_pos`` with ``pos`` at the
     slot (the one passed in is left as it was); scales only for int8
-    caches, else None."""
+    caches, else None. DTensor caches are written under ``local_map``: the
+    rank whose slots hold ``slot`` writes it."""
     slot = pos % k_cache.shape[1]
     new_slot_pos = slot_pos.clone()
     new_slot_pos[slot] = pos
+    if isinstance(k_cache, DTensor):
+        _write_on_mesh(k_cache, v_cache, slot, k_new, v_new, k_scale, v_scale)
+    else:
+        _write_slot(k_cache, v_cache, slot, k_new, v_new, k_scale, v_scale)
+    if k_cache.dtype == torch.int8:
+        return k_cache, v_cache, new_slot_pos, k_scale, v_scale
+    return k_cache, v_cache, new_slot_pos, None, None
+
+
+def _write_slot(k_cache, v_cache, slot, k_new, v_new, k_scale, v_scale):
     if k_cache.dtype == torch.int8:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
         for dst, src in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
                          (v_scale, vs)):
             dst.narrow(1, slot, 1).copy_(src)
-        return k_cache, v_cache, new_slot_pos, k_scale, v_scale
+        return
     k_cache.narrow(1, slot, 1).copy_(k_new)
     v_cache.narrow(1, slot, 1).copy_(v_new)
-    return k_cache, v_cache, new_slot_pos, None, None
+
+
+def _cache_placements(cache):
+    """A query's or new token's placements beside a cache's: the cache's,
+    with its sequence split (dim 1) replicated."""
+    return tuple(Replicate() if p == Shard(1) else p
+                 for p in cache.placements)
+
+
+def _seq_split(cache) -> tuple[list[int], int]:
+    """The mesh dims over which a (B, S, HKV, D) cache splits S (with more
+    than one rank), and this rank's first slot."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    dims = [i for i, p in enumerate(cache.placements)
+            if p == Shard(1) and mesh.size(i) > 1]
+    _, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    return dims, offset[1]
+
+
+def _decode_on_mesh(q, k_cache, v_cache, slot_pos, pos, *, window, n_sink,
+                    scale, k_scale, v_scale):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    split, lo = _seq_split(k_cache)
+    if split and q.device.type == "cuda":
+        raise NotImplementedError(
+            "decode over a sequence split across cards needs the decode "
+            "kernel's log-sum-exp (ROADMAP A6b); on one card the model "
+            "axis has size 1")
+    kv_p = k_cache.placements
+    q_p = _cache_placements(k_cache)
+    quant = k_scale is not None
+    sc_p = k_scale.placements if quant else None
+    kw = dict(window=window, n_sink=n_sink, scale=scale)
+
+    def fn(ql, kl, vl, ksl, vsl):
+        sp = slot_pos[lo:lo + kl.shape[1]]
+        if not split:
+            return ops.decode_attention(ql, kl, vl, sp, pos, k_scale=ksl,
+                                        v_scale=vsl, **kw)
+        o, lse = ref.decode_attention_ref(ql, kl, vl, sp, pos, k_scale=ksl,
+                                          v_scale=vsl, return_lse=True, **kw)
+        m = lse
+        for i in split:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        w = torch.where(torch.isfinite(lse), torch.exp(lse - m), 0.0)
+        num, den = o * w[:, None, :, None], w
+        for i in split:
+            num = funcol.all_reduce(num, "sum", (mesh, i))
+            den = funcol.all_reduce(den, "sum", (mesh, i))
+        return (num / den[:, None, :, None].clamp_min(1e-30)).to(ql.dtype)
+
+    return local_map(fn, out_placements=list(q_p),
+                     in_placements=(q_p, kv_p, kv_p, sc_p, sc_p),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, k_scale, v_scale)
+
+
+def _write_on_mesh(k_cache, v_cache, slot, k_new, v_new, k_scale, v_scale):
+    from torch.distributed.tensor.experimental import local_map
+    _, lo = _seq_split(k_cache)
+    new_p = _cache_placements(k_cache)
+    quant = k_cache.dtype == torch.int8
+    sc_p = k_scale.placements if quant else None
+
+    def fn(kl, vl, knl, vnl, ksl, vsl):
+        if 0 <= slot - lo < kl.shape[1]:
+            _write_slot(kl, vl, slot - lo, knl, vnl, ksl, vsl)
+
+    local_map(fn, out_placements=None,
+              in_placements=(k_cache.placements, k_cache.placements, new_p,
+                             new_p, sc_p, sc_p),
+              device_mesh=k_cache.device_mesh, redistribute_inputs=True)(
+        k_cache, v_cache, k_new, v_new, k_scale, v_scale)

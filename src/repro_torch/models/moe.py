@@ -10,9 +10,15 @@ package runs all of it in plain jnp, outside any Pallas kernel, so it is
 plain PyTorch here too.
 
 grok-1: E=8, top-2, every layer. llama4-maverick: E=128, top-1, every
-second layer (the interleave is the model's). ``moe_ffn_sharded``, the
-reference's ``shard_map`` form over a mesh of devices, waits for a
-machine with several cards.
+second layer (the interleave is the model's).
+
+On a mesh (``moe_ffn_sharded``, the reference's ``shard_map`` form, here
+a ``local_map``) the expert weights are tensor-parallel: d_ff shards over
+``model``, so no all-to-all is needed. Each rank holds every expert's d_ff
+slice, dispatches its own data shard's tokens (capacity from the *local*
+token count, as in the reference, so with drops the sharded result is not
+the unsharded one), computes its partial down-projection, and one
+all-reduce over ``model`` closes the contraction.
 """
 from __future__ import annotations
 
@@ -20,6 +26,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch.models.parallel import GradSumOver, MeanOver, SumOver, \
+    mesh_dims
 
 
 def router(x: torch.Tensor, w_router: torch.Tensor, topk: int
@@ -67,10 +77,14 @@ def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, topk: int,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, model_axes=None, mesh=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (T, d); w_router (d, E); w_gate, w_up (E, d, F); w_down (E, F, d).
-    Returns (y (T, d) in x's dtype, aux_loss ()).
+    Returns (y (T, d) in x's dtype, aux_loss ()). With ``model_axes`` (of
+    ``mesh``; inside ``moe_ffn_sharded``'s local map, F the local d_ff
+    slice) one all-reduce over them closes the down-projection's sharded
+    d_ff, and the gradient reaching x through the experts is summed over
+    them.
 
     The buffers and expert GEMMs are in x's dtype; the gated combine sums
     in f32 in choice order and rounds once, as the JAX package does. A
@@ -87,14 +101,18 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
         ok = slots[:, j] >= 0
         where.append((ok, torch.where(ok, experts[:, j], 0).long(),
                       torch.where(ok, slots[:, j], 0).long()))
+    dims = mesh_dims(mesh, model_axes)
+    xe = GradSumOver.apply(x, mesh, dims) if dims else x
     buf = x.new_zeros((e, capacity, d))
     zero = x.new_zeros(())
     for ok, idx_e, idx_c in where:
-        buf.index_put_((idx_e, idx_c), torch.where(ok[:, None], x, zero),
+        buf.index_put_((idx_e, idx_c), torch.where(ok[:, None], xe, zero),
                        accumulate=True)
 
     h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
     y_buf = torch.bmm(h, w_down)
+    if dims:   # close the sharded d_ff contraction
+        y_buf = SumOver.apply(y_buf, mesh, dims)
 
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     for j, (ok, idx_e, idx_c) in enumerate(where):
@@ -102,3 +120,54 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
         y = y + torch.where(ok[:, None],
                             gates[:, j:j + 1].to(torch.float32) * yj, 0.0)
     return y.to(x.dtype), aux
+
+
+def moe_ffn_sharded(mesh, data_axes: tuple[str, ...],
+                    model_axes: tuple[str, ...]):
+    """The MoE FFN over ``mesh`` (``local_map``, the reference's
+    ``shard_map``): tokens (T, d) shard over ``data_axes``, the router
+    replicates, ``w_gate``/``w_up`` (E, d, F) shard F and ``w_down``
+    (E, F, d) its F over ``model_axes``. Each rank routes and dispatches
+    its own tokens (``dispatch_indices`` runs on local tensors); ``aux`` is
+    averaged over the data axes into one replicated scalar. It is the same
+    on every model rank already, so no reduction runs over ``model``: the
+    reference's ``pmean`` there is an identity whose backward must not
+    divide (the router's and x's gradients replicate over ``model``).
+    Returns ``fn(x, w_router, w_gate, w_up, w_down, *, topk,
+    capacity_factor) -> (y, aux)`` on DTensors; the weights' gradients are
+    partial over the data axes (each rank's tokens), and DTensor sums
+    them."""
+    from torch.distributed.tensor.experimental import local_map
+    names = mesh.mesh_dim_names
+    data, model = set(data_axes), set(model_axes)
+
+    def place(data_p, model_p, other=Replicate()):
+        return tuple(data_p if n in data else model_p if n in model
+                     else other for n in names)
+
+    x_p = place(Shard(0), Replicate())
+    rep = place(Replicate(), Replicate())
+    in_p = (x_p, rep, place(Replicate(), Shard(2)),
+            place(Replicate(), Shard(2)), place(Replicate(), Shard(1)))
+    grad_p = (x_p, place(Partial(), Replicate()), place(Partial(), Shard(2)),
+              place(Partial(), Shard(2)), place(Partial(), Shard(1)))
+    mean_dims = mesh_dims(mesh, data_axes)
+
+    def fn(x, w_router, w_gate, w_up, w_down, topk, capacity_factor):
+        y, aux = moe_ffn(x, w_router, w_gate, w_up, w_down, topk=topk,
+                         capacity_factor=capacity_factor,
+                         model_axes=model_axes, mesh=mesh)
+        return y, MeanOver.apply(aux, mesh, mean_dims) if mean_dims \
+            else aux
+
+    mapped = local_map(fn, out_placements=(x_p, rep), in_placements=in_p
+                       + (None, None), in_grad_placements=grad_p
+                       + (None, None), device_mesh=mesh,
+                       redistribute_inputs=True)
+
+    def wrapped(x, w_router, w_gate, w_up, w_down, *, topk,
+                capacity_factor):
+        return mapped(x, w_router, w_gate, w_up, w_down, topk,
+                      capacity_factor)
+
+    return wrapped

@@ -10,6 +10,13 @@ layers, embeddings: not norms or biases); gradients are clipped by their
 global norm first. Every step is a handful of elementwise ops a leaf, so
 the state lives on the parameters' device. Updates are in place, as
 ``torch.optim``'s.
+
+DTensor parameters (a ``Model`` on a mesh) keep their moments in the same
+placements (``launch.sharding.opt_pspecs``); each gradient is first
+brought to its parameter's placements, then every rank updates its own
+shards. The clipping norm is global: each leaf's sum of squares is
+reduced across its shards before the square root, as the reference's
+``global_norm`` over sharded arrays is.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +71,15 @@ def lr_at(cfg: AdamWConfig, step: int) -> float:
     return float(cfg.lr * warm * decay)
 
 
+def _sum_sq(t: torch.Tensor) -> torch.Tensor:
+    sq = torch.sum(torch.square(t.to(torch.float32)))
+    return sq.full_tensor() if isinstance(sq, DTensor) else sq
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """The f32 L2 norm over every tensor of ``tensors`` (an iterable)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
+    """The f32 L2 norm over every tensor of ``tensors`` (an iterable); a
+    DTensor counts whole, every shard of it (a plain 0-d tensor out)."""
+    return torch.sqrt(sum(_sum_sq(t) for t in tensors))
 
 
 #: elements of a leaf updated at a time: the f32 temporaries of one chunk
@@ -94,9 +107,16 @@ def adamw_update(cfg: AdamWConfig, params: dict[str, torch.Tensor],
     b2c = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** step)
     with torch.no_grad():
         for name, p in params.items():
-            pv, mv, vv = (t.view(-1) for t in (p, state.m[name],
-                                                state.v[name]))
-            gv = grads[name].reshape(-1)
+            g = grads[name]
+            if isinstance(p, DTensor):   # each rank its own shards
+                if isinstance(g, DTensor):
+                    g = g.redistribute(p.device_mesh, p.placements)
+                p, g = p.to_local(), g.to_local()
+                m_, v_ = state.m[name].to_local(), state.v[name].to_local()
+            else:
+                m_, v_ = state.m[name], state.v[name]
+            pv, mv, vv = (t.view(-1) for t in (p, m_, v_))
+            gv = g.reshape(-1)
             for lo in range(0, p.numel(), CHUNK):
                 sl = slice(lo, lo + CHUNK)
                 g = gv[sl].to(torch.float32) * clip

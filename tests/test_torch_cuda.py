@@ -21,8 +21,9 @@ attention sinks, the moe, ssm, hybrid, audio and vlm families' reduced
 models on CUDA against the CPU, and training: the flash-attention
 backward kernel against its plain version, a training step's loss and
 gradients through the kernels and the training driver against the CPU;
-the MiniLM encoder on CUDA against the CPU, and the dry run's sharded
-cache pair on CUDA.
+the MiniLM encoder on CUDA against the CPU, the dry run's sharded
+cache pair on CUDA, and the sharded ``Model`` on a one-rank NCCL mesh
+bit for bit against the unsharded one.
 Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
@@ -1718,3 +1719,55 @@ def test_dryrun_cache_pair_on_cuda(cuda_device, tmp_path, variant):
     assert art["ok"], art.get("traceback")
     assert art["entries"] == 128 and art["hits_last_step"] == 128
     assert kmod.launches["cosine_topk"] == 3 * dryrun.CACHE_SHARDS
+
+
+@pytest.mark.cuda
+def test_sharded_model_on_a_one_rank_nccl_mesh(cuda_device):
+    """The multi-chip path on the card: reduced yi-6b in bf16 as a
+    ``Model`` on a (1, 1) mesh of one NCCL rank (DTensor parameters, the
+    attention kernels under ``local_map``) equals the unsharded model bit
+    for bit over a prefill and three decode steps, the kernels launched.
+    It checks the code path on DTensor inputs, not an exchange: NCCL
+    refuses two ranks on one GPU."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = dataclasses.replace(get_arch("yi-6b").reduced(), dtype="bfloat16")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        plain = Model(cfg, device=cuda_device).init_params(
+            torch.Generator(device=cuda_device).manual_seed(0))
+        sharded = Model(cfg, device=cuda_device, mesh=mesh)
+        sharded.load_state_dict(plain.state_dict())
+        assert isinstance(sharded.blocks["wq"], DTensor)
+        tokens = torch.randint(0, cfg.vocab, (4, 32), device=cuda_device,
+                               generator=torch.Generator(
+                                   device=cuda_device).manual_seed(1))
+        outs = {}
+        for name, model in (("mesh", sharded), ("plain", plain)):
+            kflash.reset_launches()
+            kdec.reset_launches()
+            with torch.no_grad():
+                logits, caches = model.forward(tokens, collect_cache=True,
+                                               cache_size=40)
+                steps = [logits]
+                for _ in range(3):
+                    logits, caches = model.decode_step(
+                        caches, steps[-1][:, -1:].argmax(-1).to(torch.int32))
+                    steps.append(logits)
+            outs[name] = [s.full_tensor() if isinstance(s, DTensor) else s
+                          for s in steps]
+            assert kflash.launches["flash_attention"] == cfg.n_layers
+            assert kdec.launches["decode_attention"] == 3 * cfg.n_layers
+        for got, want in zip(outs["mesh"], outs["plain"]):
+            assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -22,7 +22,7 @@ from repro.configs import get_arch as jget_arch
 from repro.configs.base import InputShape as JInputShape
 from repro.launch import sharding as jshlib
 from repro.models.model import Model as JModel
-from repro_torch.configs import ARCHITECTURES, get_arch
+from repro_torch.configs import ARCHITECTURES, get_arch, get_shape
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels import ref
 from repro_torch.launch import dryrun
@@ -132,14 +132,6 @@ def test_meta_step_matches_jax_eval_shape(arch, kind, variant):
     _check_caches(our_caches, caches, variant == "kvq")
 
 
-def test_xla_only_variants_are_refused():
-    for variant in ("attn", "attn-sp"):
-        with pytest.raises(ValueError, match="XLA sharding"):
-            dryrun.build_fn_and_args("yi-6b", "decode_32k", variant)
-    with pytest.raises(ValueError, match="unknown"):
-        dryrun.build_fn_and_args("yi-6b", "decode_32k", "fast")
-
-
 def test_command_line_one_pair(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
@@ -162,7 +154,7 @@ def test_failing_pair_is_recorded(tmp_path, monkeypatch, capsys):
     """An op that reads a value on the host stops a meta run: the pair is
     written with ``ok: false``, its error and that op, and the exit status
     is 1 (``ref.ivf_topk_ref`` calls ``nonzero``)."""
-    def step(config, shape, variant=""):
+    def step(config, shape, variant="", mesh=None):
         q = torch.empty((4, 8), device="meta")
         keys = torch.empty((16, 8), device="meta")
         cand = torch.empty((4, 6), dtype=torch.int32, device="meta")
@@ -200,3 +192,118 @@ def test_cache_pair_on_cpu(tmp_path, variant, key_bytes):
         f"__{variant}" if variant else "")
     assert json.loads((tmp_path / f"{tag}.json").read_text())["ok"]
 
+
+
+def test_variants_on_one_card_are_no_ops():
+    """``attn`` and ``attn-sp`` are redistributions on a mesh; on one card
+    they are no-ops, as the reference's ``_constrain`` without a mesh."""
+    outs = {}
+    for variant in ("", "attn", "attn-sp"):
+        fn, args = dryrun.build_fn_and_args("yi-6b", "decode_32k", variant)
+        logits, _ = fn(*args)
+        outs[variant] = _spec(logits)
+    assert outs["attn"] == outs["attn-sp"] == outs[""]
+    with pytest.raises(ValueError, match="unknown"):
+        dryrun.build_fn_and_args("yi-6b", "decode_32k", "fast")
+
+
+# --------------------------------------------------------------------- #
+# the production meshes: each in its own fake world, in subprocesses
+# --------------------------------------------------------------------- #
+MESH_SIZES = {"pod_16x16": {"data": 16, "model": 16},
+              "multipod_2x16x16": {"pod": 2, "data": 16, "model": 16}}
+PRODUCTION = [("mamba2-130m", "decode_32k"), ("yi-6b", "prefill_32k")]
+
+
+def _cli(args, out):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+@pytest.fixture(scope="module")
+def production(tmp_path_factory):
+    root = tmp_path_factory.mktemp("meshes")
+    procs = {
+        "mamba2": _cli(["--mesh", "pod_16x16", "--arch", "mamba2-130m",
+                        "--shape", "decode_32k"], root),
+        "yi": _cli(["--both-meshes", "--arch", "yi-6b", "--shape",
+                    "prefill_32k"], root),
+        "multi": _cli(["--multi-pod", "--arch", "mamba2-130m", "--shape",
+                       "decode_32k"], root)}
+    logs = {}
+    for name, proc in procs.items():
+        logs[name], _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, logs[name][-4000:]
+    arts = {(a, s, m): json.loads(
+        (root / f"{a}_{s}_{m}.json").read_text())
+        for a, s in PRODUCTION for m in MESH_SIZES}
+    return arts, logs
+
+
+def _jax_local_param_bytes(arch, mesh):
+    """Rank 0's parameter bytes by the JAX package's specs: each leaf's
+    dims ceil-divided by the product of the axes its spec names."""
+    sizes = MESH_SIZES[mesh]
+    dp = ("pod", "data") if "pod" in sizes else ("data",)
+    jc = jget_arch(arch)
+    shapes = _flat(jax.eval_shape(
+        lambda: JModel(jc).init_params(jax.random.PRNGKey(0))))
+    specs = _flat(jshlib.param_pspecs(jc, dp))
+    total = 0
+    for name, leaf in shapes.items():
+        spec = tuple(specs[name]) + (None,) * (len(leaf.shape) - len(
+            tuple(specs[name])))
+        n = 1
+        for dim, entry in zip(leaf.shape, spec):
+            axes = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            k = 1
+            for a in axes:
+                k *= sizes[a]
+            n *= -(-dim // k)
+        total += n * jnp.dtype(leaf.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("mesh", list(MESH_SIZES))
+@pytest.mark.parametrize("arch,shape", PRODUCTION)
+def test_production_mesh_pair(production, arch, shape, mesh):
+    art = production[0][(arch, shape, mesh)]
+    assert art["ok"], art.get("traceback")
+    assert art["chips"] == (512 if mesh.startswith("multipod") else 256)
+    assert art["n_mp"] == 16 and art["n_dp"] * 16 == art["chips"]
+    assert art["param_bytes"] == _jax_local_param_bytes(arch, mesh)
+    assert art["roofline"]["chips"] == art["chips"]
+    coll = art["collectives"]
+    assert coll["total_bytes"] == sum(coll["bytes"].values()) > 0
+    assert set(coll["static_count"]) == {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    assert art["memory"]["argument_size_in_bytes"] >= art["param_bytes"]
+    assert art["roofline"]["collective_s"] == pytest.approx(
+        coll["total_bytes"] / 450e9)
+
+
+@pytest.mark.parametrize("arch,shape", PRODUCTION)
+def test_data_sharded_bytes_halve_on_the_multipod(production, arch, shape):
+    """The batch splits over 16 data ranks on the pod and 32 on the
+    multipod: the decode caches and the prefill's outputs (last-position
+    logits, caches; less the replicated (S,) int32 ``slot_pos``) halve a
+    chip; the parameters do not."""
+    arts = production[0]
+    pod, multi = (arts[(arch, shape, m)] for m in MESH_SIZES)
+    if shape.startswith("decode"):
+        assert pod["cache_bytes"] == 2 * multi["cache_bytes"] > 0
+    else:
+        slot_pos = get_shape(shape).seq_len * 4
+        assert pod["memory"]["output_size_in_bytes"] - slot_pos == 2 * (
+            multi["memory"]["output_size_in_bytes"] - slot_pos) > 0
+    assert pod["param_bytes"] == multi["param_bytes"]
+
+
+def test_multi_pod_command_line(production):
+    assert "1/1 dry-runs succeeded" in production[1]["multi"]
+    assert "2/2 dry-runs succeeded" in production[1]["yi"]
