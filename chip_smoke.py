@@ -1087,7 +1087,9 @@ def _ivf_run(torch, device, snapshot=None, on_warm_slab=None, **kw):
         wall += time.perf_counter() - t0
     if device == "cuda":
         from repro_torch.kernels.ivf_topk import check_contract
-        calls = MAIN_BATCHES * max(1, kw.get("shards", 0))
+        shards = kw.get("shards", 0)
+        calls = MAIN_BATCHES * (len(shards) if isinstance(shards, list)
+                                else max(1, shards))
         if len(operands) != calls:
             fail(f"ivf_topk got {len(operands)} grouped calls, not {calls}")
         for cand, probe, buckets in operands:
@@ -2086,6 +2088,9 @@ def phase_serve_context(torch, sync: dict) -> dict:
 # --------------------------------------------------------------------- #
 SHARDS = 4                 # serve_sharded: make_mesh((4,), ("data",))
 FAIL_WITHIN_S = 10.0       # a failed shard body must fail its call by then
+# serve_sharded over distinct devices with one card: shards 0 and 2 on the
+# card, 1 and 3 on the CPU (``launch.serve --shards cuda:0,cpu,cuda:0,cpu``)
+MIXED = ["cuda:0", "cpu", "cuda:0", "cpu"]
 
 
 class _HostTime:
@@ -2161,8 +2166,10 @@ def _sharded_recall(eng, reqs) -> dict:
     top-1 scores, within 1e-6."""
     from repro_torch.core import DistributedCache, SemanticCache
     from repro_torch.core.index import ExactState
+    from repro_torch.core.runtime import ShardedRuntime
     exact = DistributedCache(SemanticCache(eng.cache.config), eng.cache.mesh)
-    rt = eng.runtime.replace(index_state=ExactState())
+    rt = ShardedRuntime(tuple(s.replace(index_state=ExactState())
+                              for s in eng.runtime.shards))
     same = 0
     for i in range(0, len(reqs), 128):
         q = eng._embed([r.query for r in reqs[i:i + 128]])
@@ -2175,15 +2182,16 @@ def _sharded_recall(eng, reqs) -> dict:
 
 def _failing_shard(torch, eng, batch) -> dict:
     """One shard body raises inside its search (shard 2, told by its slab
-    view's offset); ``serve_batch`` must raise within FAIL_WITHIN_S and the
+    keys' storage); ``serve_batch`` must raise within FAIL_WITHIN_S and the
     next call must serve the batch."""
     import os
     import threading
     from repro_torch.core import index as index_mod
     ops, search = index_mod.ops, index_mod.ops.cosine_topk
+    target = eng.runtime.shards[2].state.keys.data_ptr()
 
     def flaky(q, keys, alive, *, k):
-        if keys.storage_offset() == 2 * keys.numel():
+        if keys.data_ptr() == target:
             raise RuntimeError("injected failure of shard 2's search")
         return search(q, keys, alive, k=k)
     caught = []
@@ -2217,6 +2225,199 @@ def _failing_shard(torch, eng, batch) -> dict:
                                           for r in resp):
         fail("failing shard: the next call did not serve its batch")
     return {"raised_after_s": raised_s, "next_call_served": len(resp)}
+
+
+def _hits_by_device(eng, results) -> dict:
+    """Hits of the step results, by the device type of the shard that
+    served them (global slot // local capacity)."""
+    lc = eng.cache.local_capacity
+    out = {"cuda": 0, "cpu": 0}
+    for r in results:
+        shard = (r.index[r.hit] // lc).tolist()
+        for i in shard:
+            out[eng.cache.devices[i].type] += 1
+    return out
+
+
+def _on_their_devices(eng, where: str) -> None:
+    """Every shard's slab, index, tenancy and replicated leaves sit on its
+    mesh device."""
+    import dataclasses
+    for i, (shard, dev) in enumerate(zip(eng.runtime.shards,
+                                         eng.cache.devices)):
+        for group in (shard.state, shard.stats, shard.index_state,
+                      shard.tenancy, shard.fusion):
+            if group is None:
+                continue
+            for f in dataclasses.fields(group):
+                if getattr(group, f.name).device.type != dev.type:
+                    fail(f"{where}: shard {i}'s {f.name} is not on {dev}")
+
+
+# keys a CPU shard normalized against the card's, slot by slot: the norm's
+# sum runs in another order (f32: last bits); an int8 key may round to the
+# next step
+SLAB_KEY_TOL = {"float32": 1e-6, "int8": 1.0}
+
+
+def _same_slab(torch, a, b, where: str) -> float:
+    """Two engines' slabs of one layout, slot by slot: validity, values,
+    lengths, provenance, times and counters exactly, keys within
+    SLAB_KEY_TOL. Returns the keys' largest difference."""
+    sa, sb = a.state, b.state
+    for name in ("valid", "values", "value_lens", "source_id", "expiry",
+                 "freq", "last_used", "inserted_at", "n_inserts"):
+        if not torch.equal(getattr(sa, name), getattr(sb, name)):
+            fail(f"{where}: the slabs' {name} differ slot by slot")
+    err = float((sa.keys.float() - sb.keys.float()).abs().max())
+    tol = SLAB_KEY_TOL[str(sa.keys.dtype).split(".")[-1]]
+    if sa.keys.dtype != sb.keys.dtype or err > tol:
+        fail(f"{where}: keys differ by {err} slot by slot (tolerance {tol})")
+    return err
+
+
+def _mixed_serve(torch, devices, where: str, **kw):
+    """``launch.serve --shards`` over ``devices``: the engine, requests,
+    responses, launches, wall time, host-timed calls and hits by device."""
+    from repro_torch.core import DistributedCache
+    with _HostTime(DistributedCache) as h:
+        eng, reqs, resp, launches, wall = _serve(torch, device="cuda",
+                                                 shards=devices, **kw)
+    _on_their_devices(eng, where)
+    return eng, reqs, resp, launches, wall, h
+
+
+def _mixed_main(torch, kd: str, one, four, r1, r4, scratch: Path) -> dict:
+    """The main configuration on four shards over MIXED against the
+    one-device four-shard run and the unsharded one: decisions, answers,
+    scores, Table 1 and counters; the slab slot by slot against the
+    one-device run's (same layout; that run's key multiset equals the
+    unsharded one's bit for bit); a hit from a shard of each device type;
+    the snapshot restored into four shards of the card and into one. Over
+    every card too where there are several."""
+    where = f"mixed main {kd}"
+    cuda_shards = sum(d.startswith("cuda") for d in MIXED)
+    mixed, reqs, rm, lm, wm, h = _mixed_serve(torch, MIXED, where,
+                                              key_dtype=kd)
+    _expect_launches(lm, {"cosine_topk": cuda_shards * MAIN_BATCHES}, where)
+    for other, resp, name in ((four, r4, "one-device four shards"),
+                              (one, r1, "unsharded")):
+        _same_decisions(rm, resp, f"{where} vs {name}", SCORE_TOL[kd])
+        if mixed.metrics.summary()["categories"] != \
+                other.metrics.summary()["categories"]:
+            fail(f"{where}: Table 1 differs from the {name} run")
+        if mixed.stats.host() != other.stats.host():
+            fail(f"{where}: counters differ from the {name} run")
+    key_err = _same_slab(torch, mixed, four, where)
+    hits = _hits_by_device(mixed, h.results)
+    if min(hits.values()) < 1:
+        fail(f"{where}: hits by shard device {hits}: none from one type")
+    out = {"devices": MIXED, "hits_by_device": hits,
+           "slab_key_max_abs_diff_vs_one_device": key_err,
+           "step_host_ms_per_batch": 1e3 * h.seconds / MAIN_BATCHES,
+           "call_host_ms_median": h.medians_ms(),
+           "wall_per_batch_s": wm / MAIN_BATCHES,
+           "entries_per_shard": _per_shard(mixed, where),
+           "launches_per_lookup": lm["cosine_topk"] / MAIN_BATCHES}
+    if kd == "f32":
+        snap = str(scratch / "mixed")
+        mixed.save_cache(snap)
+        follow = mixed.process(reqs)
+        restored = {}
+        for shards in (SHARDS, 0):
+            eng = _bare_engine(mixed, shards)
+            eng.load_cache(snap)
+            _same_decisions(eng.process(reqs), follow,
+                            f"{where}: restored into {shards or 1} shard(s)",
+                            SCORE_TOL[kd])
+            restored[f"into_{shards or 1}_shards"] = "same decisions"
+        out["snapshot"] = restored
+        n = torch.cuda.device_count()
+        if n > 1:
+            cards = [f"cuda:{i % n}" for i in range(SHARDS)]
+            every, _, re_, le, we, he = _mixed_serve(
+                torch, cards, "every card", key_dtype=kd)
+            _same_decisions(re_, r4, "every card vs one device",
+                            SCORE_TOL[kd])
+            if every.stats.host() != four.stats.host():
+                fail("every card: counters differ from one device")
+            out["every_card"] = {"devices": cards,
+                                 "wall_per_batch_s": we / MAIN_BATCHES,
+                                 "step_host_ms_per_batch":
+                                 1e3 * he.seconds / MAIN_BATCHES}
+    emit("serve_sharded", check=f"main {kd} on four shards over {MIXED} "
+         "equals one device and the unsharded run", requests=len(rm),
+         kernel_launches=lm, **out)
+    return out
+
+
+def _mixed_tenants(torch, one_t, four_t, rt1, rt4) -> dict:
+    """``--tenants 4`` on four shards over MIXED against the one-device
+    and the unsharded runs: decisions, answers, scores, the per-tenant
+    counters and summary; the slab slot by slot against the one-device
+    run's."""
+    where = "mixed --tenants 4"
+    cuda_shards = sum(d.startswith("cuda") for d in MIXED)
+    mixed, _, rm, lm, wm, h = _mixed_serve(torch, MIXED, where,
+                                           tenants=TENANTS)
+    _expect_launches(lm, {"cosine_topk_interval":
+                          cuda_shards * MAIN_BATCHES}, where)
+    for other, resp, name in ((four_t, rt4, "one-device four shards"),
+                              (one_t, rt1, "unsharded")):
+        _same_decisions(rm, resp, f"{where} vs {name}", 1e-5)
+        if mixed.tenant_stats() != other.tenant_stats():
+            fail(f"{where}: per-tenant counters differ from the {name} run")
+        if _untimed_tenants(mixed.metrics.summary()) != \
+                _untimed_tenants(other.metrics.summary()):
+            fail(f"{where}: per-tenant summary differs from the {name} run")
+    key_err = _same_slab(torch, mixed, four_t, where)
+    hits = _hits_by_device(mixed, h.results)
+    if min(hits.values()) < 1:
+        fail(f"{where}: hits by shard device {hits}: none from one type")
+    out = {"hits_by_device": hits,
+           "slab_key_max_abs_diff_vs_one_device": key_err,
+           "step_host_ms_per_batch": 1e3 * h.seconds / MAIN_BATCHES,
+           "wall_per_batch_s": wm / MAIN_BATCHES}
+    emit("serve_sharded", check=f"--tenants 4 on four shards over {MIXED} "
+         "equals one device and the unsharded run", requests=len(rm),
+         kernel_launches=lm, **out)
+    return out
+
+
+def _mixed_ivf(torch, four_i, iresp, scratch: Path) -> dict:
+    """``--index ivf`` on four shards over MIXED: against four shards of
+    the card restored from its post-refit snapshot (the refit's k-means
+    ran on each shard's device, so a CPU shard's table may differ from the
+    card's), and against the one-device IVF run where every shard's
+    bucket table came out the same."""
+    from repro_torch.core import make_mesh
+    from repro_torch.serving import CachedEngine
+    where = "mixed --index ivf"
+    snap = str(scratch / "mixed-ivf")
+    mixed, reqs, mresp, _, lm, wm, _ = _ivf_run(
+        torch, "cuda", snapshot=snap, key_dtype="f32", shards=MIXED)
+    _on_their_devices(mixed, where)
+    cuda_shards = sum(d.startswith("cuda") for d in MIXED)
+    _expect_launches(lm, {"cosine_topk": cuda_shards * MAIN_BATCHES,
+                          "ivf_topk": cuda_shards * MAIN_BATCHES}, where)
+    card = CachedEngine(mixed.cache.config, mixed.backend, judge=mixed.judge,
+                        batch_size=mixed.batcher.batch_size,
+                        index=mixed.cache.index, device="cuda",
+                        mesh=make_mesh((SHARDS,), ("data",)))
+    card.tokenizer = mixed.tokenizer
+    card.load_cache(snap, reshard=False)
+    _same_decisions(mresp, card.process(reqs),
+                    f"{where} vs its snapshot on one card", 1e-5)
+    same_tables = bool(torch.equal(mixed.runtime.index_state.buckets,
+                                   four_i.runtime.index_state.buckets))
+    if same_tables:
+        _same_decisions(mresp, iresp, f"{where} vs one device", 1e-5)
+    out = {"wall_per_batch_s": wm / MAIN_BATCHES,
+           "bucket_tables_as_one_device": same_tables,
+           "hits": sum(r.cached for r in mresp)}
+    emit("serve_sharded", check=f"--index ivf on four shards over {MIXED} "
+         "equals four card shards restored from its snapshot", **out)
+    return out
 
 
 def phase_serve_sharded(torch, card: str, sync: dict, scratch: Path
@@ -2284,6 +2485,8 @@ def phase_serve_sharded(torch, card: str, sync: dict, scratch: Path
         emit("serve_sharded", check=f"main {kd}: four shards equal the "
              "unsharded run", requests=len(r4), kernel_launches=l4,
              **line[kd])
+        line[f"mixed_{kd}"] = _mixed_main(torch, kd, one, four, r1, r4,
+                                          scratch)
         if kd == "f32":
             kept = {"one": one, "four": four, "reqs": reqs, "resp": r4}
 
@@ -2303,6 +2506,7 @@ def phase_serve_sharded(torch, card: str, sync: dict, scratch: Path
     if _untimed_tenants(four_t.metrics.summary()) != \
             _untimed_tenants(one_t.metrics.summary()):
         fail("sharded --tenants 4: per-tenant summary differs")
+    line["mixed_tenancy"] = _mixed_tenants(torch, one_t, four_t, rt1, rt4)
     line["tenancy"] = {
         "wall_per_batch_s": wt4 / MAIN_BATCHES,
         "answers_differing": sum(x.answer != y.answer
@@ -2331,6 +2535,7 @@ def phase_serve_sharded(torch, card: str, sync: dict, scratch: Path
                     "sharded ivf cuda vs restored cpu", 1e-5)
     if _decisions(eng_i) != _decisions(cpu_i):
         fail("sharded ivf: per-category hits differ from the restored CPU")
+    line["mixed_ivf"] = _mixed_ivf(torch, eng_i, iresp, scratch)
     line["ivf"] = {
         "wall_per_batch_s": wi / MAIN_BATCHES, **recall,
         "requests_as_sharded_exact": sum(
@@ -2857,6 +3062,18 @@ def _ivf_timing(torch, card: str) -> dict:
 # orders: f32 outputs agree to 2e-5; a bf16 output may round the other way
 # once, one bf16 ulp (at most 2**-7 of the value)
 ATTN_TOL = {"f32": (2e-5, 2e-5), "bf16": (2.0 ** -7, 1e-5)}   # (rtol, atol)
+# the decode kernel's log-sum-exp against the plain version's, absolute:
+# both sum f32 exponentials of f32 scores in other orders (f32 and int8
+# caches: 1e-5 at the |lse| of 1-10 these inputs give); a bf16 cache's
+# scores come from the tensor cores' f32 sums of exact bf16 products, whose
+# adder rounds otherwise than IEEE f32: 1e-4
+DECODE_LSE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 1e-4}
+# a cache cut into slot ranges, each range's kernel output merged by its
+# log-sum-exp (models.attention.merge_lse), against the whole call: f32
+# parts as ATTN_TOL; bf16 parts are each rounded to bf16 before the merge
+# (half an ulp, 2**-9 of |part| <= 1 here) and the merge rounds once more
+MERGE_TOL = {"f32": (2e-5, 2e-5), "int8": (2e-5, 2e-5),
+             "bf16": (2.0 ** -7, 2.0 ** -8)}
 # full-width yi-6b, kernels against the plain attention on the same bf16
 # weights and tokens: only the attention outputs' bf16 rounding differs
 # (one ulp in some elements), and 32 layers of bf16 GEMMs carry the flips
@@ -2978,7 +3195,9 @@ def _decode_operands(torch, gen, b, s, h, hkv, d, kv):
     return q, k, v, ks, vs
 
 
-def _decode_cases(torch) -> float:
+def _decode_cases(torch) -> tuple[float, float]:
+    """Every case through the kernel, without and with its lse, against
+    the plain version: (worst output error, worst lse error)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     cases = [  # (B, S, H, HKV, D, window, n_sink, slot layout)
@@ -3003,10 +3222,10 @@ def _decode_cases(torch) -> float:
         (3, 96, 25, 5, 64, 32, 128, "meta"),       # its sinks past a window
         (2, 512, 10, 2, 64, 60, 70, "full"),       # G=5, window and sinks
     ]
-    worst = 0.0
+    worst = lse_worst = 0.0
     for kv in ("f32", "bf16", "int8"):
         gen = torch.Generator(device="cuda").manual_seed(43)
-        errs = []
+        errs, lse_errs = [], []
         for b, s, h, hkv, d, window, sink, layout in cases:
             q, k, v, ks, vs = _decode_operands(torch, gen, b, s, h, hkv, d,
                                                kv)
@@ -3020,10 +3239,92 @@ def _decode_cases(torch) -> float:
                 "bf16" if kv == "bf16" else "f32", where))
             if layout == "none" and not bool(torch.all(out == 0)):
                 fail(f"{where}: a row with nothing visible is not 0")
+            lse_errs.append(_lse_check(torch, out, decode_attention_cuda(
+                q, k, v, sp, pos, return_lse=True, **kw),
+                ref.decode_attention_ref(q, k, v, sp, pos, return_lse=True,
+                                         **kw)[1], kv, where))
         emit("model", kernel="decode_attention", kv_dtype=kv,
              cases=len(cases), max_abs_err=max(errs),
-             rtol_atol=ATTN_TOL["bf16" if kv == "bf16" else "f32"])
+             rtol_atol=ATTN_TOL["bf16" if kv == "bf16" else "f32"],
+             lse_max_abs_err=max(lse_errs), lse_atol=DECODE_LSE_TOL[kv],
+             out_with_lse="bit for bit")
         worst = max(worst, max(errs))
+        lse_worst = max(lse_worst, max(lse_errs))
+    return worst, lse_worst
+
+
+def _lse_check(torch, out, got, want_lse, kv, where) -> float:
+    """The kernel's output with its log-sum-exp (``got``) against the
+    output without (bit for bit) and the plain version's lse (``-inf`` in
+    the same places, else within DECODE_LSE_TOL)."""
+    o, lse = got
+    torch.cuda.synchronize()
+    if not torch.equal(o, out):
+        fail(f"{where}: the output with lse differs from the output without")
+    if lse.dtype != torch.float32 or lse.shape != want_lse.shape:
+        fail(f"{where}: lse {lse.dtype} {tuple(lse.shape)}, plain "
+             f"{want_lse.dtype} {tuple(want_lse.shape)}")
+    inf, want_inf = torch.isinf(lse), torch.isinf(want_lse)
+    if not torch.equal(inf, want_inf) or bool(torch.isnan(lse).any()) or \
+            not bool((lse[inf] < 0).all()):
+        fail(f"{where}: the lse's -inf rows differ from the plain version's")
+    err = float((lse[~inf] - want_lse[~inf]).abs().max()) \
+        if bool((~inf).any()) else 0.0
+    if err > DECODE_LSE_TOL[kv]:
+        fail(f"{where}: lse differs from the plain version's by {err} "
+             f"(atol {DECODE_LSE_TOL[kv]})")
+    return err
+
+
+def _decode_split_merge(torch) -> dict:
+    """A cache cut into 2 and 4 slot ranges (as context-parallel decode
+    splits it over the ranks of ``model``), each range through the kernel
+    with its lse, merged by ``merge_lse``, against the whole call: at the
+    serve step (B = 39, S = 96) and at yi-6b's context (B = 8, S = 4,096),
+    f32, bf16 and int8 caches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import merge_lse
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+    worst = {}
+    for kv in ("f32", "bf16", "int8"):
+        gen = torch.Generator(device="cuda").manual_seed(53)
+        errs = []
+        for b, s, layout in ((39, 96, "prefix"), (8, 4096, "full")):
+            q, k, v, ks, vs = _decode_operands(torch, gen, b, s, 32, 4, 128,
+                                               kv)
+            sp, pos = _decode_slots(torch, s, layout)
+            whole = ops.decode_attention(q, k, v, sp, pos, k_scale=ks,
+                                         v_scale=vs)
+            for n in (2, 4):
+                cuts = [i * s // n for i in range(n + 1)]
+                parts = []
+                for lo, hi in zip(cuts, cuts[1:]):
+                    def cut(x):
+                        return None if x is None else \
+                            x[:, lo:hi].contiguous()
+                    parts.append(ops.decode_attention(
+                        q, cut(k), cut(v), sp[lo:hi].contiguous(), pos,
+                        k_scale=cut(ks), v_scale=cut(vs), return_lse=True))
+                got = merge_lse(torch.stack([o for o, _ in parts]),
+                                torch.stack([x for _, x in parts]), stacked)
+                torch.cuda.synchronize()
+                rtol, atol = MERGE_TOL[kv]
+                a, w = got.float(), whole.float()
+                err = float((a - w).abs().max())
+                if got.dtype != whole.dtype or \
+                        not bool(torch.all((a - w).abs()
+                                           <= atol + rtol * w.abs())):
+                    fail(f"decode split {kv} B={b} S={s} into {n}: merged "
+                         f"ranges differ from the whole call by {err} "
+                         f"(rtol {rtol}, atol {atol})")
+                errs.append(err)
+        worst[kv] = max(errs)
+        emit("model", kernel="decode_attention", check="slot ranges merged "
+             "by lse equal the whole call", kv_dtype=kv, ranges=[2, 4],
+             shapes=["B=39 S=96", "B=8 S=4096"], max_abs_err=worst[kv],
+             rtol_atol=MERGE_TOL[kv])
     return worst
 
 
@@ -3326,10 +3627,17 @@ def _model_timing(torch, card: str, b: int, b_fewest: int) -> dict:
             200 if s <= 128 else 50)
         bound = _decode_bound(q, k, vis)
         n_split, tile = kdec.split(s, d, k.element_size())
+        # with and without the log-sum-exp, from graphs, in turns
+        lse = {"kernel": [], "kernel_lse": []}
+        for name in ("kernel", "kernel_lse", "kernel_lse", "kernel"):
+            lse[name].append(_time_graph(torch, lambda: decode_attention_cuda(
+                q, k, v, sp, pos, return_lse=name == "kernel_lse"),
+                200 if s <= 128 else 50))
         out[("decode_attention", shape)] = {
             **row, **bound, "visible_slots": vis, "n_split": n_split,
             "tile": tile, "share_of_bound": bound["bound_ms"]
-            / row["graph_ms"]}
+            / row["graph_ms"], "graph_ms_no_lse": min(lse["kernel"]),
+            "graph_ms_lse": min(lse["kernel_lse"]), "lse_runs_ms": lse}
         emit("timing", kernel="decode_attention", shape=shape, B=bb, S=s,
              H=h, HKV=hkv, D=d, pos=pos, dtype="bf16", card=card,
              **out[("decode_attention", shape)])
@@ -3342,16 +3650,18 @@ def phase_model(torch, card: str, sim_cached: list) -> dict:
     plain versions, full-width yi-6b serving (all 16 batches, decisions
     ``sim_cached``: the main phase's), the reduced model card vs CPU, and
     the kernels' times at the serve shape."""
+    dec_err, lse_err = _decode_cases(torch)
     max_err = {"flash_attention": _flash_cases(torch),
-               "decode_attention": _decode_cases(torch)}
+               "decode_attention": dec_err}
+    lse = {"max_abs_err": lse_err, "split_merge": _decode_split_merge(torch)}
     full = _model_serve(torch, "yi-6b", None, sim_cached, MAIN_BATCHES,
                         "model")
     _reduced_card_vs_cpu(torch)
     b = max(1, round(sum(full["misses_per_batch"])
                      / len(full["misses_per_batch"])))
     return {"max_err": max_err, "launches": full["kernel_launches"],
-            "timing": _model_timing(torch, card, b,
-                                    min(full["misses_per_batch"]))}
+            "lse": lse, "timing": _model_timing(torch, card, b,
+                                                min(full["misses_per_batch"]))}
 
 
 # --------------------------------------------------------------------- #

@@ -184,9 +184,11 @@ def main() -> None:
                  {"kernel"}, ptxas_after(lambda line: "decode_tc_kernel"
                                          in line or "13__nv_bfloat16S" in line))
     found = {name: found[name] for name in libs}
+    # the split kernel's entry point takes an lse pointer since it has one
+    lse = ["void* lse"] if "void* lse" in args.source.read_text() else []
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib, _ in libs.values():
-        tail = [i, i, p, p] if design == "split" else []
+        tail = [i, i, p, p] + [p] * len(lse) if design == "split" else []
         lib.decode_attention_launch.argtypes = (
             [p] * 7 + [i] * 10 + [ctypes.c_float] + tail + [p])
         lib.decode_attention_launch.restype = ctypes.c_int
@@ -204,7 +206,7 @@ def main() -> None:
                 n, tile = n_split, -(-longest // -(-longest // most))
             part = kdec.scratch(q, n, hkv)
             extra = [n, tile, *(None if t is None else t.data_ptr()
-                                for t in part)]
+                                for t in part), *[None] * len(lse)]
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
             sp.data_ptr(), out.data_ptr(), 1, 1, b, s, h, hkv, d, pos, -1,

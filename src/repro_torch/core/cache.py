@@ -95,6 +95,20 @@ class _LocalComm:
 LOCAL_COMM = _LocalComm()
 
 
+def topk_payload(result: LookupResult, rows) -> dict[str, torch.Tensor]:
+    """``gather_topk``'s payload, ``rows(name, idx)`` fetching slab rows."""
+    idx = torch.clamp(result.topk_index, min=0)
+    ok = result.topk_index >= 0
+    return {
+        "values": torch.where(ok[..., None], rows("values", idx), 0),
+        "value_lens": torch.where(ok, rows("value_lens", idx), 0),
+        "source_id": torch.where(ok, rows("source_id", idx), -1),
+        "score": torch.where(ok, result.topk_score,
+                             torch.full_like(result.topk_score,
+                                             float("-inf"))),
+    }
+
+
 @dataclasses.dataclass(frozen=True)
 class SemanticCache:
     """Stateless orchestrator; all state lives in one CacheRuntime."""
@@ -279,17 +293,14 @@ class SemanticCache:
         lengths, provenance and scores of every visible neighbour. Invalid
         neighbours (index -1) come back with length 0, source -1 and score
         -inf. A pure gather that touches no counter."""
-        idx = torch.clamp(result.topk_index, min=0).to(torch.int64)
-        ok = result.topk_index >= 0
-        state = runtime.state
-        return {
-            "values": torch.where(ok[..., None], state.values[idx], 0),
-            "value_lens": torch.where(ok, state.value_lens[idx], 0),
-            "source_id": torch.where(ok, state.source_id[idx], -1),
-            "score": torch.where(ok, result.topk_score,
-                                 torch.full_like(result.topk_score,
-                                                 float("-inf"))),
-        }
+        return topk_payload(result, lambda name, idx: self.slab_rows(
+            runtime, name, idx))
+
+    def slab_rows(self, runtime: CacheRuntime, name: str,
+                  idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (slot ids >= 0, any shape) of the slab leaf
+        ``name``."""
+        return getattr(runtime.state, name)[idx.to(torch.int64)]
 
     # -- insert (paper §2.5 step 3) -----------------------------------------
     def insert(self, runtime: CacheRuntime, queries: torch.Tensor,

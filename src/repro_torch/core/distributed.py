@@ -36,33 +36,48 @@ between collectives the bodies take turns in shard order (``_Group``), so
 one of them holds the interpreter at a time. A body that raises aborts
 the group: every other thread leaves its wait, and the caller gets the
 first exception. The threads live in one pool per ``DistributedCache``;
-one call runs at a time. On one device all threads launch onto the
-caller's stream, in the order the turns give.
+one call runs at a time.
+
+Devices. The mesh names one device a shard (``make_mesh(...,
+device=[...])``, as ``jax.make_mesh(..., devices=)``), or one device for
+all of them; shard 0's is the controller's: queries arrive there and
+results leave from there. Each body runs under ``torch.cuda.device`` of
+its shard's device, on that device's stream (the caller's current stream
+of it: shards of one device share it, as they take turns). An exchange
+moves each part to the receiving shard's device: a CUDA producer records
+an event on its stream, a CUDA consumer's stream waits on it and copies
+with ``non_blocking=True``, a CPU consumer waits on the event and copies.
+The replicated operands of a call (queries, masks, tenant ids, windows, a
+peeked result) go to each shard's device once per call. On one device
+every such move is the tensor itself: one code path, in which a copy is a
+view.
 
 Slot ids are shard-major: global slot ``g`` lives on shard
-``g // local_capacity`` at local row ``g % local_capacity``, which is the
-row of the global slab tensors, so every global-view consumer
-(``gather_topk``, checkpoints, explain) indexes the global slab directly.
+``g // local_capacity`` at local row ``g % local_capacity``; ``slab_rows``
+fetches global rows from their owners (``gather_topk``, explain, the
+engine's canonical session keys).
 
-State layout, as the reference's (DESIGN.md §19.3):
-  * ``CacheState`` (N, ...) leaves are global tensors in shard-major
-    order; a shard body gets views of its rows, and the store's in-place
-    updates write through them. ``ptr`` / ``n_inserts`` are replicated;
-  * index state is stacked on the leading axis, e.g. IVF centroids
-    (S·C, d) and buckets (S·C, cap) of *local* slot ids;
-  * ``TenancyState`` leaves are (S, T);
-  * ``CacheStats``, policy state and fusion weights are replicated.
-Every shard body gets its own copy of the replicated leaves (shards after
-the first a clone) and its own state containers, since each shard's
-``ptr`` differs; after the call shard 0's replicated leaves are kept.
-
-In this port every shard sits on the mesh's one device. A mesh over
-distinct devices is ROADMAP item A6b.
+State (``ShardedRuntime``, per-shard runtimes kept between calls; the
+layout the reference's global arrays have, DESIGN.md §19.3):
+  * shard ``i``'s ``CacheState`` holds its ``local_capacity`` rows on its
+    device; the store's in-place updates write into them;
+  * its index state is its own (C, ...) leaves, e.g. IVF centroids (C, d)
+    and buckets (C, cap) of *local* slot ids (the global view stacks them
+    (S·C, ...));
+  * its ``TenancyState`` row is (T,) (globally (S, T));
+  * ``CacheStats``, policy state, fusion weights and the ``ptr`` /
+    ``n_inserts`` clock are replicated: a call hands each shard body shard
+    0's copy on its device, and after the call shard 0's is the cache's.
+Checkpoints read each shard's rows from its device into the shard-major
+file (``ShardedRuntime.gather``); ``place`` splits a global runtime onto
+the shards' devices.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import itertools
 import math
 import threading
 import weakref
@@ -71,53 +86,96 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.core import store
-from repro_torch.core.cache import SemanticCache, _LocalComm
-from repro_torch.core.runtime import CacheRuntime
-from repro_torch.core.types import CacheState, LookupResult, resolve_device
+from repro_torch.core.cache import (SemanticCache, _LocalComm,
+                                   topk_payload)
+from repro_torch.core.runtime import (_CLOCK, CacheRuntime, ShardedRuntime,
+                                     _moved)
+from repro_torch.core.types import LookupResult, resolve_device
 from repro_torch.tenancy.partition import TenancyState
-
-_CLOCK = ("ptr", "n_inserts")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
+def _resolved(device) -> torch.device:
+    """``resolve_device`` with a CUDA device's index made explicit."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
     """The port's counterpart of ``jax.sharding.Mesh``: named axes of
     shards. ``shape`` maps each axis name to its size, as ``Mesh.shape``
-    does; every shard sits on ``device``."""
+    does; shard ``i`` (shard-major order) sits on ``devices[i]``, and
+    ``device``, shard 0's, is the controller's."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
-    device: torch.device
+    devices: tuple[torch.device, ...]
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
               device=None) -> ShardMesh:
     """A mesh of ``prod(shape)`` shards with the named axes, the
-    counterpart of ``jax.make_mesh``. ``device=None`` means CUDA, as at
-    every entry point; a sequence of devices must name one device."""
+    counterpart of ``jax.make_mesh``. ``device`` is one device for every
+    shard, or a sequence of ``prod(shape)`` devices in shard-major order
+    (``jax.make_mesh(..., devices=)``), which may repeat and mix types
+    (``["cuda:0", "cpu", "cuda:0", "cpu"]``). ``device=None`` means CUDA,
+    as at every entry point."""
     shape, names = tuple(int(x) for x in shape), tuple(axis_names)
     if len(shape) != len(names) or len(set(names)) != len(names):
         raise ValueError(f"mesh shape {shape} and axis names {names} must "
                          "pair up, one distinct name per axis")
     if any(x < 1 for x in shape):
         raise ValueError(f"mesh axis sizes must be positive: {shape}")
+    n = math.prod(shape)
     if isinstance(device, (list, tuple)):
-        devs = [torch.device(d) for d in device]
-        if not devs or any(not _same_device(d, devs[0]) for d in devs):
-            raise ValueError(
-                f"a mesh over distinct devices {[str(d) for d in devs]} is "
-                "not supported yet (ROADMAP A6b): every shard runs on one "
-                "device")
-        device = devs[0]
-    return ShardMesh(names, shape, resolve_device(device))
+        if len(device) != n:
+            raise ValueError(f"a mesh of shape {shape} has {n} shards; got "
+                             f"{len(device)} devices")
+        devs = tuple(_resolved(d) for d in device)
+    else:
+        devs = (_resolved(device),) * n
+    return ShardMesh(names, shape, devs)
+
+
+def _on(x, device: torch.device):
+    """A call operand on ``device``: a tensor, or a ``LookupResult`` (a
+    peeked result), moved; anything else as it is. On the tensor's own
+    device that is the tensor itself."""
+    return _moved(x, device) if isinstance(x, (torch.Tensor, LookupResult)) \
+        else x
+
+
+def _received(value, event, device: torch.device):
+    """An exchanged part (a tensor or a tuple of them) on the receiving
+    shard's ``device``: a CUDA consumer's stream waits on the producer's
+    event and copies without blocking; a CPU consumer waits on the event
+    and copies."""
+    def move(x):
+        if not isinstance(x, torch.Tensor) or _same_device(x.device, device):
+            return x
+        if device.type == "cuda":
+            if event is not None:
+                torch.cuda.current_stream(device).wait_event(event)
+            return x.to(device, non_blocking=True)
+        if event is not None:
+            event.synchronize()
+        return x.to(device)
+    return tuple(move(x) for x in value) if isinstance(value, tuple) \
+        else move(value)
 
 
 def shard_axes(mesh: ShardMesh, cache_axes: tuple[str, ...]) -> int:
@@ -144,8 +202,9 @@ class _Group:
     only after every shard has passed round r + 1, so after every shard
     has read round r's values."""
 
-    def __init__(self, n: int):
-        self.n = n
+    def __init__(self, devices: Sequence[torch.device]):
+        n = self.n = len(devices)
+        self.devices = tuple(devices)
         self.go = [threading.Event() for _ in range(n)]
         self.go[0].set()
         self.aborted = False
@@ -177,17 +236,27 @@ class _MeshComm(_LocalComm):
         self.num_shards = num_shards
         self.local_capacity = local_capacity
         self.group = group
+        self.device = group.devices[shard]
+        # an event is recorded only where another shard's device reads
+        self._remote = any(not _same_device(d, self.device)
+                           for d in group.devices)
         self._round = 0
 
     def all_gather(self, value) -> list:
-        """Every shard's ``value``, in shard order (a barrier)."""
+        """Every shard's ``value`` (a tensor or a tuple of them), in shard
+        order, each on this shard's device (a barrier)."""
         g = self.group
         buf = g.buffers[self._round % 2]
         self._round += 1
-        buf[self.shard] = value
+        event = None
+        if self._remote and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        buf[self.shard] = (value, event)
         g.pass_turn(self.shard)
         g.wait_turn(self.shard)
-        return list(buf)
+        return [v if i == self.shard else _received(v, ev, self.device)
+                for i, (v, ev) in enumerate(buf)]
 
     # -- lookup seams ------------------------------------------------------
     def merge_topk(self, top_s: torch.Tensor, top_i: torch.Tensor
@@ -255,6 +324,19 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
+def _stream_context(device: torch.device, streams: dict
+                    ) -> contextlib.ExitStack:
+    """A shard body's context: every CUDA device's stream of the call (so
+    a copy between devices orders on the streams the bodies use) and, for
+    a CUDA shard, its device."""
+    ctx = contextlib.ExitStack()
+    for stream in streams.values():
+        ctx.enter_context(torch.cuda.stream(stream))
+    if device.type == "cuda":
+        ctx.enter_context(torch.cuda.device(device))
+    return ctx
+
+
 @dataclasses.dataclass(frozen=True)
 class DistributedCache:
     """Capacity-sharded ``SemanticCache`` with the same method surface.
@@ -262,16 +344,19 @@ class DistributedCache:
     ``cache`` is the *global* description (full capacity, global
     partition); each shard runs a derived shard-local cache (capacity and
     regions divided by the shard count, the same index, policy and fusion
-    plugins) with its ``_MeshComm``. Methods that never cross shards —
-    ``expire``, ``gather_topk``, ``update_policy``, ``update_band``,
-    ``_maybe_fuse`` — delegate to the global view (global slot ids are
-    global rows).
+    plugins) with its ``_MeshComm``. Of the methods that never exchange,
+    ``expire`` runs on every shard (the expired counts summed),
+    ``gather_topk`` fetches each row from its owner, and
+    ``update_policy``, ``update_band`` and ``_maybe_fuse``, which read and
+    write replicated leaves only, run on the controller's copy, the one
+    the next call hands every shard.
 
     ``config`` / ``partition`` / ``policy`` / ``index`` / ``fusion`` mirror
     the inner cache, and ``lookup`` / ``step`` / ``insert`` / ``refit``
     take the same arguments, so ``CachedEngine`` and the async scheduler
-    drive a mesh without a special case (DESIGN.md §19.4). The runtime
-    passed to a call must not be used after it, as with ``SemanticCache``.
+    drive a mesh without a special case (DESIGN.md §19.4). The runtime is
+    a ``ShardedRuntime``; the one passed to a call must not be used after
+    it, as with ``SemanticCache``.
     """
 
     cache: SemanticCache
@@ -343,6 +428,23 @@ class DistributedCache:
     def local_capacity(self) -> int:
         return self.cache.config.capacity // self.num_shards
 
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        """Each shard's device, in shard order: the mesh device at the
+        shard's coordinates on the split axes and 0 on the others (the
+        other axes' devices hold replicas a call does not run)."""
+        names, sizes = self.mesh.axis_names, self.mesh.axis_sizes
+        out = []
+        for coords in itertools.product(*(range(n) for n in sizes)):
+            if any(c for a, c in zip(names, coords)
+                   if a not in self.cache_axes):
+                continue
+            flat = 0
+            for c, n in zip(coords, sizes):
+                flat = flat * n + c
+            out.append(self.mesh.devices[flat])
+        return tuple(out)
+
     def shard_layout(self) -> dict:
         """JSON-able record of the sharded placement, written into
         checkpoint manifests and compared (or resharded against) on load;
@@ -362,141 +464,100 @@ class DistributedCache:
             return self.mesh.device
         dev = resolve_device(device)
         if not _same_device(dev, self.mesh.device):
-            raise ValueError(f"device {dev} is not the mesh's device "
-                             f"{self.mesh.device}")
-        return dev
+            raise ValueError(f"device {dev} is not the mesh's controller "
+                             f"device {self.mesh.device} (shard 0's)")
+        return self.mesh.device
 
-    def init(self, device=None) -> CacheRuntime:
-        """Fresh sharded runtime on the mesh's device. Slab, stats, policy
-        and fusion leaves come from the global init; index state tiles the
-        *local* init S times on the leading axis (the index init is
-        deterministic, so S tiles equal S shard inits) and tenancy state
-        stacks it into (S, T) leaves."""
-        dev = self._device(device)
-        g, loc = self.cache.init(dev), self.local.init(dev)
-        s = self.num_shards
-        index_state = type(loc.index_state)(**{
-            n: torch.cat([x] * s)
-            for n, x in _fields(loc.index_state).items()})
-        tenancy = None
-        if loc.tenancy is not None:
-            tenancy = TenancyState(**{
-                n: torch.stack([x] * s)
-                for n, x in _fields(loc.tenancy).items()})
-        return CacheRuntime(state=g.state, stats=g.stats,
-                            policy_state=g.policy_state,
-                            index_state=index_state, tenancy=tenancy,
-                            fusion=g.fusion)
+    def init(self, device=None) -> ShardedRuntime:
+        """Fresh sharded runtime: each shard's local init on its device
+        (``device``, if given, must be the controller's). The index init is
+        deterministic and the replicated leaves start equal, so this is the
+        reference's global init cut into shards."""
+        self._device(device)
+        return ShardedRuntime(tuple(self.local.init(d)
+                                    for d in self.devices))
 
-    def place(self, runtime: CacheRuntime) -> CacheRuntime:
-        """Every leaf on the mesh's device, contiguous, with the sharded
-        layout's leading dims checked: (N, ...) slab, (S·C, ...) index and
-        (S, T) tenancy leaves."""
-        dev, s, n = self.mesh.device, self.num_shards, self.config.capacity
+    def place(self, runtime: CacheRuntime) -> ShardedRuntime:
+        """A global runtime (a checkpoint's: (N, ...) slab, (S·C, ...)
+        index and (S, T) tenancy leaves, checked) split onto the shards'
+        devices, each part contiguous; the replicated leaves copied to
+        every shard."""
+        s, n, lc = self.num_shards, self.config.capacity, self.local_capacity
 
-        def to(group, lead=None, what=""):
-            if group is None:
-                return None
-            if isinstance(group, torch.Tensor):
-                return group.to(dev).contiguous()
-            out = {}
-            for name, x in _fields(group).items():
-                if lead is not None and x.dim() and lead(x.shape[0]):
+        def check(group, bad, what):
+            for name, x in ({} if group is None else _fields(group)).items():
+                if x.dim() and bad(x.shape[0]):
                     raise ValueError(f"{what} leaf {name!r} has leading dim "
                                      f"{x.shape[0]}, not the layout of "
                                      f"{s} shard(s)")
-                out[name] = x.to(dev).contiguous()
-            return type(group)(**out)
-        return CacheRuntime(
-            state=to(runtime.state, lambda m: m != n, "slab"),
-            stats=to(runtime.stats), policy_state=to(runtime.policy_state),
-            index_state=to(runtime.index_state, lambda m: m % s, "index"),
-            tenancy=to(runtime.tenancy, lambda m: m != s, "tenancy"),
-            fusion=to(runtime.fusion))
+        check(runtime.state, lambda m: m != n, "slab")
+        check(runtime.index_state, lambda m: m % s, "index")
+        check(runtime.tenancy, lambda m: m != s, "tenancy")
 
-    # -- global <-> shard-local views -------------------------------------
-    def _to_local(self, rt: CacheRuntime, i: int) -> CacheRuntime:
-        """Shard ``i``'s runtime: views of its slab rows, index rows and
-        tenancy row; its own copy of the replicated leaves."""
-        lc, s = self.local_capacity, self.num_shards
-
-        def own(x):
-            return x if i == 0 else x.clone()
-
-        def rows(x):
-            m = x.shape[0] // s
-            return x[i * m:(i + 1) * m]
-        st = _fields(rt.state)
-        state = CacheState(**{n: (own(x) if n in _CLOCK
-                                  else x[i * lc:(i + 1) * lc])
-                              for n, x in st.items()})
-        return CacheRuntime(
-            state=state,
-            stats=type(rt.stats)(**{n: own(x) for n, x in
-                                    _fields(rt.stats).items()}),
-            policy_state=own(rt.policy_state),
-            index_state=type(rt.index_state)(**{
-                n: rows(x) for n, x in _fields(rt.index_state).items()}),
-            tenancy=None if rt.tenancy is None else TenancyState(**{
-                n: x[i] for n, x in _fields(rt.tenancy).items()}),
-            fusion=None if rt.fusion is None else type(rt.fusion)(**{
-                n: own(x) for n, x in _fields(rt.fusion).items()}))
-
-    def _from_local(self, rt: CacheRuntime, views: list[CacheRuntime],
-                    outs: list[CacheRuntime]) -> CacheRuntime:
-        """The global runtime after a call: the global slab, which the
-        store updated in place through the views; index and tenancy leaves
-        re-stacked where a body replaced them (their updates make new
-        tensors); and shard 0's replicated leaves."""
-
-        def stacked(group, get, join):
+        def part(group, dev, cut=lambda x: x):
             if group is None:
                 return None
-            out = {}
-            for n, x in _fields(group).items():
-                parts = [getattr(get(o), n) for o in outs]
-                same = all(p is getattr(get(v), n)
-                           for p, v in zip(parts, views))
-                out[n] = x if same else join(parts)
-            return type(group)(**out)
-        first = outs[0]
-        state = dataclasses.replace(rt.state, ptr=first.state.ptr,
-                                    n_inserts=first.state.n_inserts)
-        return CacheRuntime(
-            state=state, stats=first.stats, policy_state=first.policy_state,
-            index_state=stacked(rt.index_state, lambda o: o.index_state,
-                                torch.cat),
-            tenancy=stacked(rt.tenancy, lambda o: o.tenancy, torch.stack),
-            fusion=first.fusion)
+            return type(group)(**{name: cut(x).to(dev).contiguous()
+                                  for name, x in _fields(group).items()})
 
-    def _spmd(self, runtime: CacheRuntime,
+        def shard(i, dev):
+            def rows(x):
+                m = x.shape[0] // s
+                return x[i * m:(i + 1) * m]
+            return CacheRuntime(
+                state=part(runtime.state, dev, lambda x: x if x.dim() == 0
+                           else x[i * lc:(i + 1) * lc]),
+                stats=part(runtime.stats, dev),
+                policy_state=runtime.policy_state.to(dev).contiguous(),
+                index_state=part(runtime.index_state, dev, rows),
+                tenancy=part(runtime.tenancy, dev, lambda x: x[i]),
+                fusion=part(runtime.fusion, dev))
+        return ShardedRuntime(tuple(shard(i, d)
+                                    for i, d in enumerate(self.devices)))
+
+    # -- the shards' runtimes in a call ------------------------------------
+    def _to_local(self, rt: ShardedRuntime, i: int) -> CacheRuntime:
+        """Shard ``i``'s runtime for a call: its own slab, index and
+        tenancy leaves, and shard 0's replicated leaves on its device (on
+        shard 0's device, those very tensors)."""
+        first, own, dev = rt.shards[0], rt.shards[i], self.devices[i]
+        state = dataclasses.replace(
+            own.state, **{n: getattr(first.state, n).to(dev)
+                          for n in _CLOCK})
+        return own.replace(state=state, stats=_moved(first.stats, dev),
+                           policy_state=first.policy_state.to(dev),
+                           fusion=_moved(first.fusion, dev))
+
+    def _spmd(self, runtime: ShardedRuntime,
               body: Callable[[CacheRuntime, _MeshComm], tuple[Any,
-                                                              CacheRuntime]]
+                                                              CacheRuntime]],
+              operands: dict | None = None
               ) -> tuple[list, list[CacheRuntime], list[CacheRuntime]]:
-        """Run ``body(local_runtime, comm)`` on every shard, shard 0 on the
-        calling thread, the bodies taking turns between collectives
-        (``_Group``). Returns, in shard order, the bodies' first outputs,
-        the runtimes they were given and the runtimes they returned;
-        ``_from_local`` merges the last. If a body raises, every other
-        shard leaves its wait, and the first exception is raised here."""
-        s = self.num_shards
-        group = _Group(s)
+        """Run ``body(local_runtime, comm, **operands)`` on every shard,
+        shard 0 on the calling thread, the bodies taking turns between
+        collectives (``_Group``), each under its device on its device's
+        stream, with ``operands`` moved to its device. Returns, in shard
+        order, the bodies' first outputs, the runtimes they were given and
+        the runtimes they returned, which are the shards' runtimes after
+        the call. If a body raises, every other shard leaves its wait, and
+        the first exception is raised here."""
+        devs = self.devices
+        s = len(devs)
+        group = _Group(devs)
         views = [self._to_local(runtime, i) for i in range(s)]
         results: list = [None] * s
         errors: list[BaseException] = []
-        dev = self.mesh.device
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
-            else None
+        streams = {d: torch.cuda.current_stream(d) for d in devs
+                   if d.type == "cuda"}
+        operands = operands or {}
 
         def run(i: int) -> None:
             comm = _MeshComm(i, s, self.local_capacity, group)
             try:
                 group.wait_turn(i)
-                if stream is None or i == 0:
-                    results[i] = body(views[i], comm)
-                else:
-                    with torch.cuda.stream(stream):
-                        results[i] = body(views[i], comm)
+                with _stream_context(devs[i], streams):
+                    ops = {n: _on(x, devs[i]) for n, x in operands.items()}
+                    results[i] = body(views[i], comm, **ops)
                 group.pass_turn(i)
             except _Aborted:
                 pass
@@ -513,23 +574,25 @@ class DistributedCache:
             raise errors[0]
         return [r[0] for r in results], views, [r[1] for r in results]
 
-    def _call(self, runtime, body):
-        firsts, views, outs = self._spmd(runtime, body)
-        return firsts[0], self._from_local(runtime, views, outs)
+    def _call(self, runtime, body, **operands):
+        firsts, _, outs = self._spmd(runtime, body, operands)
+        return firsts[0], ShardedRuntime(tuple(outs))
 
     # -- sharded methods (same arguments as SemanticCache) -----------------
-    def lookup(self, runtime: CacheRuntime, queries: torch.Tensor, now, *,
+    def lookup(self, runtime: ShardedRuntime, queries: torch.Tensor, now, *,
                update_counters: bool = True,
                tenant_id: torch.Tensor | None = None,
                window: torch.Tensor | None = None,
                window_len: torch.Tensor | None = None
-               ) -> tuple[LookupResult, CacheRuntime]:
-        return self._call(runtime, lambda rt, comm: self.local.lookup(
-            rt, queries, now, update_counters=update_counters,
-            tenant_id=tenant_id, window=window, window_len=window_len,
-            comm=comm))
+               ) -> tuple[LookupResult, ShardedRuntime]:
+        return self._call(runtime, lambda rt, comm, **o: self.local.lookup(
+            rt, o["queries"], o["now"], update_counters=update_counters,
+            tenant_id=o["tenant_id"], window=o["window"],
+            window_len=o["window_len"], comm=comm),
+            queries=queries, now=now, tenant_id=tenant_id, window=window,
+            window_len=window_len)
 
-    def step(self, runtime: CacheRuntime, queries: torch.Tensor,
+    def step(self, runtime: ShardedRuntime, queries: torch.Tensor,
              miss_values: torch.Tensor, miss_value_lens: torch.Tensor, now,
              *, source_id: torch.Tensor | None = None,
              peeked: LookupResult | None = None,
@@ -537,57 +600,103 @@ class DistributedCache:
              tenant_id: torch.Tensor | None = None,
              window: torch.Tensor | None = None,
              window_len: torch.Tensor | None = None
-             ) -> tuple[LookupResult, CacheRuntime]:
+             ) -> tuple[LookupResult, ShardedRuntime]:
         """The one fused step on every shard: per-shard lookup, merged
         decision, per-tenant overrides, routed masked insert, stats and
         tenancy updates (DESIGN.md §19.3)."""
-        return self._call(runtime, lambda rt, comm: self.local.step(
-            rt, queries, miss_values, miss_value_lens, now,
-            source_id=source_id, peeked=peeked, valid=valid,
-            tenant_id=tenant_id, window=window, window_len=window_len,
-            comm=comm))
+        return self._call(runtime, lambda rt, comm, **o: self.local.step(
+            rt, o["queries"], o["miss_values"], o["miss_value_lens"],
+            o["now"], source_id=o["source_id"], peeked=o["peeked"],
+            valid=o["valid"], tenant_id=o["tenant_id"], window=o["window"],
+            window_len=o["window_len"], comm=comm),
+            queries=queries, miss_values=miss_values,
+            miss_value_lens=miss_value_lens, now=now, source_id=source_id,
+            peeked=peeked, valid=valid, tenant_id=tenant_id, window=window,
+            window_len=window_len)
 
-    def insert(self, runtime: CacheRuntime, queries: torch.Tensor,
+    def insert(self, runtime: ShardedRuntime, queries: torch.Tensor,
                values: torch.Tensor, value_lens: torch.Tensor, now, *,
                source_id: torch.Tensor | None = None,
                mask: torch.Tensor | None = None,
-               tenant_id: torch.Tensor | None = None) -> CacheRuntime:
-        return self._call(runtime, lambda rt, comm: (None, self.local.insert(
-            rt, queries, values, value_lens, now, source_id=source_id,
-            mask=mask, tenant_id=tenant_id, comm=comm)))[1]
+               tenant_id: torch.Tensor | None = None) -> ShardedRuntime:
+        return self._call(runtime, lambda rt, comm, **o: (
+            None, self.local.insert(
+                rt, o["queries"], o["values"], o["value_lens"], o["now"],
+                source_id=o["source_id"], mask=o["mask"],
+                tenant_id=o["tenant_id"], comm=comm)),
+            queries=queries, values=values, value_lens=value_lens, now=now,
+            source_id=source_id, mask=mask, tenant_id=tenant_id)[1]
 
-    def refit(self, runtime: CacheRuntime, now, rng: torch.Generator
-              ) -> CacheRuntime:
+    def refit(self, runtime: ShardedRuntime, now, rng: torch.Generator
+              ) -> ShardedRuntime:
         """Per-shard index rebuild over each shard's own rows. One seed is
         drawn from ``rng`` (a CPU generator) and folded with each shard id
         into that shard's CPU generator, as ``jax.random.fold_in`` folds
-        the key, so shards train independent structures and the card and
-        the CPU draw the same rows."""
+        the key, so shards train independent structures, and the card and
+        the CPU draw the same rows: no generator crosses devices."""
         base = int(torch.randint(0, 2 ** 62, (), generator=rng))
         gens = [torch.Generator().manual_seed(
             (base + i * 0x9E3779B97F4A7C15) % 2 ** 64)
             for i in range(self.num_shards)]
-        return self._call(runtime, lambda rt, comm: (
-            None, self.local.refit(rt, now, gens[comm.shard])))[1]
+        return self._call(runtime, lambda rt, comm, **o: (
+            None, self.local.refit(rt, o["now"], gens[comm.shard])),
+            now=now)[1]
 
-    # -- shard-oblivious methods: delegate to the global view --------------
-    def expire(self, runtime: CacheRuntime, now) -> CacheRuntime:
-        return self.cache.expire(runtime, now)
+    def expire(self, runtime: ShardedRuntime, now) -> ShardedRuntime:
+        """Each shard expires its own rows; the expired counts are summed
+        into the replicated stats."""
+        def body(rt, comm, now):
+            state, n = store.expire(rt.state, now)
+            total = torch.stack(comm.all_gather(n)).sum(dtype=torch.int32)
+            stats = dataclasses.replace(
+                rt.stats,
+                expired_evictions=rt.stats.expired_evictions + total)
+            return None, rt.replace(state=state, stats=stats)
+        return self._call(runtime, body, now=now)[1]
 
-    def gather_topk(self, runtime: CacheRuntime, result: LookupResult
+    # -- global rows and replicated leaves ---------------------------------
+    def slab_rows(self, runtime: ShardedRuntime, name: str,
+                  idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (global slot ids >= 0, any shape, on the
+        controller's device) of the slab leaf ``name``, each fetched from
+        the shard that owns it, on the controller's device."""
+        lc, ctrl = self.local_capacity, self.mesh.device
+        idx = idx.to(torch.int64)
+        out = None
+        for i, (shard, dev) in enumerate(zip(runtime.shards, self.devices)):
+            mine = idx // lc == i
+            local = torch.where(mine, idx % lc, 0).to(dev)
+            rows = getattr(shard.state, name)[local].to(ctrl)
+            if out is None:
+                out = rows
+                continue
+            mine = mine.reshape(mine.shape + (1,) * (rows.dim()
+                                                     - mine.dim()))
+            out = torch.where(mine, rows, out)
+        return out
+
+    def gather_topk(self, runtime: ShardedRuntime, result: LookupResult
                     ) -> dict[str, torch.Tensor]:
-        # merged top-k ids are global slot ids, the global slab's rows
-        return self.cache.gather_topk(runtime, result)
+        # merged top-k ids are global slot ids: each row from its owner
+        return topk_payload(result, lambda name, idx: self.slab_rows(
+            runtime, name, idx))
 
-    def update_policy(self, runtime: CacheRuntime, **kw) -> CacheRuntime:
-        return self.cache.update_policy(runtime, **kw)
+    def _controller(self, runtime: ShardedRuntime, first: CacheRuntime
+                    ) -> ShardedRuntime:
+        return ShardedRuntime((first,) + tuple(runtime.shards[1:]))
 
-    def update_band(self, runtime: CacheRuntime, **kw) -> CacheRuntime:
-        return self.cache.update_band(runtime, **kw)
+    def update_policy(self, runtime: ShardedRuntime, **kw) -> ShardedRuntime:
+        return self._controller(runtime, self.local.update_policy(
+            runtime.shards[0], **kw))
 
-    def _maybe_fuse(self, runtime: CacheRuntime, queries: torch.Tensor,
+    def update_band(self, runtime: ShardedRuntime, **kw) -> ShardedRuntime:
+        return self._controller(runtime, self.local.update_band(
+            runtime.shards[0], **kw))
+
+    def _maybe_fuse(self, runtime: ShardedRuntime, queries: torch.Tensor,
                     window, window_len) -> torch.Tensor:
-        return self.cache._maybe_fuse(runtime, queries, window, window_len)
+        return self.local._maybe_fuse(runtime.shards[0], queries, window,
+                                      window_len)
 
     # -- the reference's legacy entry point ---------------------------------
     def make_lookup_insert(self):

@@ -89,3 +89,97 @@ class CacheRuntime:
 
     def replace(self, **kw) -> "CacheRuntime":
         return dataclasses.replace(self, **kw)
+
+
+def _joined(groups: list, device: torch.device, join):
+    """One leaf group from the shards' groups (dataclasses of tensors, or
+    None): each leaf's parts moved to ``device`` and joined."""
+    if groups[0] is None:
+        return None
+    return type(groups[0])(**{
+        f.name: join([getattr(g, f.name).to(device) for g in groups])
+        for f in dataclasses.fields(groups[0])})
+
+
+def _moved(group, device: torch.device):
+    """A leaf group (a dataclass of tensors, a tensor, or None) on
+    ``device``."""
+    if group is None or isinstance(group, torch.Tensor):
+        return None if group is None else group.to(device)
+    return type(group)(**{f.name: getattr(group, f.name).to(device)
+                          for f in dataclasses.fields(group)})
+
+
+_CLOCK = ("ptr", "n_inserts")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedRuntime:
+    """The runtime of a ``DistributedCache``: one ``CacheRuntime`` a shard,
+    each on its shard's device, kept between calls (DESIGN.md §19.3).
+
+    Shard ``i`` holds its ``local_capacity`` slab rows, its (C, ...) index
+    leaves and its (T,) tenancy row. Every shard holds a copy of the
+    replicated leaves (stats, policy state, fusion weights and the ``ptr``
+    / ``n_inserts`` clock); shard 0's is the cache's, and it lives on the
+    controller's device. The properties give the global, shard-major view
+    of the JAX package's runtime on the controller's device: the
+    replicated leaves are shard 0's own tensors, the sharded ones are
+    assembled, a copy that no write reaches back from. ``gather`` gives all
+    of it on any device."""
+
+    shards: tuple[CacheRuntime, ...]
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].state.valid.device
+
+    @property
+    def stats(self) -> CacheStats:
+        return self.shards[0].stats
+
+    @property
+    def policy_state(self) -> torch.Tensor:
+        return self.shards[0].policy_state
+
+    @property
+    def fusion(self) -> Any:
+        return self.shards[0].fusion
+
+    @property
+    def state(self) -> CacheState:
+        return self._state(self.device)
+
+    @property
+    def index_state(self) -> Any:
+        return _joined([s.index_state for s in self.shards], self.device,
+                       torch.cat)
+
+    @property
+    def tenancy(self) -> Any:
+        return _joined([s.tenancy for s in self.shards], self.device,
+                       torch.stack)
+
+    def _state(self, device: torch.device) -> CacheState:
+        first = self.shards[0].state
+        return CacheState(**{
+            f.name: getattr(first, f.name).to(device) if f.name in _CLOCK
+            else torch.cat([getattr(s.state, f.name).to(device)
+                            for s in self.shards])
+            for f in dataclasses.fields(CacheState)})
+
+    def gather(self, device=None) -> CacheRuntime:
+        """The global runtime on ``device`` (default: the controller's):
+        each shard's rows read from its device into the shard-major
+        layout, index leaves stacked (S·C, ...), tenancy leaves (S, T),
+        shard 0's replicated leaves."""
+        dev = self.device if device is None else torch.device(device)
+        first = self.shards[0]
+        return CacheRuntime(
+            state=self._state(dev), stats=_moved(first.stats, dev),
+            policy_state=first.policy_state.to(dev),
+            index_state=_joined([s.index_state for s in self.shards], dev,
+                                torch.cat),
+            tenancy=_joined([s.tenancy for s in self.shards], dev,
+                            torch.stack),
+            fusion=_moved(first.fusion, dev))

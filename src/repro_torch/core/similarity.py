@@ -20,6 +20,15 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12
     return x / torch.clamp(norm, min=eps)
 
 
+def cosine_similarity(u: torch.Tensor, v: torch.Tensor, eps: float = 1e-12
+                      ) -> torch.Tensor:
+    """Elementwise cosine similarity along the last axis (paper §2.6):
+    ``u·v / max(|u||v|, eps)``."""
+    un = torch.linalg.vector_norm(u, dim=-1)
+    vn = torch.linalg.vector_norm(v, dim=-1)
+    return torch.sum(u * v, dim=-1) / torch.clamp(un * vn, min=eps)
+
+
 def cosine_scores(queries: torch.Tensor, keys: torch.Tensor,
                   valid: torch.Tensor | None = None) -> torch.Tensor:
     """Batched scores: (B, d) x (N, d) -> (B, N) f32; invalid slots get -inf.
@@ -56,3 +65,10 @@ def masked_topk(scores: torch.Tensor, k: int
     k = min(k, scores.shape[-1])
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def best_match(scores: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Argmax and max over the last axis: (B, N) -> ((B,) int32, (B,));
+    of tied maxima the first, as ``jnp.argmax`` takes it."""
+    return (torch.argmax(scores, dim=-1).to(torch.int32),
+            torch.amax(scores, dim=-1))

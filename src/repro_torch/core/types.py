@@ -80,6 +80,14 @@ class CacheState:
     ptr: torch.Tensor         # () int32 ring insert pointer
     n_inserts: torch.Tensor   # () int32 total inserts (monotone clock)
 
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.keys.shape[1]
+
 
 def init_cache_state(config: CacheConfig, device: torch.device) -> CacheState:
     """Fresh, empty slab on ``device``."""
@@ -151,3 +159,8 @@ class CacheStats:
             return torch.zeros((), dtype=torch.int32, device=device)
         return CacheStats(lookups=z(), hits=z(), misses=z(),
                           expired_evictions=z(), inserts=z())
+
+    def hit_rate(self) -> torch.Tensor:
+        """hits / lookups as a () f32 tensor, 0 before any lookup."""
+        return torch.where(self.lookups > 0,
+                           self.hits / torch.clamp(self.lookups, min=1), 0.0)

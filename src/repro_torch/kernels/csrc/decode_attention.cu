@@ -60,6 +60,12 @@
 //     0; a row with nothing visible at all writes exact zeros. With n_split
 //     == 1 the block writes the output itself. bf16 outputs round once,
 //     from the f32 result.
+//   Log-sum-exp: with a non-null lse (B, H) f32, whoever writes a row's
+//     output also writes m + log(l) of its scaled scores (the merge kernel
+//     from the splits' (m, l), weighted as for the output; -inf where no
+//     slot is visible), which models/attention.py merges over the ranks a
+//     sequence is split across (context-parallel decode). The serve path
+//     passes null and does no extra work.
 // What bounds it now (PERF.md, PR 17): at the serve path's 96 slots, one
 // block's chain of dependent steps (slot_pos, copies, S, softmax, P V; about
 // 9 us against 1.9 us of bytes, a third of it the MMA phases); at 4,096
@@ -160,7 +166,13 @@ struct Args {
   int n_split, tile, nbuf;
   float* part_acc;        // (B, HKV, n_split, G, D) when n_split > 1
   float* part_ml;         // (B, HKV, n_split, G, 2): running max, sum
+  float* lse;             // (B, H) log-sum-exp of the scaled scores, or null
 };
+
+// a row's log-sum-exp from its running max and sum; -inf with nothing visible
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return m == -INFINITY ? -INFINITY : m + logf(l);
+}
 
 __device__ __forceinline__ bool slot_visible(const Args& a, int s) {
   const int sp = a.slot_pos[s];
@@ -358,8 +370,11 @@ __global__ void __launch_bounds__(NT) decode_merge_kernel(Args a) {
       ws[p] = w;
       l = fmaf(w, ml[(p * G + g) * 2 + 1], l);
     }
-    const float inv = 1.f / fmaxf(warp_sum(l), 1e-30f);
+    l = warp_sum(l);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
     for (int p = lane; p < n; p += 32) ws[p] *= inv;
+    if (a.lse != nullptr && lane == 0)
+      a.lse[static_cast<size_t>(b) * a.H + kvh * G + g] = lse_of(m, l);
   }
   __syncthreads();
   const int cols = D / 4, n_sg = NT / cols, sg = tid / cols, c4 = tid % cols;
@@ -401,6 +416,15 @@ __device__ __forceinline__ void write_ml(const Args& a, int b, int kvh, int spli
     a.part_ml[(part * G + threadIdx.x) * 2] = m_run[threadIdx.x];
     a.part_ml[(part * G + threadIdx.x) * 2 + 1] = l_run[threadIdx.x];
   }
+}
+
+// the single split's log-sum-exp of its G query heads, where asked for
+__device__ __forceinline__ void write_lse(const Args& a, int b, int kvh, const float* m_run,
+                                          const float* l_run) {
+  const int G = a.H / a.HKV;
+  if (a.lse != nullptr && static_cast<int>(threadIdx.x) < G)
+    a.lse[static_cast<size_t>(b) * a.H + kvh * G + threadIdx.x] =
+        lse_of(m_run[threadIdx.x], l_run[threadIdx.x]);
 }
 
 // ---- bf16 q and cache: tensor cores ------------------------------------
@@ -552,6 +576,7 @@ __global__ void __launch_bounds__(NT) decode_tc_kernel(Args a) {
       }
   }
   if (!single) write_ml(a, b, kvh, split, m_run, l_run);
+  else write_lse(a, b, kvh, m_run, l_run);
 }
 
 // ---- any other dtypes: CUDA cores, f32 products ------------------------
@@ -684,6 +709,7 @@ __global__ void __launch_bounds__(NT) decode_core_kernel(Args a) {
       }
   }
   if (!single) write_ml(a, b, kvh, split, m_run, l_run);
+  else write_lse(a, b, kvh, m_run, l_run);
 }
 
 // the splits' kernel, then, with more than one split, the merge
@@ -740,12 +766,13 @@ extern "C" {
 // aligned. window <= 0 means no window. n_split splits of S (1 <= n_split
 // <= min(S, 128)), each walked in tiles of `tile` <= 128 slots; with
 // n_split > 1, part_acc holds B * HKV * n_split * G * D floats and part_ml
-// B * HKV * n_split * G * 2, and a second kernel merges them.
+// B * HKV * n_split * G * 2, and a second kernel merges them. lse, when not
+// null, receives (B, H) f32 log-sum-exps of the scaled scores.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* k_scale,
                             const void* v_scale, const void* slot_pos, void* out, int q_dtype,
                             int kv_dtype, int B, int S, int H, int HKV, int D, int pos,
                             int window, int n_sink, float scale, int n_split, int tile,
-                            void* part_acc, void* part_ml, void* stream) {
+                            void* part_acc, void* part_ml, void* lse, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || HKV < 1 || HKV > 65535 || H < HKV || H % HKV != 0 ||
       H / HKV > MAX_G || D < 32 || D > MAX_D || D % 32 != 0 ||
       (kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr) || n_split < 1 ||
@@ -757,7 +784,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v, const v
   const Args a{q, k, v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                static_cast<const int*>(slot_pos), out, B, S, H, HKV, D, pos, window, n_sink,
                scale, n_split, tile, nbuf, static_cast<float*>(part_acc),
-               static_cast<float*>(part_ml)};
+               static_cast<float*>(part_ml), static_cast<float*>(lse)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:

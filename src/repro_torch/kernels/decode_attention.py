@@ -9,7 +9,11 @@ slot_pos (S,) int32 (-1 empty); ``pos`` the current position. Slot s is
 visible when ``0 <= slot_pos[s] <= pos`` and, with a window,
 ``slot_pos[s] > pos - window`` or ``slot_pos[s] < n_sink``. H/HKV <= 16,
 D a multiple of 32 up to 256. Returns (B, 1, H, D) in q's dtype; a row
-with no visible slot is 0.
+with no visible slot is 0. With ``return_lse`` also the (B, H) f32
+log-sum-exp of each row's scaled scores, -inf where no slot is visible
+(the plain version's ``return_lse``), for merging attention over a cache
+cut into slot ranges; without it the kernel is passed a null pointer and
+writes none.
 
 The kernel cuts S into ``n_split`` splits, one block each per (b,
 kv-head) (``split`` picks the count); with more than one, the same C entry
@@ -134,11 +138,11 @@ def _lib() -> ctypes.CDLL:
     if lib.decode_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # q k v k_scale v_scale slot_pos out q_dtype kv_dtype B S H HKV D
-        # pos window n_sink scale n_split tile part_acc part_ml stream
+        # pos window n_sink scale n_split tile part_acc part_ml lse stream
         lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                                 i, i, i, i, i, i, i,
                                                 ctypes.c_float, i, i, p, p,
-                                                p]
+                                                p, p]
         lib.decode_attention_launch.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [i]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -150,9 +154,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           pos: int, *, window: int | None = None,
                           n_sink: int = 0, scale: float | None = None,
                           k_scale: torch.Tensor | None = None,
-                          v_scale: torch.Tensor | None = None
-                          ) -> torch.Tensor:
-    """One query token per sequence over the visible slots of its cache."""
+                          v_scale: torch.Tensor | None = None,
+                          return_lse: bool = False):
+    """One query token per sequence over the visible slots of its cache:
+    the output, or with ``return_lse`` (output, (B, H) f32 log-sum-exp)."""
     check_args(q, k_cache, v_cache, slot_pos, window=window, n_sink=n_sink,
                k_scale=k_scale, v_scale=v_scale)
     dev = q.device
@@ -171,6 +176,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     n_split, tile = split(s, d, k_cache.element_size())
     part = scratch(q, n_split, hkv)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -179,10 +186,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             out.data_ptr(), Q_CODE[q.dtype], KV_CODE[k_cache.dtype], b, s, h,
             hkv, d, int(pos), -1 if window is None else window, n_sink, scale,
             n_split, tile, *(None if t is None else t.data_ptr()
-                             for t in part),
+                             for t in (*part, lse)),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg}")
     build.count_launch(launches, "decode_attention")
-    return out
+    return (out, lse) if return_lse else out

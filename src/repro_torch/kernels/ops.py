@@ -176,10 +176,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      *, window: int | None = None, n_sink: int = 0,
                      scale: float | None = None,
                      k_scale: torch.Tensor | None = None,
-                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                     v_scale: torch.Tensor | None = None,
+                     return_lse: bool = False):
     """Decode attention: q (B, 1, H, D) over one layer's (B, S, HKV, D)
-    cache, int8 with (B, S, HKV) scales. Inference only: it raises for
-    operands that require grad on either device."""
+    cache, int8 with (B, S, HKV) scales. With ``return_lse`` it returns
+    (output in q's dtype, (B, H) f32 log-sum-exp, -inf where no slot is
+    visible) on both routes, the parts that ``models.attention.merge_lse``
+    merges. Inference only: it raises for operands that require grad on
+    either device."""
     kw = dict(window=window, n_sink=n_sink, k_scale=k_scale, v_scale=v_scale)
     if kflash.needs_grad(q, k_cache, v_cache):
         raise RuntimeError("decode attention has no backward (neither its "
@@ -187,7 +191,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            "version here): decode under torch.no_grad()")
     if q.device.type == "cuda":
         return kdecode.decode_attention_cuda(q, k_cache, v_cache, slot_pos,
-                                             pos, scale=scale, **kw)
+                                             pos, scale=scale,
+                                             return_lse=return_lse, **kw)
     kdecode.check_args(q, k_cache, v_cache, slot_pos, **kw)
-    return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
-                                    scale=scale, **kw)
+    if not return_lse:
+        return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
+                                        scale=scale, **kw)
+    o, lse = ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
+                                      scale=scale, return_lse=True, **kw)
+    return o.to(q.dtype), lse

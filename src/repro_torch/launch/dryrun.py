@@ -441,7 +441,7 @@ def run_cache(out_dir: str = ARTIFACT_DIR, variant: str = "",
         fn, (runtime, *rest) = build_cache_fn(
             device, capacity=capacity, batch=batch, variant=variant,
             shards=shards)
-        dev = runtime.state.keys.device
+        dev = runtime.device
         runtime, out = fn(runtime, *rest)           # warm-up: fills B slots
         _sync(dev)
         step_s = []
@@ -453,7 +453,7 @@ def run_cache(out_dir: str = ARTIFACT_DIR, variant: str = "",
                 _sync(dev)
                 step_s.append(time.perf_counter() - t)
         hits = int(out[2].sum())
-        slab = runtime.state.keys.nbytes
+        slab = sum(r.state.keys.nbytes for r in runtime.shards)
         if mesh_shape is None:
             coll = {"total_bytes": 0.0, "count": 0}
             terms = {"compute_s": 2.0 * batch * capacity * CACHE_DIM
@@ -477,7 +477,8 @@ def run_cache(out_dir: str = ARTIFACT_DIR, variant: str = "",
             step_ms=1e3 * step_s[len(step_s) // 2], step_ms_all=[
                 1e3 * s for s in step_s],
             slab_bytes=slab, state_bytes=_nbytes(runtime),
-            hits_last_step=hits, entries=int(runtime.state.valid.sum()),
+            hits_last_step=hits, entries=sum(int(r.state.valid.sum())
+                                             for r in runtime.shards),
             collectives=coll, roofline=terms)
         if verbose:
             print(f"[ok] {tag}: step {art['step_ms']:.3f} ms on {dev}, slab "

@@ -18,7 +18,7 @@ Terms per (arch, shape, chips):
   compute    = FLOPs / (chips · peak)
   memory     = HBM bytes / (chips · HBM bandwidth)
   collective = per-chip collective bytes / one-way link bandwidth, and 0
-               on one card (no run measures a link yet: ROADMAP A6b)
+               on one card (no run measures a link yet: ROADMAP A6c)
 
 MODEL_FLOPS = 6·N·D (dense; N = params, D = tokens processed) or 6·N_active·D
 for MoE, the "useful compute" yardstick; MODEL_FLOPS / FLOPs exposes

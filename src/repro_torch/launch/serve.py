@@ -37,8 +37,10 @@ turn on request tracing and print the per-stage decomposition.
 batch's lookup runs one search per shard over its N/S slots, merged into
 the same decisions as one shard's. It composes with ``--tenants`` (each
 region split S ways), ``--index ivf`` (one index per shard) and
-``--key-dtype``. ``repro.launch.serve`` has no such flag; its engine
-takes a mesh.
+``--key-dtype``. ``--shards cuda:0,cpu,cuda:0,cpu`` names one device a
+shard instead (``make_mesh(..., device=[...])``): the engine's device is
+the first, the controller's. ``repro.launch.serve`` has no such flag; its
+engine takes a mesh.
 
 ``--backend model`` answers the misses with a real decoder instead of the
 simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
@@ -59,6 +61,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+from typing import Sequence
 
 import torch
 
@@ -93,13 +96,25 @@ def run(*, log=print, **kw
     return engine, requests, engine.process(requests)
 
 
+def _mesh(shards: int | Sequence[str], device: str):
+    """``--shards``: a count of shards on ``device``, or a device each."""
+    if isinstance(shards, int):
+        return make_mesh((shards,), ("data",), device=device) if shards \
+            else None
+    return make_mesh((len(shards),), ("data",), device=list(shards))
+
+
+def _shards_arg(text: str) -> int | list[str]:
+    return int(text) if text.isdigit() else text.split(",")
+
+
 def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
           ttl: float | None = None, batch: int = 128, policy: str = "fixed",
           fused: bool = True, device: str = "cuda", key_dtype: str = "f32",
           tenants: int = 0, tenant_skew: float = 1.0, index: str = "exact",
           backend: str = "sim", arch: str = "yi-6b", reduced: bool = True,
           n_layers: int | None = None, tracer: Tracer | None = None,
-          shards: int = 0, log=print
+          shards: int | Sequence[str] = 0, log=print
           ) -> tuple[CachedEngine, list[Request]]:
     """The warmed engine and the requests to serve. ``tenants > 0``
     partitions the slab into that many uniform tenant regions and builds a
@@ -109,7 +124,8 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
     a generator on ``device`` seeded with 0 (``repro.launch.serve`` draws
     them from ``PRNGKey(0)``).
     ``tracer`` goes to the engine. ``shards > 0`` serves through a
-    ``DistributedCache`` of that many shards on ``device``."""
+    ``DistributedCache`` of that many shards on ``device``; a sequence of
+    devices, through one shard on each, the engine on the first."""
     pairs = build_corpus(corpus, seed=0)
     tests = build_test_queries(pairs, n_per_category=queries, seed=1)
     by_id = {p.qa_id: p for p in pairs}
@@ -144,10 +160,9 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         cfg, llm, judge=judge, batch_size=batch,
         policy=AdaptiveThreshold(init=threshold) if policy == "adaptive"
         else None,
-        use_fused_step=fused, registry=registry, device=device,
-        tracer=tracer,
-        mesh=make_mesh((shards,), ("data",), device=device) if shards > 0
-        else None,
+        use_fused_step=fused, registry=registry, device=device if
+        isinstance(shards, int) else shards[0], tracer=tracer,
+        mesh=_mesh(shards, device),
         index=IVFIndex(ncentroids=128, nprobe=16, bucket_cap=1024)
         if index == "ivf" else None)
     if registry is None:
@@ -237,9 +252,10 @@ def main(argv=None):
                          "serve a multi-tenant workload (0 = single-tenant)")
     ap.add_argument("--tenant-skew", type=float, default=1.0,
                     help="Zipf skew of tenant popularity (0 = uniform)")
-    ap.add_argument("--shards", type=int, default=0,
+    ap.add_argument("--shards", type=_shards_arg, default=0,
                     help="split the slab over S shards of a "
-                         "DistributedCache (0 = unsharded)")
+                         "DistributedCache (0 = unsharded), or over one "
+                         "shard a device of a comma list (cuda:0,cpu,...)")
     ap.add_argument("--scheduler", choices=("sync", "async"),
                     default="sync",
                     help="sync batch loop vs async continuous micro-batching "

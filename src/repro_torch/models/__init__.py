@@ -7,6 +7,7 @@ kernel, the KV cache), ``moe``, ``ssm``, ``model`` (``Model``) and
 from repro_torch.models.attention import (KVCache, blockwise_attention,
                                           init_kv_cache)
 from repro_torch.models.model import DecodeCaches, Model
+from repro_torch.models.ssm import SSMState, init_ssm_state
 
-__all__ = ["Model", "DecodeCaches", "KVCache", "blockwise_attention",
-           "init_kv_cache"]
+__all__ = ["Model", "DecodeCaches", "KVCache", "SSMState",
+           "blockwise_attention", "init_kv_cache", "init_ssm_state"]

@@ -22,11 +22,9 @@ point runs them under ``local_map``. Prefill: batch over the data axes
 each rank slicing the KV heads its query heads read from a replicated
 KV where the KV heads do not divide (hymba's 25 heads replicate). Decode:
 the caches shard their sequence over ``model`` (context-parallel decode,
-``launch/sharding.py``); each rank attends over its own slots and the
-partial results merge by their log-sum-exp over ``model``. The card runs
-that merge only with ``model`` of size 1 (one card): the decode kernel
-writes no log-sum-exp, so a sequence split over several cards waits with
-them (ROADMAP A6b).
+``launch/sharding.py``); each rank attends over its own slots, through
+the decode kernel on the card, which also writes each row's log-sum-exp,
+and the partial results merge by it over ``model`` (``merge_lse``).
 """
 from __future__ import annotations
 
@@ -38,7 +36,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.types import resolve_device
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 DATA_AXES = ("pod", "data")
 
@@ -266,16 +264,27 @@ def _seq_split(cache) -> tuple[list[int], int]:
     return dims, offset[1]
 
 
+def merge_lse(o: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """Decode attention over a cache cut into slot ranges, from each
+    range's part: ``o`` (..., B, 1, H, D) and ``lse`` (..., B, H), as
+    ``ops.decode_attention(..., return_lse=True)`` gives them. ``reduce(x,
+    op)`` combines ``x`` over the parts, ``op`` "max" or "sum": an
+    all-reduce over the mesh dims a sequence is split across, or a
+    reduction over the leading axis of parts stacked on one card. A part
+    that sees no slot (lse -inf) weighs 0; a row that sees none anywhere is
+    0, as the whole call gives it. Returns (B, 1, H, D) in o's dtype."""
+    m = reduce(lse, "max")
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - m), 0.0)
+    num = reduce(o.to(torch.float32) * w[..., None, :, None], "sum")
+    den = reduce(w, "sum")
+    return (num / den[..., None, :, None].clamp_min(1e-30)).to(o.dtype)
+
+
 def _decode_on_mesh(q, k_cache, v_cache, slot_pos, pos, *, window, n_sink,
                     scale, k_scale, v_scale):
     from torch.distributed.tensor.experimental import local_map
     mesh = k_cache.device_mesh
     split, lo = _seq_split(k_cache)
-    if split and q.device.type == "cuda":
-        raise NotImplementedError(
-            "decode over a sequence split across cards needs the decode "
-            "kernel's log-sum-exp (ROADMAP A6b); on one card the model "
-            "axis has size 1")
     kv_p = k_cache.placements
     q_p = _cache_placements(k_cache)
     quant = k_scale is not None
@@ -287,17 +296,14 @@ def _decode_on_mesh(q, k_cache, v_cache, slot_pos, pos, *, window, n_sink,
         if not split:
             return ops.decode_attention(ql, kl, vl, sp, pos, k_scale=ksl,
                                         v_scale=vsl, **kw)
-        o, lse = ref.decode_attention_ref(ql, kl, vl, sp, pos, k_scale=ksl,
-                                          v_scale=vsl, return_lse=True, **kw)
-        m = lse
-        for i in split:
-            m = funcol.all_reduce(m, "max", (mesh, i))
-        w = torch.where(torch.isfinite(lse), torch.exp(lse - m), 0.0)
-        num, den = o * w[:, None, :, None], w
-        for i in split:
-            num = funcol.all_reduce(num, "sum", (mesh, i))
-            den = funcol.all_reduce(den, "sum", (mesh, i))
-        return (num / den[:, None, :, None].clamp_min(1e-30)).to(ql.dtype)
+        o, lse = ops.decode_attention(ql, kl, vl, sp, pos, k_scale=ksl,
+                                      v_scale=vsl, return_lse=True, **kw)
+
+        def over_split(x, op):
+            for i in split:
+                x = funcol.all_reduce(x, op, (mesh, i))
+            return x
+        return merge_lse(o, lse, over_split)
 
     return local_map(fn, out_placements=list(q_p),
                      in_placements=(q_p, kv_p, kv_p, sc_p, sc_p),

@@ -82,7 +82,7 @@ import torch
 from repro_torch.context.session import SessionStore
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.distributed import DistributedCache, shard_axes
-from repro_torch.core.runtime import CacheRuntime
+from repro_torch.core.runtime import CacheRuntime, ShardedRuntime
 from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.embedding.hash_embedder import HashEmbedder
@@ -185,7 +185,7 @@ class CachedEngine:
                  resilience=None,
                  mesh=None,
                  cache_axes: tuple[str, ...] = ("data",),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None):
         # ``policy``: optional threshold policy (e.g. AdaptiveThreshold);
         # with a judge, judged hit outcomes are fed back after every batch.
         # ``index``: optional index (e.g. IVFIndex), refit every
@@ -205,9 +205,12 @@ class CachedEngine:
         # ResilienceConfig (retries, breaker, degraded serving); None = one
         # backend attempt whose failure marks only its own rows.
         # ``mesh``: optional ShardMesh (``make_mesh``); the slab is split
-        # over its ``cache_axes`` in a DistributedCache. None = one shard.
-        # ``device``: where the slab lives and the search runs; "cuda"
-        # raises when CUDA is absent. A mesh must sit on the same device.
+        # over its ``cache_axes`` in a DistributedCache, each shard on its
+        # mesh device. None = one shard. ``device``: where the slab lives
+        # and the search runs; None means CUDA, which raises when CUDA is
+        # absent. With a mesh it is the mesh's controller (shard 0's
+        # device), where queries arrive and results leave: None means
+        # that device, and another is refused.
         if synthesizer is not None and policy is None:
             policy = BandPolicy(tau_hi=cache_config.threshold)
         # read by the scheduler, the server and the exporter
@@ -238,11 +241,12 @@ class CachedEngine:
                 f"per-shard capacity ({cache_config.capacity} slots / "
                 f"{shards} shard(s)) is below the batch size "
                 f"({batch_size}); grow the slab or shrink the mesh")
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None and device is None \
+            else resolve_device(device)
         self.cache = SemanticCache(cache_config, policy=policy, index=index,
                                    partition=partition, fusion=fusion)
         if mesh is not None:
-            # its init refuses a device other than the mesh's
+            # its init refuses a device other than the mesh's controller
             self.cache = DistributedCache(self.cache, mesh,
                                           cache_axes=tuple(cache_axes))
         self.fusion = fusion
@@ -251,7 +255,8 @@ class CachedEngine:
             self.sessions = SessionStore(
                 window=fusion.window, dim=cache_config.dim,
                 ttl=session_ttl_s, max_sessions=max_sessions)
-        self.runtime: CacheRuntime = self.cache.init(self.device)
+        self.runtime: CacheRuntime | ShardedRuntime = self.cache.init(
+            self.device)
         # int8 slab keys dequantize by a device-tensor divisor: CUDA turns a
         # division by a Python scalar into a reciprocal multiply
         self._int8_unit = torch.full((), 127.0, device=self.device)
@@ -501,9 +506,10 @@ class CachedEngine:
         the step, as the reference does. Appending these, not raw
         embeddings, makes two conversations in the same dialogue state
         converge to identical turn windows."""
-        slab = self.runtime.state.keys
-        matched = slab[result.index.to(torch.int64)].to(torch.float32)
-        if slab.dtype == torch.int8:
+        matched = self.cache.slab_rows(self.runtime, "keys", result.index)
+        int8 = matched.dtype == torch.int8
+        matched = matched.to(torch.float32)
+        if int8:
             matched = matched / self._int8_unit   # symmetric unit-row quant
         return torch.where(result.hit[:, None], matched,
                            keys).cpu().numpy()

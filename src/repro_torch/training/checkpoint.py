@@ -10,10 +10,11 @@ context-fused one, ``runtime/fusion/context_weight``, ``decay`` and
 the JAX package writes, so a snapshot taken by either package loads into
 the other. A bfloat16 slab is written as float32 (numpy has no bfloat16;
 the values are exact and the JAX loader casts them back). A sharded
-runtime (``DistributedCache``) has the same keys, with its index leaves
-stacked on the leading axis (S·C, ...) and its tenancy leaves (S, T);
-``reshard_runtime`` re-places a snapshot's entries onto another shard
-count.
+runtime (``DistributedCache``'s ``ShardedRuntime``) has the same keys: each
+shard's rows are read from its device into the shard-major slab, its index
+leaves stacked on the leading axis (S·C, ...) and its tenancy leaves
+(S, T); ``reshard_runtime`` re-places a snapshot's entries onto another
+shard count.
 
 Crash safety: the npz and the manifest are written to a temp file and
 published with ``os.replace``, so a crash mid-save leaves the previous
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.context.fusion import FusionState
 from repro_torch.core.index import ExactIndex
-from repro_torch.core.runtime import CacheRuntime
+from repro_torch.core.runtime import CacheRuntime, ShardedRuntime
 from repro_torch.core.types import CacheConfig, CacheState, CacheStats
 from repro_torch.tenancy.partition import TenancyState
 
@@ -53,9 +54,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def runtime_to_numpy(runtime: CacheRuntime, prefix: str = "runtime"
-                     ) -> dict[str, np.ndarray]:
-    """Flatten a runtime to the JAX package's npz key paths."""
+def runtime_to_numpy(runtime: CacheRuntime | ShardedRuntime,
+                     prefix: str = "runtime") -> dict[str, np.ndarray]:
+    """Flatten a runtime to the JAX package's npz key paths; a sharded
+    one in its shard-major layout, each shard's rows read from its
+    device."""
+    if isinstance(runtime, ShardedRuntime):
+        runtime = runtime.gather("cpu")
     flat = {f"{prefix}/state/{n}": _to_numpy(getattr(runtime.state, n))
             for n in _STATE}
     flat.update({f"{prefix}/stats/{n}": _to_numpy(getattr(runtime.stats, n))
@@ -228,6 +233,42 @@ def open_checkpoint(path: str) -> dict[str, np.ndarray]:
             "restored — delete it and fall back to an older one") from exc
 
 
+def load_checkpoint(path: str, template):
+    """Restore into the structure of ``template``: a tensor, or a dict,
+    list, tuple or dataclass of them (None leaves stay None), whose
+    '/'-joined key paths are those the JAX package's ``load_checkpoint``
+    reads (dict keys, field names, sequence indices). Each leaf comes back
+    with the template's dtype, on its device; a missing key raises
+    ``CheckpointCorruptError``, a shape that differs ValueError."""
+    data = open_checkpoint(path)
+
+    def restore(node, key: str):
+        if node is None:
+            return None
+        if isinstance(node, torch.Tensor):
+            if key not in data:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path!r} is missing key {key!r} required "
+                    "by the restore template")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(node.shape):
+                raise ValueError(f"shape mismatch for {key}: {arr.shape} "
+                                 f"vs {tuple(node.shape)}")
+            return _tensor(arr, node.device, node.dtype)
+        prefix = key + "/" if key else ""
+        if isinstance(node, dict):
+            return {k: restore(v, prefix + str(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(restore(v, prefix + str(i))
+                              for i, v in enumerate(node))
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(node, **{
+                f.name: restore(getattr(node, f.name), prefix + f.name)
+                for f in dataclasses.fields(node)})
+        raise TypeError(f"cannot restore a {type(node).__name__} at {key!r}")
+    return restore(template, "")
+
+
 def load_checkpoint_flat(path: str) -> dict[str, np.ndarray]:
     """Raw key -> array view of a checkpoint, no template required: the
     entry point for restores across layouts, where the saved per-shard
@@ -258,10 +299,14 @@ def reshard_runtime(flat: dict[str, np.ndarray], template: CacheRuntime, *,
       4. keep ``template``'s fresh index state: the caller must refit (the
          saved buckets hold old-placement local slot ids).
 
-    ``template`` is a fresh runtime of the NEW layout, on the device the
-    result goes to; ``partition`` is the *global* ``PartitionMap`` (None
-    when single-tenant). Stats, policy and fusion leaves are replicated in
-    every layout and are copied by name where their shapes match."""
+    ``template`` is a fresh runtime of the NEW layout; the result is a
+    global runtime on its (controller's) device, which
+    ``DistributedCache.place`` splits onto a mesh. ``partition`` is the
+    *global* ``PartitionMap`` (None when single-tenant). Stats, policy and
+    fusion leaves are replicated in every layout and are copied by name
+    where their shapes match."""
+    if isinstance(template, ShardedRuntime):
+        template = template.gather()
     skey = prefix + "/state/"
     g = {k[len(skey):]: np.asarray(v) for k, v in flat.items()
          if k.startswith(skey)}

@@ -1151,6 +1151,75 @@ def test_cuda_decode_attention_matches_plain_version(cuda_device, b, s, h,
     assert bool(torch.all(none == 0))
 
 
+# the kernel's log-sum-exp against the plain version's, absolute: f32
+# exponentials summed in other orders (1e-5); a bf16 cache's scores are the
+# tensor cores' sums (1e-4)
+DECODE_LSE_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,s,h,hkv,d,window,sink,ring", DECODE_CUDA_CASES)
+def test_cuda_decode_lse_matches_plain_version(cuda_device, b, s, h, hkv, d,
+                                               window, sink, ring, kv):
+    """With ``return_lse`` the kernel writes each row's log-sum-exp (the
+    single split's block, or the merge kernel): -inf where the plain
+    version's is, within DECODE_LSE_TOL elsewhere; the output beside it is
+    the output without it, bit for bit."""
+    q, k, v, sp, pos, ks, vs = _decode_case(b, s, h, hkv, d, ring, kv,
+                                            cuda_device, seed=b * s + h)
+    kw = dict(window=window, n_sink=sink, k_scale=ks, v_scale=vs)
+    out = kdec.decode_attention_cuda(q, k, v, sp, pos, **kw)
+    got, lse = kdec.decode_attention_cuda(q, k, v, sp, pos, return_lse=True,
+                                          **kw)
+    _, want = tref.decode_attention_ref(q, k, v, sp, pos, return_lse=True,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), inf) and not lse.isnan().any()
+    if bool((~inf).any()):
+        assert float((lse[~inf] - want[~inf]).abs().max()) <= \
+            DECODE_LSE_TOL[kv]
+    _, none = kdec.decode_attention_cuda(q, k, v, sp + 10 ** 6, pos,
+                                         return_lse=True, **kw)
+    assert bool(torch.isneginf(none).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,s,ring", [(39, 96, False), (8, 4096, False),
+                                      (3, 512, True)])
+def test_cuda_decode_split_merge_equals_whole_call(cuda_device, b, s, ring,
+                                                   kv):
+    """The cache cut into 2 and 4 slot ranges, as context-parallel decode
+    cuts it over ``model``: each range through the kernel with its lse,
+    merged by ``merge_lse``, equals the whole call (f32 and int8 within
+    ATTN_TOL; bf16 parts are rounded before the merge: two ulps)."""
+    from repro_torch.models.attention import merge_lse
+    q, k, v, sp, pos, ks, vs = _decode_case(b, s, 32, 4, 128, ring, kv,
+                                            cuda_device, seed=b + s)
+    whole = ops.decode_attention(q, k, v, sp, pos, k_scale=ks, v_scale=vs)
+    tol = dict(rtol=2.0 ** -6, atol=2.0 ** -8) if kv == "bf16" else \
+        ATTN_TOL[torch.float32]
+    for n in (2, 4):
+        cuts = [i * s // n for i in range(n + 1)]
+        parts = []
+        for lo, hi in zip(cuts, cuts[1:]):
+            def cut(x):
+                return None if x is None else x[:, lo:hi].contiguous()
+            parts.append(ops.decode_attention(
+                q, cut(k), cut(v), sp[lo:hi].contiguous(), pos,
+                k_scale=cut(ks), v_scale=cut(vs), return_lse=True))
+        got = merge_lse(torch.stack([o for o, _ in parts]),
+                        torch.stack([x for _, x in parts]),
+                        lambda x, op: x.amax(0) if op == "max" else x.sum(0))
+        assert got.dtype == whole.dtype
+        torch.testing.assert_close(got.float().cpu(), whole.float().cpu(),
+                                   **tol)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_wrappers_refuse(cuda_device):
     dev = cuda_device
@@ -1473,6 +1542,51 @@ def test_sharded_serve_loop_on_cuda_matches_unsharded_and_cpu(cuda_device,
     ost = others["cuda"].state
     assert keys == sorted(r.tobytes()
                           for r in ost.keys[ost.valid].cpu().numpy())
+
+
+MIXED = ["cuda:0", "cpu", "cuda:0", "cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", ["f32", "int8"])
+def test_sharded_serve_loop_over_mixed_devices_matches_one_device(
+        cuda_device, key_dtype, tmp_path):
+    """``--shards cuda:0,cpu,cuda:0,cpu``: shards 0 and 2 on the card,
+    1 and 3 on the CPU, the engine on the card. Each shard's state stays on
+    its device; the decisions, answers, scores (within 1e-5), counters and
+    slab, slot by slot (keys within 1e-6, or an int8 step), equal the
+    one-device 4-shard run's; its snapshot restores
+    into one card engine of 4 shards and into an unsharded one."""
+    kw = _sharded_kw(key_dtype=key_dtype)
+    one, reqs, want = serve.run(device="cuda", shards=4, **kw)
+    kmod.reset_launches()
+    mixed, _, got = serve.run(device="cuda", shards=MIXED, **kw)
+    batches = -(-len(reqs) // 16)
+    # the CPU shards run the plain version: two launches a batch
+    assert kmod.launches["cosine_topk"] == 2 * batches
+    assert mixed.device.type == "cuda"
+    for shard, dev in zip(mixed.runtime.shards, MIXED):
+        for leaf in (shard.state.keys, shard.state.valid, shard.stats.hits):
+            assert leaf.device.type == torch.device(dev).type
+    assert _served(got)[0] == _served(want)[0]
+    np.testing.assert_allclose(_served(got)[1], _served(want)[1], rtol=0,
+                               atol=1e-5)
+    assert mixed.stats.host() == one.stats.host()
+    # the same layout, slot by slot; a CPU shard's keys were normalized
+    # there (the norm's sum in another order: last bits; int8 may round
+    # to the next step)
+    st, ost = mixed.state, one.state
+    for name in ("valid", "values", "source_id", "freq", "n_inserts"):
+        assert torch.equal(getattr(st, name), getattr(ost, name)), name
+    tol = 1.0 if key_dtype == "int8" else 1e-6
+    assert float((st.keys.float() - ost.keys.float()).abs().max()) <= tol
+    mixed.save_cache(str(tmp_path / "mixed"))
+    follow = _served(mixed.process(reqs))[0]
+    for shards in (4, 0):
+        back, _ = serve.build(device="cuda", shards=shards, **kw)
+        back.tokenizer = mixed.tokenizer
+        back.load_cache(str(tmp_path / "mixed"))
+        assert _served(back.process(reqs))[0] == follow
 
 
 @pytest.mark.cuda

@@ -55,8 +55,15 @@ PARITY_ROUNDS, PB, PD, PW = 6, 16, 32, 3
 IVF = dict(ncentroids=4, nprobe=4, bucket_cap=256, topk=4, kmeans_iters=2)
 
 
-def cpu_mesh(*shape, names=("data",)):
-    return make_mesh(shape, names, device="cpu")
+# a mesh given both ways: one device for every shard, or a list of one
+# device a shard (``jax.make_mesh(..., devices=)``; here all the CPU)
+MESH_AS = ["one_device", "device_list"]
+
+
+def cpu_mesh(*shape, names=("data",), mesh_as="one_device"):
+    n = int(np.prod(shape))
+    return make_mesh(shape, names, device="cpu" if mesh_as == "one_device"
+                     else ["cpu"] * n)
 
 
 def assert_close(got, want, name, tol=FLOAT_TOL):
@@ -349,14 +356,16 @@ jr = engine()
 jr.load_cache(d + "/jax4", reshard=False)
 keep_resp("E/jax4", jr.process(reqs(4)))
 out["E/jax4/tenant_stats"] = np.array(json.dumps(jr.tenant_stats()))
-jp = engine()
-jp.load_cache(d + "/port4", reshard=False)
-keep_resp("E/port4_in_jax", jp.process(reqs(4)))
-out["E/port4_in_jax/tenant_stats"] = np.array(json.dumps(jp.tenant_stats()))
+for mesh_as in %(mesh_as)r:
+    jp = engine()
+    jp.load_cache(f"{d}/port4_{mesh_as}", reshard=False)
+    keep_resp(f"E/port4_in_jax/{mesh_as}", jp.process(reqs(4)))
+    out[f"E/port4_in_jax/{mesh_as}/tenant_stats"] = np.array(
+        json.dumps(jp.tenant_stats()))
 np.savez(d + "/jax.npz", **out)
 print("JAX-SIDE-OK")
 ''' % dict(state=STATE, stats=STATS, ivf=IVF, pb=PB, pd=PD, pw=PW,
-           rounds=PARITY_ROUNDS, reshard=RESHARD)
+           rounds=PARITY_ROUNDS, reshard=RESHARD, mesh_as=MESH_AS)
 
 
 @pytest.fixture(scope="module")
@@ -369,16 +378,19 @@ def jax_side(tmp_path_factory):
     for (shards, part), flat in reshard_flats().items():
         checkpoint.save_checkpoint(
             str(d / f"flat_{shards}_{'part' if part else 'plain'}"), flat)
-    port = warmed_engine(cpu_mesh(4))
-    port.process(engine_requests(engine_pairs(), 3))
-    port.save_cache(str(d / "port4"))
-    # a fresh engine restored from the snapshot serves the follow-ups, as
-    # the JAX engine that restores it does (a restored engine's tokenizer
-    # has seen none of the cached answers' words)
-    port = make_engine(cpu_mesh(4))
-    port.load_cache(str(d / "port4"), reshard=False)
-    port_follow = responses_of(port.process(engine_requests(engine_pairs(),
-                                                            4)))
+    port_follow, port_stats = {}, {}
+    for mesh_as in MESH_AS:
+        port = warmed_engine(cpu_mesh(4, mesh_as=mesh_as))
+        port.process(engine_requests(engine_pairs(), 3))
+        port.save_cache(str(d / f"port4_{mesh_as}"))
+        # a fresh engine restored from the snapshot serves the follow-ups,
+        # as the JAX engine that restores it does (a restored engine's
+        # tokenizer has seen none of the cached answers' words)
+        port = make_engine(cpu_mesh(4, mesh_as=mesh_as))
+        port.load_cache(str(d / f"port4_{mesh_as}"), reshard=False)
+        port_follow[mesh_as] = responses_of(port.process(
+            engine_requests(engine_pairs(), 4)))
+        port_stats[mesh_as] = port.tenant_stats()
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["PYTHONPATH"] = REPO_SRC
@@ -388,7 +400,7 @@ def jax_side(tmp_path_factory):
     assert r.returncode == 0 and "JAX-SIDE-OK" in r.stdout, \
         f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
     return {"out": dict(np.load(d / "jax.npz")), "dir": d,
-            "port_follow": port_follow, "port_stats": port.tenant_stats()}
+            "port_follow": port_follow, "port_stats": port_stats}
 
 
 # --------------------------------------------------------------------- #
@@ -507,10 +519,10 @@ def _step_equal(res, out, prefix):
                      tol=SCORE_TOL)
 
 
-def traffic_a(out, inp):
+def traffic_a(out, inp, mesh_as):
     dc = DistributedCache(SemanticCache(CacheConfig(
         dim=32, capacity=256, value_len=8, ttl=1e9)),
-        cpu_mesh(4, 2, names=("data", "model")))
+        cpu_mesh(4, 2, names=("data", "model"), mesh_as=mesh_as))
     assert dc.num_shards == 4
     rt, step = dc.init(), dc.make_lookup_insert()
     q = torch.from_numpy(inp["A/q"])
@@ -533,9 +545,10 @@ def traffic_a(out, inp):
     return rt
 
 
-def traffic_b(out, inp):
+def traffic_b(out, inp, mesh_as):
     dc = DistributedCache(SemanticCache(CacheConfig(
-        dim=16, capacity=64, value_len=4, ttl=10.0)), cpu_mesh(4))
+        dim=16, capacity=64, value_len=4, ttl=10.0)),
+        cpu_mesh(4, mesh_as=mesh_as))
     rt, step = dc.init(), dc.make_lookup_insert()
     q = torch.from_numpy(inp["B/q"])
     for t, hits in ((0, 0), (5, 8), (20, 0)):      # expired everywhere at 20
@@ -547,11 +560,12 @@ def traffic_b(out, inp):
     return rt
 
 
-def traffic_c(out, inp):
+def traffic_c(out, inp, mesh_as):
     cfg = CacheConfig(dim=48, capacity=128, value_len=6, ttl=None,
                       threshold=0.8)
     dc = DistributedCache(SemanticCache(cfg),
-                          cpu_mesh(4, 2, names=("data", "model")))
+                          cpu_mesh(4, 2, names=("data", "model"),
+                                   mesh_as=mesh_as))
     rt, step = dc.init(), dc.make_lookup_insert()
     emb = torch.from_numpy(inp["C/emb"])
     vals = torch.from_numpy(inp["C/vals"])
@@ -573,11 +587,13 @@ def traffic_c(out, inp):
     return rt
 
 
+@pytest.mark.parametrize("mesh_as", MESH_AS)
 @pytest.mark.parametrize("traffic", [traffic_a, traffic_b, traffic_c],
                          ids=["lookup_insert", "ttl", "matches_local"])
-def test_global_slab_equals_jax_distributed_cache(jax_side, traffic):
+def test_global_slab_equals_jax_distributed_cache(jax_side, traffic,
+                                                  mesh_as):
     prefix = traffic.__name__[-1].upper()
-    rt = traffic(jax_side["out"], traffic_inputs())
+    rt = traffic(jax_side["out"], traffic_inputs(), mesh_as)
     _slab_equal(rt, jax_side["out"], prefix)
 
 
@@ -615,8 +631,10 @@ def run_parity(cache, rt, out, name):
     return rt, results
 
 
+@pytest.mark.parametrize("mesh_as", MESH_AS)
 @pytest.mark.parametrize("index_name", ["exact", "ivf"])
-def test_full_feature_parity_against_local_steps(jax_side, index_name):
+def test_full_feature_parity_against_local_steps(jax_side, index_name,
+                                                 mesh_as):
     """The port's 4-shard cache against the port's local step and the JAX
     package's local step on the parity harness of
     ``tests/test_sharded_parity.py``: hit, near, scores, served values and
@@ -624,7 +642,8 @@ def test_full_feature_parity_against_local_steps(jax_side, index_name):
     the slab's key multiset."""
     out = jax_side["out"]
     local = parity_cache(index_name)
-    dc = DistributedCache(parity_cache(index_name), cpu_mesh(4))
+    dc = DistributedCache(parity_cache(index_name),
+                          cpu_mesh(4, mesh_as=mesh_as))
     lrt, lres = run_parity(local, local.init("cpu"), out, index_name)
     drt, dres = run_parity(dc, dc.init(), out, index_name)
     for r, ((lr, lpay), (dr, dpay)) in enumerate(zip(lres, dres)):
@@ -706,17 +725,19 @@ def test_replicated_leaves_agree_across_shards():
 
 # --------------------------------------------------------------------- #
 # reshard_runtime, array for array
+@pytest.mark.parametrize("mesh_as", MESH_AS)
 @pytest.mark.parametrize("partitioned", [False, True],
                          ids=["plain", "part"])
 @pytest.mark.parametrize("old,new", RESHARD, ids=lambda x: str(x))
-def test_reshard_runtime_equals_jax(jax_side, old, new, partitioned):
+def test_reshard_runtime_equals_jax(jax_side, old, new, partitioned,
+                                    mesh_as):
     tag = "part" if partitioned else "plain"
     part = reshard_partition() if partitioned else None
     flat = checkpoint.load_checkpoint_flat(
         str(jax_side["dir"] / f"flat_{old}_{tag}"))
     cache = SemanticCache(reshard_config(), partition=part)
     template = cache.init("cpu") if new == 1 else DistributedCache(
-        cache, cpu_mesh(new)).init()
+        cache, cpu_mesh(new, mesh_as=mesh_as)).init()
     got = checkpoint.runtime_to_numpy(checkpoint.reshard_runtime(
         flat, template, old_shards=old, new_shards=new, partition=part))
     prefix = f"R/{old}_{new}_{tag}/"
@@ -763,14 +784,15 @@ def test_reshard_on_load(tmp_path):
     assert e3.tenant_stats()["zen"]["inserts"] == stats1["zen"]["inserts"]
 
 
-def test_jax_sharded_snapshot_restores_into_the_port(jax_side):
+@pytest.mark.parametrize("mesh_as", MESH_AS)
+def test_jax_sharded_snapshot_restores_into_the_port(jax_side, mesh_as):
     """A 4-shard JAX engine's snapshot loads strictly into a 4-shard port
     engine and, resharded, into a 1-shard one; both serve the next requests
     as a JAX engine restored from it serves them."""
     out, snap = jax_side["out"], str(jax_side["dir"] / "jax4")
     want = {k: out[f"E/jax4/{k}"] for k in ("cached", "answer", "score")}
     follow = engine_requests(engine_pairs(), 4)
-    p4 = make_engine(cpu_mesh(4))
+    p4 = make_engine(cpu_mesh(4, mesh_as=mesh_as))
     p4.load_cache(snap, reshard=False)
     flat = checkpoint.open_checkpoint(snap)
     for k, x in checkpoint.runtime_to_numpy(p4.runtime).items():
@@ -782,25 +804,27 @@ def test_jax_sharded_snapshot_restores_into_the_port(jax_side):
     same_responses(responses_of(p1.process(follow)), want, "resharded 4 -> 1")
 
 
-def test_port_sharded_snapshot_restores_into_jax(jax_side):
+@pytest.mark.parametrize("mesh_as", MESH_AS)
+def test_port_sharded_snapshot_restores_into_jax(jax_side, mesh_as):
     """The port's 4-shard snapshot, loaded strictly into a 4-shard JAX
     engine (in the subprocess), serves the next requests as the port
     engine served them."""
     out = jax_side["out"]
-    same_responses({k: out[f"E/port4_in_jax/{k}"] for k in
+    same_responses({k: out[f"E/port4_in_jax/{mesh_as}/{k}"] for k in
                     ("cached", "answer", "score")},
-                   jax_side["port_follow"], "port snapshot in JAX")
-    assert json.loads(str(out["E/port4_in_jax/tenant_stats"])) == \
-        jax_side["port_stats"]
+                   jax_side["port_follow"][mesh_as], "port snapshot in JAX")
+    assert json.loads(str(out[f"E/port4_in_jax/{mesh_as}/tenant_stats"])) \
+        == jax_side["port_stats"][mesh_as]
 
 
-def test_async_waves_on_a_sharded_engine_equal_the_sync_run():
+@pytest.mark.parametrize("mesh_as", MESH_AS)
+def test_async_waves_on_a_sharded_engine_equal_the_sync_run(mesh_as):
     """Waves of a batch through the async scheduler on a 4-shard engine
     equal the sync sharded run request by request (DESIGN.md §19.4)."""
     reqs = engine_requests(engine_pairs(), 5)
-    sync = warmed_engine(cpu_mesh(4))
+    sync = warmed_engine(cpu_mesh(4, mesh_as=mesh_as))
     want = responses_of(sync.process(reqs))
-    eng = warmed_engine(cpu_mesh(4))
+    eng = warmed_engine(cpu_mesh(4, mesh_as=mesh_as))
 
     async def drive():
         sched = SchedulerConfig(max_batch=8, max_wait_ms=50.0,
@@ -819,12 +843,12 @@ def test_async_waves_on_a_sharded_engine_equal_the_sync_run():
 # failures, refusals and device defaults
 class FlakyIndex(ExactIndex):
     """ExactIndex whose search raises on one shard while ``armed``: the
-    shard is told by its slab view's offset in the global keys."""
+    shard is told by its slab keys' storage (``armed``, a data pointer)."""
 
-    armed = False
+    armed = None
 
     def search(self, istate, queries, keys, alive, **kw):
-        if FlakyIndex.armed and keys.storage_offset() == 2 * keys.numel():
+        if keys.data_ptr() == FlakyIndex.armed:
             raise RuntimeError("injected shard failure")
         return super().search(istate, queries, keys, alive, **kw)
 
@@ -841,13 +865,13 @@ def test_a_raising_shard_body_fails_the_call_and_frees_every_thread():
     caught, after = [], []
 
     def calls():
-        FlakyIndex.armed = True
+        FlakyIndex.armed = rt.shards[2].state.keys.data_ptr()
         try:
             dc.lookup(rt, q, 1.0)
         except RuntimeError as exc:
             caught.append(exc)
         finally:
-            FlakyIndex.armed = False
+            FlakyIndex.armed = None
         # the next call needs every shard thread free again
         after.append(dc.lookup(rt, q, 1.0)[0])
     t = threading.Thread(target=calls, daemon=True)
@@ -868,8 +892,13 @@ def test_mesh_refusals():
                                        partition=part), cpu_mesh(4))
     with pytest.raises(ValueError, match="no axis"):
         DistributedCache(SemanticCache(cfg), cpu_mesh(2), ("model",))
-    with pytest.raises(ValueError, match="A6b"):
-        make_mesh((2,), ("data",), device=["cuda:0", "cuda:1"])
+    # a device a shard (ROADMAP A6b): accepted in shard-major order, the
+    # first shard's the controller's; a count that is not the shape's refused
+    mesh = make_mesh((2, 2), ("data", "model"), device=["cpu"] * 4)
+    assert mesh.devices == (torch.device("cpu"),) * 4
+    assert mesh.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="4 shards; got 3 devices"):
+        make_mesh((2, 2), ("data", "model"), device=["cpu"] * 3)
     assert shard_axes(cpu_mesh(4, 2, names=("data", "model")),
                       ("data", "model")) == 8
     with pytest.raises(ValueError, match="per-shard capacity"):

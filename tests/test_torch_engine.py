@@ -196,10 +196,21 @@ def test_cuda_entry_points_raise_without_cuda():
 
 @pytest.mark.parametrize("feature", ["mesh"])
 def test_unported_engine_features_raise(feature):
-    """The sharded cache is ported; what is not is a mesh over distinct
-    devices (ROADMAP A6b), which names that item."""
+    """The sharded cache over distinct devices is ported (ROADMAP A6b): a
+    mesh names a device a shard, and the engine runs on its controller,
+    shard 0's device. What it refuses: an engine device that is not the
+    controller, and, as every entry point does, a CUDA device on a machine
+    without CUDA."""
     cfg = CacheConfig(dim=8, capacity=64)
-    with pytest.raises(ValueError, match="A6b"):
-        CachedEngine(cfg, SimulatedLLMBackend([]), device="cpu",
-                     **{feature: make_mesh((2,), ("data",),
-                                           device=["cpu", "cuda:1"])})
+    mesh = make_mesh((2,), ("data",), device=["cpu", "cpu"])
+    eng = CachedEngine(cfg, SimulatedLLMBackend([]), batch_size=8,
+                       **{feature: mesh})
+    assert eng.device == mesh.device == torch.device("cpu")
+    assert [s.state.keys.device for s in eng.runtime.shards] == \
+        list(mesh.devices)
+    with pytest.raises(ValueError, match="controller"):
+        CachedEngine(cfg, SimulatedLLMBackend([]), batch_size=8,
+                     device="meta", **{feature: mesh})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh((2,), ("data",), device=["cpu", "cuda:1"])

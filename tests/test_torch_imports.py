@@ -193,3 +193,59 @@ def test_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# --------------------------------------------------------------------- #
+# the reference's public names, read with ast (no jax import)
+REFERENCE = ROOT / "src" / "repro"
+
+
+def _reference_exports() -> dict[str, list[str]]:
+    """Each reference package's ``__all__``, or, where it has none, its
+    public top-level names (imports, definitions, assignments)."""
+    out = {}
+    for init in sorted(REFERENCE.glob("*/__init__.py")):
+        tree = ast.parse(init.read_text(), filename=str(init))
+        names = None
+        public = []
+        for node in tree.body:
+            if isinstance(node, ast.Assign):
+                targets = [t.id for t in node.targets
+                           if isinstance(t, ast.Name)]
+                if "__all__" in targets:
+                    names = list(ast.literal_eval(node.value))
+                public += targets
+            elif isinstance(node, ast.AnnAssign) and \
+                    isinstance(node.target, ast.Name):
+                public.append(node.target.id)
+            elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                public.append(node.name)
+            elif isinstance(node, ast.ImportFrom) and \
+                    node.module != "__future__":
+                public += [a.asname or a.name for a in node.names]
+        out[init.parent.name] = names if names is not None else [
+            n for n in public if not n.startswith("_")]
+    return out
+
+
+def _port_name(name: str) -> str:
+    """The port's counterpart of a reference name: a ``*_pallas`` kernel
+    is the port's ``*_cuda`` wrapper, anything else keeps its name."""
+    return name[:-len("_pallas")] + "_cuda" if name.endswith("_pallas") \
+        else name
+
+
+REFERENCE_EXPORTS = _reference_exports()
+
+
+@pytest.mark.parametrize("package", sorted(REFERENCE_EXPORTS))
+def test_port_exports_the_reference_public_names(package):
+    import importlib
+    names = REFERENCE_EXPORTS[package]
+    assert names, package
+    mod = importlib.import_module(f"repro_torch.{package}")
+    missing = [n for n in names if not hasattr(mod, _port_name(n))]
+    assert not missing, f"repro_torch.{package} lacks {missing}"
+    if hasattr(mod, "__all__"):
+        unlisted = [n for n in names if _port_name(n) not in mod.__all__]
+        assert not unlisted, f"repro_torch.{package}.__all__ lacks {unlisted}"

@@ -16,6 +16,12 @@ way), and its unsharded forwards here. Held:
     unsharded port and the JAX forward: within 1e-5 of the largest
     |logit|, f32;
   * the ``attn`` and ``attn-sp`` variants move no logit;
+  * decode attention with the cache's sequence split over ``model`` (each
+    rank's part merged by its log-sum-exp): f32 and int8 caches, a window
+    with sinks, a rank that sees no slot and a row that sees none, against
+    the unsharded port and JAX's ``decode_attention`` (the Pallas kernel
+    in interpret mode where nothing is visible: 0) within 1e-5 of the
+    largest output;
   * three AdamW steps of reduced yi-6b: the losses within 1e-5 relative of
     the unsharded port's, the gradient norm global (the unsharded one's),
     the last loss at most the first + 0.5.
@@ -29,6 +35,7 @@ import textwrap
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -97,6 +104,11 @@ def run(tmp_path_factory):
             .astype(np.float32)
     inputs["moe_cot"] = rng.standard_normal((MOE_T, MOE_D)).astype(
         np.float32)
+    for name, shape, scale in (("q", (4, 1, 8, 64), 0.3),
+                               ("k", (4, 64, 2, 64), 0.3),
+                               ("v", (4, 64, 2, 64), 1.0)):
+        inputs[f"cp_{name}"] = (rng.standard_normal(shape) * scale).astype(
+            np.float32)
     # a router that sends every token's first choice to expert 0, so the
     # capacity of 5 a shard drops tokens
     inputs["moe_x"] += 0.5
@@ -135,7 +147,7 @@ def run(tmp_path_factory):
         assert proc.returncode == 0, text[-6000:]
     return {"ours": dict(np.load(root / "results.npz")),
             "jax_moe": dict(np.load(root / "jax_moe.npz")),
-            "jax_fwd": jax_fwd}
+            "jax_fwd": jax_fwd, "inputs": inputs}
 
 
 def _rel(a, b):
@@ -264,3 +276,38 @@ def test_a_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         meshlib.make_production_mesh(multi_pod=True, device_type="cpu")
     assert not dist.is_initialized()      # nothing started quietly
+
+
+def _jax_decode(inputs, window, sink, int8, ring, pos):
+    from repro.kernels.decode_attention import decode_attention_pallas
+    from repro.models import attention as jattn
+    q, k, v = (jnp.asarray(inputs[f"cp_{n}"]) for n in ("q", "k", "v"))
+    sp = jnp.arange(k.shape[1], dtype=jnp.int32)
+    if ring:
+        sp = jnp.where(sp < 32, sp, -1)
+    kw = dict(window=window, n_sink=sink)
+    if int8:
+        k, ks = jattn.quantize_kv(k)
+        v, vs = jattn.quantize_kv(v)
+        kw.update(k_scale=ks, v_scale=vs)
+    if pos < 0:     # nothing visible: the Pallas kernel's 0, not jnp's mean
+        return np.asarray(decode_attention_pallas(
+            q, k, v, sp, jnp.asarray(pos, jnp.int32), block_s=32,
+            interpret=True, **kw))
+    return np.asarray(jattn.decode_attention(
+        q, k, v, sp, jnp.asarray(pos, jnp.int32), **kw))
+
+
+@pytest.mark.parametrize("case", worker.CP_DECODE, ids=lambda c: c[0])
+def test_context_parallel_decode_matches_unsharded_and_jax(run, case):
+    name, window, sink, int8, pos = case
+    ours = run["ours"]
+    got, plain = ours[f"cp_{name}_mesh"], ours[f"cp_{name}_plain"]
+    want = _jax_decode(run["inputs"], window, sink, int8, name == "ring",
+                       pos)
+    assert got.shape == want.shape == (4, 1, 8, 64)
+    if pos < 0:
+        assert not got.any() and not plain.any() and not want.any()
+        return
+    assert _rel(got, plain) <= TOL, _rel(got, plain)
+    assert _rel(got, want) <= TOL, _rel(got, want)

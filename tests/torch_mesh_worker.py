@@ -31,6 +31,15 @@ ARCHS = {"yi-6b": {}, "grok-1-314b": {},
          # projection shard ends mid-head), one KV head
          "hymba-1.5b": {"n_heads": 5, "n_kv_heads": 1}}
 PREFILL, DECODE = 32, 4           # tokens (4, PREFILL + DECODE)
+# context-parallel decode attention, the cache's S split over ``model``:
+# (name, window, n_sink, int8, pos); q (4, 1, 8, 64), caches (4, 64, 2, 64)
+# with slots 0..63 holding positions 0..63. "ring" leaves the second half
+# of the slots empty (a rank sees nothing: its lse is -inf); "none" sees
+# no slot anywhere (the output is 0)
+CP_DECODE = (("prefix", None, 0, False, 50), ("int8", None, 0, True, 63),
+             ("window_sinks", 16, 4, False, 63),
+             ("window_sinks_int8", 16, 4, True, 63),
+             ("ring", None, 0, False, 31), ("none", None, 0, False, -1))
 ODD_ARCH, ODD = "grok-1-314b", (1, 35)   # a MoE forward of B x L tokens
 TRAIN_STEPS = 3
 ADAMW = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -160,6 +169,35 @@ def _models(mesh, inputs, out):
             out[f"variant_{variant}"] = _full(model.forward(tokens))
 
 
+def _cp_decode(mesh, inputs, out):
+    """Each ``CP_DECODE`` case through ``models.attention.decode_attention``
+    with DTensor caches (batch over data, S over model): the mesh output,
+    and the unsharded port's."""
+    from repro_torch.models import attention as tattn
+    q, k, v = (torch.from_numpy(inputs[f"cp_{n}"]) for n in ("q", "k", "v"))
+    sp = torch.arange(k.shape[1], dtype=torch.int32)
+    for name, window, sink, int8, pos in CP_DECODE:
+        ks = vs = None
+        kk, vv = k, v
+        if int8:
+            kk, ks = tattn.quantize_kv(k)
+            vv, vs = tattn.quantize_kv(v)
+        slots = torch.where(sp < 32, sp, -1) if name == "ring" else sp
+        kw = dict(window=window, n_sink=sink)
+        plain = tattn.decode_attention(q, kk, vv, slots, pos, k_scale=ks,
+                                       v_scale=vs, **kw)
+
+        def put(x, placements):
+            return None if x is None else distribute_tensor(x, mesh,
+                                                            placements)
+        cache_p, q_p = [Shard(0), Shard(1)], [Shard(0), Replicate()]
+        got = tattn.decode_attention(
+            put(q, q_p), put(kk, cache_p), put(vv, cache_p), slots, pos,
+            k_scale=put(ks, cache_p), v_scale=put(vs, cache_p), **kw)
+        out[f"cp_{name}_mesh"] = _full(got)
+        out[f"cp_{name}_plain"] = _full(plain)
+
+
 def _init_mismatch(mesh, arch) -> list[str]:
     """The parameters whose init on the mesh differs from the unsharded
     init's from the same seed."""
@@ -233,6 +271,7 @@ def main(rank: int, root: Path) -> None:
         inputs = np.load(root / "inputs.npz")
         out: dict = {}
         _moe(mesh, inputs, out)
+        _cp_decode(mesh, inputs, out)
         _models(mesh, inputs, out)
         _train(mesh, inputs, out)
         if rank == 0:
