@@ -198,6 +198,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
             by kind, the dominant roofline term, seconds); the cache pair at
             the pod's 16 shards on the card, f32 and int8, ms a step beside
             its per-chip roofline terms
+  examples  each script of ``examples_torch/`` (the port's twins of the
+            reference's ``examples/``) through its ``main`` at its own
+            size, on the card and then on the CPU: hit/miss decisions,
+            answers and counts equal, scores within 1e-5, counters within
+            1e-4; ``train_small`` reduced for 12 steps, its losses finite
+            and falling on both; the kernels each reaches launched on the
+            card (their launches join the kernels line); the distributed
+            demo also over the mixed mesh ``[cuda, cpu, cuda, cpu]``
 Each phase's seconds follow it on a ``phase_seconds`` line, and all of
 them come before the end. The last three lines are the card's name and
 power limit as nvidia-smi gives them, the per-kernel summary, and
@@ -205,6 +213,9 @@ power limit as nvidia-smi gives them, the per-kernel summary, and
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import math
 import re
@@ -212,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5062,6 +5074,125 @@ def _mesh_cache(torch, card: str, scratch: Path, dryrun) -> tuple:
 
 
 # --------------------------------------------------------------------- #
+# the scripts of examples_torch/, in the order each leans on the last, with
+# the kernels each must reach on the card; mamba2 (train_small) has no
+# attention layer, so its training step launches no kernel
+EXAMPLES = (("quickstart", ("cosine_topk",)),
+            ("serve_cached_chatbot", ("cosine_topk", "flash_attention",
+                                      "decode_attention")),
+            ("multi_tenant_chatbot", ("cosine_topk_interval",)),
+            ("async_chatbot", ("cosine_topk",)),
+            ("multi_turn_chatbot", ("cosine_topk",)),
+            ("generative_cache_chatbot", ("cosine_topk",)),
+            ("observability_demo", ("cosine_topk_interval",)),
+            ("resilience_demo", ("cosine_topk",)),
+            ("distributed_cache_demo", ("cosine_topk",)),
+            ("train_small", ()))
+EXAMPLE_TRAIN_STEPS = 12
+EXAMPLE_TOL = {"decisions": 0.0, "scores": 1e-5, "counters": 1e-4}
+
+
+def _example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_numbers(got, want, tol: float, where: str) -> None:
+    """Leaf by leaf: numbers (not flags) within ``tol``, the rest equal."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(map(str, got)) != \
+                sorted(map(str, want)):
+            fail(f"{where}: keys {got} vs {want}")
+        for k in want:
+            _same_numbers(got[k], want[k], tol, f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            fail(f"{where}: {got} vs {want}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_numbers(g, w, tol, f"{where}[{i}]")
+    elif isinstance(want, (int, float)) and not isinstance(want, bool) \
+            and tol > 0:
+        if isinstance(got, bool) or not (got == want
+                                         or abs(got - want) <= tol):
+            fail(f"{where}: {got} vs {want} (tol {tol})")
+    elif got != want:
+        fail(f"{where}: {got!r} vs {want!r}")
+
+
+def _run_example(torch, mod, name: str, device: str, argv) -> tuple:
+    """One ``main`` with its prints kept from this script's output: the
+    returned numbers, the seconds, and its last printed line."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = mod.main(["--device", device, *argv])
+        if device == "cuda":
+            torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - any failure fails the run
+        traceback.print_exc()
+        fail(f"examples: {name} --device {device} raised "
+             f"{type(exc).__name__}: {exc}")
+    lines = out.getvalue().strip().splitlines()
+    return res, time.perf_counter() - t0, lines[-1] if lines else ""
+
+
+def phase_examples(torch, card: str, scratch: Path) -> dict:
+    """Each script of ``examples_torch/`` at its own size through its
+    ``main``, on the card and then on the CPU: the card's hit/miss
+    decisions, answers and counts equal to the CPU's, scores within 1e-5,
+    counters within 1e-4 (``train_small``, reduced for a few steps: finite
+    losses, the last under the first, on both); the kernels each must
+    reach launched on the card. Returns the card runs' launches."""
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, reached in EXAMPLES:
+        mod = _example(name)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            argv = ()
+            if name == "train_small":
+                argv = ("--reduced", "--steps", str(EXAMPLE_TRAIN_STEPS),
+                        "--checkpoint", str(scratch / f"mamba2_{device}.npz"))
+            _reset_launches()
+            runs[device] = _run_example(torch, mod, name, device, argv)
+            if device == "cuda":
+                got = _launches()
+        (card_res, card_s, last), (cpu_res, cpu_s, _) = \
+            runs["cuda"], runs["cpu"]
+        missing = [k for k in reached if got[k] == 0]
+        if missing:
+            fail(f"examples: {name} on the card launched none of {missing}: "
+                 f"{got}")
+        for k, n in got.items():
+            launches[k] += n
+        if name == "train_small":
+            for device, (res, _, _) in runs.items():
+                losses = res["counters"]["losses"]
+                if len(losses) != EXAMPLE_TRAIN_STEPS or \
+                        not losses[-1] < losses[0]:
+                    fail(f"examples: train_small on {device}: losses "
+                         f"{losses} do not fall")
+            numbers = {d: [r[0]["counters"]["losses"][0],
+                           r[0]["counters"]["losses"][-1]]
+                       for d, r in runs.items()}
+        else:
+            for part, tol in EXAMPLE_TOL.items():
+                _same_numbers(card_res[part], cpu_res[part], tol,
+                              f"examples: {name} card vs cpu: {part}")
+            numbers = card_res["counters"]
+            if name == "distributed_cache_demo":
+                numbers = dict(numbers, mixed_mesh_score_gap=card_res[
+                    "observed"]["mixed_score_gap"])
+        emit("examples", example=name, card_s=card_s, cpu_s=cpu_s,
+             launches={k: n for k, n in got.items() if n},
+             last_line=last[:200], numbers=numbers, card=card)
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------- #
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5118,6 +5249,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as scratch:
         mesh = timed("mesh", phase_mesh, torch, card, Path(scratch))
     launches["cosine_topk"] += mesh["launches"]["cosine_topk"]
+    with tempfile.TemporaryDirectory() as scratch:
+        examples = timed("examples", phase_examples, torch, card,
+                         Path(scratch))["launches"]
     launches["cosine_topk"] += model["launches"]["cosine_topk"] \
         + families["launches"]["cosine_topk"] \
         + modalities["launches"]["cosine_topk"]
@@ -5128,6 +5262,13 @@ def main() -> None:
         train["launches"]["flash_attention"]
     for name in ("flash_attention", "decode_attention"):
         model["launches"][name] += mesh["launches"][name]
+    # the examples' launches join each kernel's row
+    for name, n in examples.items():
+        row = model["launches"] if name in ("flash_attention",
+                                            "decode_attention") \
+            else train["launches"] if name == "flash_attention_bwd" \
+            else launches
+        row[name] = row.get(name, 0) + n
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -118,7 +118,9 @@ def params_to_numpy(named: dict[str, torch.Tensor], prefix: str = "params"
             for name, p in named.items()}
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """The command line over ``train``; returns its result (the model and
+    the per-step losses, learning rates and gradient norms)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--steps", type=int, default=200)
@@ -133,10 +135,10 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-          lr=args.lr, full=args.full, n_layers=args.n_layers,
-          checkpoint=args.checkpoint, log_every=args.log_every,
-          device=args.device)
+    return train(args.arch, steps=args.steps, batch=args.batch,
+                 seq=args.seq, lr=args.lr, full=args.full,
+                 n_layers=args.n_layers, checkpoint=args.checkpoint,
+                 log_every=args.log_every, device=args.device)
 
 
 if __name__ == "__main__":

@@ -22,8 +22,9 @@ models on CUDA against the CPU, and training: the flash-attention
 backward kernel against its plain version, a training step's loss and
 gradients through the kernels and the training driver against the CPU;
 the MiniLM encoder on CUDA against the CPU, the dry run's sharded
-cache pair on CUDA, and the sharded ``Model`` on a one-rank NCCL mesh
-bit for bit against the unsharded one.
+cache pair on CUDA, the sharded ``Model`` on a one-rank NCCL mesh
+bit for bit against the unsharded one, and the ``quickstart`` and
+``serve_cached_chatbot`` examples on CUDA against ``--device cpu``.
 Every test here needs a CUDA
 device and skips without one. The file imports
 neither jax nor the JAX package, so it runs where only PyTorch is installed:
@@ -33,7 +34,9 @@ neither jax nor the JAX package, so it runs where only PyTorch is installed:
 It also holds the seeded kernel inputs that ``test_torch_kernels.py`` feeds
 to the JAX package on the CPU."""
 import asyncio
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1885,3 +1888,47 @@ def test_sharded_model_on_a_one_rank_nccl_mesh(cuda_device):
             assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+def _example(name: str):
+    path = Path(__file__).resolve().parents[1] / "examples_torch" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _close_leaves(got, want, tol, where=""):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            _close_leaves(got[k], want[k], tol, f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_leaves(g, w, tol, f"{where}[{i}]")
+    else:
+        assert got == want or abs(got - want) <= tol, (where, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernels", [
+    ("quickstart", ("cosine_topk",)),
+    ("serve_cached_chatbot", ("cosine_topk", "flash_attention",
+                              "decode_attention"))])
+def test_cuda_example_matches_cpu(cuda_device, name, kernels, capsys):
+    """The example on the card launches its kernels and gives the CPU run's
+    decisions and answers, scores within 1e-5 and counters within 1e-4."""
+    mod = _example(name)
+    for m in (kmod, kflash, kdec):
+        m.reset_launches()
+    card = mod.main(["--device", "cuda"])
+    launched = {**kmod.launches, **kflash.launches, **kdec.launches}
+    assert all(launched[k] > 0 for k in kernels), launched
+    cpu = mod.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert card["decisions"] == cpu["decisions"]
+    _close_leaves(card["scores"], cpu["scores"], 1e-5, "scores")
+    _close_leaves(card["counters"], cpu["counters"], 1e-4, "counters")

@@ -10,6 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -18,7 +19,8 @@ def _port_files():
         ROOT / name for name in ("chip_smoke.py", "flash_variants.py",
                                  "decode_variants.py", "cosine_variants.py",
                                  "ivf_variants.py", "masked_variants.py",
-                                 "variant_harness.py", "train_turns.py")]
+                                 "variant_harness.py", "train_turns.py")] \
+        + sorted(EXAMPLES.glob("*.py"))
     assert len(files) > 10
     return files
 
@@ -115,6 +117,12 @@ def test_last_modules_slice_files_are_checked():
             "core/__init__.py", "launch/roofline.py", "launch/sharding.py",
             "launch/dryrun.py", "models/convert.py",
             "models/model.py"} <= names
+
+
+def test_examples_slice_files_are_checked():
+    names = {p.name for p in _port_files() if p.parent == EXAMPLES}
+    assert names == {p.name for p in (ROOT / "examples").glob("*.py")}
+    assert len(names) == 10
 
 
 def test_dryrun_import_sets_no_environment_variable():
