@@ -7,14 +7,14 @@ the semantic cache.
 Pipeline per batch: embed -> semantic cache lookup -> hits answered from
 the cache -> misses answered by the PyTorch model (prefill + greedy
 decode) and inserted. Prints the paper's serving metrics at the end. On
-CUDA the lookup runs the cosine top-k kernel and the model's prefill and
-decode the flash- and decode-attention kernels.
+CUDA the lookup runs the cosine top-k kernel, the model's prefill and
+decode the flash- and decode-attention kernels, and its weights are drawn
+from the reference's key 0 by the threefry kernel.
 """
 import argparse
 import json
 
-import torch
-
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.core.types import CacheConfig, resolve_device
 from repro_torch.data.qa_dataset import build_corpus, build_test_queries
@@ -31,12 +31,8 @@ def main(argv=None) -> dict:
     print("building reduced yi-6b backend ...")
     config = get_arch("yi-6b").reduced()
     # the port's Model holds its weights (the reference passes a params
-    # pytree beside it); they are drawn on the CPU from seed 0, so every
-    # device serves the same weights, as PRNGKey(0) gives the reference
-    seeded = Model(config, device="cpu").init_params(
-        torch.Generator().manual_seed(0))
-    model = Model(config, device=device)
-    model.load_state_dict(seeded.state_dict())
+    # pytree beside it), drawn from the reference's PRNGKey(0) stream
+    model = Model(config, device=device).init_params(prng.key(0))
     backend = ModelBackend(model, HashTokenizer(vocab_size=config.vocab),
                            max_prompt_len=32, max_new_tokens=12)
 

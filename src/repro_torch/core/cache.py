@@ -354,9 +354,9 @@ class SemanticCache:
             expired_evictions=runtime.stats.expired_evictions + n)
         return runtime.replace(state=state, stats=stats)
 
-    def refit(self, runtime: CacheRuntime, now, rng: torch.Generator
-              ) -> CacheRuntime:
-        """Periodic index rebuild (§2.4); a no-op for stateless indexes."""
+    def refit(self, runtime: CacheRuntime, now, rng) -> CacheRuntime:
+        """Periodic index rebuild (§2.4) drawing from the ``repro_torch.prng``
+        key ``rng``; a no-op for stateless indexes."""
         alive = store.alive_mask(runtime.state, now)
         istate = self.index.refit(runtime.index_state, runtime.state.keys,
                                   alive, rng)

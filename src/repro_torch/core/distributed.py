@@ -85,6 +85,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import store
 from repro_torch.core.cache import (SemanticCache, _LocalComm,
                                    topk_payload)
@@ -627,19 +628,14 @@ class DistributedCache:
             queries=queries, values=values, value_lens=value_lens, now=now,
             source_id=source_id, mask=mask, tenant_id=tenant_id)[1]
 
-    def refit(self, runtime: ShardedRuntime, now, rng: torch.Generator
-              ) -> ShardedRuntime:
-        """Per-shard index rebuild over each shard's own rows. One seed is
-        drawn from ``rng`` (a CPU generator) and folded with each shard id
-        into that shard's CPU generator, as ``jax.random.fold_in`` folds
-        the key, so shards train independent structures, and the card and
-        the CPU draw the same rows: no generator crosses devices."""
-        base = int(torch.randint(0, 2 ** 62, (), generator=rng))
-        gens = [torch.Generator().manual_seed(
-            (base + i * 0x9E3779B97F4A7C15) % 2 ** 64)
-            for i in range(self.num_shards)]
+    def refit(self, runtime: ShardedRuntime, now, rng) -> ShardedRuntime:
+        """Per-shard index rebuild over each shard's own rows, each shard
+        drawing from ``prng.fold_in(rng, shard id)`` as the reference
+        folds its key, so shards train independent structures; keys are
+        host values, so the card and the CPU draw the same rows."""
+        keys = [prng.fold_in(rng, i) for i in range(self.num_shards)]
         return self._call(runtime, lambda rt, comm, **o: (
-            None, self.local.refit(rt, o["now"], gens[comm.shard])),
+            None, self.local.refit(rt, o["now"], keys[comm.shard])),
             now=now)[1]
 
     def expire(self, runtime: ShardedRuntime, now) -> ShardedRuntime:

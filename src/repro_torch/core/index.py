@@ -16,10 +16,12 @@
   ``IVFIndex.candidates``, so the kernel and its plain version share one
   contract.
 
-Both follow the ``repro_torch.core.runtime.Index`` protocol. ``jax.random``
-has no torch twin: the IVF init centroids come from a CPU
-``torch.Generator`` seeded 0, and ``refit`` draws its k-means seeds with
-the caller's CPU generator, so the card and the CPU draw the same rows.
+Both follow the ``repro_torch.core.runtime.Index`` protocol. The IVF
+index draws as the reference does, from ``repro_torch.prng`` keys (the
+reference's ``jax.random`` streams): its init centroids from ``key(0)``,
+and ``refit``'s k-means seeds with ``choice`` under the caller's key, both
+on the host, so the card, the CPU and the JAX package hold the same
+centroids and draw the same rows.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.similarity import (NEG_INF, interval_visibility,
                                          l2_normalize, masked_topk)
 from repro_torch.core.types import CacheConfig, resolve_device
@@ -101,7 +104,7 @@ class ExactIndex:
         return istate
 
     def refit(self, istate: ExactState, keys: torch.Tensor,
-              alive: torch.Tensor, rng: torch.Generator) -> ExactState:
+              alive: torch.Tensor, rng) -> ExactState:
         del keys, alive, rng
         return istate
 
@@ -173,15 +176,16 @@ class IVFIndex:
             raise ValueError(f"unknown backend {self.backend!r}")
 
     def init(self, config: CacheConfig, device=None) -> IVFState:
-        """Empty index: random unit centroids (a CPU generator seeded 0, then
-        moved to ``device``) and all-invalid buckets. Random rather than zero
-        centroids spread pre-refit ``absorb``s over every bucket; ``refit``
-        replaces them. ``device=None`` means CUDA, as at every entry point
-        (``resolve_device``)."""
+        """Empty index: random unit centroids (the reference's
+        ``normal(key(0), (C, d))``, drawn with the plain version on the
+        CPU, then moved to ``device``) and all-invalid buckets. Random
+        rather than zero centroids spread pre-refit ``absorb``s over every
+        bucket; ``refit`` replaces them. ``device=None`` means CUDA, as at
+        every entry point (``resolve_device``)."""
         device = resolve_device(device)
         c, cap = self.ncentroids, self.bucket_cap
-        gen = torch.Generator().manual_seed(0)
-        centroids = l2_normalize(torch.randn((c, config.dim), generator=gen))
+        centroids = l2_normalize(prng.normal(prng.key(0), (c, config.dim),
+                                             device="cpu"))
         return IVFState(
             centroids=centroids.to(device),
             buckets=torch.full((c, cap), -1, dtype=torch.int32,
@@ -190,14 +194,15 @@ class IVFIndex:
                                      device=device))
 
     def refit(self, istate: IVFState, keys: torch.Tensor, alive: torch.Tensor,
-              rng: torch.Generator) -> IVFState:
+              rng) -> IVFState:
         """K-means over the live keys from ``ncentroids`` rows drawn with
-        ``rng`` (a CPU generator), weighted by ``alive + 1e-6`` as the JAX
-        package draws them (dead rows only when few are alive)."""
+        ``prng.choice`` under the key ``rng``, weighted by ``alive + 1e-6``
+        (normalized by a sum in XLA's order), as the JAX package draws them
+        (dead rows only when few are alive); the draw runs on the host."""
         del istate  # a full rebuild from the slab
         p = alive.to("cpu", torch.float32) + 1e-6
-        init_idx = torch.multinomial(p, self.ncentroids, replacement=True,
-                                     generator=rng)
+        init_idx = prng.choice(rng, p.shape[0], (self.ncentroids,),
+                               p / prng.xla_sum(p))
         return self.kmeans(keys, alive, init_idx.to(keys.device))
 
     def kmeans(self, keys: torch.Tensor, valid: torch.Tensor,
@@ -245,8 +250,7 @@ class IVFIndex:
         return IVFState(centroids=centroids, buckets=buckets,
                         bucket_valid=bucket_valid)
 
-    def fit(self, keys: torch.Tensor, valid: torch.Tensor,
-            rng: torch.Generator) -> IVFState:
+    def fit(self, keys: torch.Tensor, valid: torch.Tensor, rng) -> IVFState:
         """From-scratch build."""
         return self.refit(None, keys, valid, rng)
 

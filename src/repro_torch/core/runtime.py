@@ -45,8 +45,9 @@ class Index(Protocol):
         ...
 
     def refit(self, istate: Any, keys: torch.Tensor, alive: torch.Tensor,
-              rng: torch.Generator) -> Any:
-        """Full periodic rebuild (the paper's §2.4 HNSW rebalancing)."""
+              rng) -> Any:
+        """Full periodic rebuild (the paper's §2.4 HNSW rebalancing);
+        ``rng`` is a ``repro_torch.prng`` key."""
         ...
 
 

@@ -4,9 +4,10 @@
 A 6-layer bidirectional transformer (384-dim, 12 heads: the
 all-MiniLM-L6-v2 geometry of the paper's experiments) with mean pooling
 over non-pad positions and L2 normalization, the paper's "normalized and
-pooled" recipe. Weights are drawn from a seeded generator (no checkpoint
-downloads); no serve path calls the encoder, in either package: the
-paper-metric runs embed with the deterministic ``HashEmbedder``.
+pooled" recipe. Weights are drawn from a key (``repro_torch.prng``, the
+reference's streams; no checkpoint downloads); no serve path calls the
+encoder, in either package: the paper-metric runs embed with the
+deterministic ``HashEmbedder``.
 
 The arithmetic is the reference's, step for step, in plain PyTorch (the
 reference's einsums run outside any Pallas kernel): pre-norm blocks on
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.core.types import resolve_device
 from repro_torch.models.layers import rms_norm
 
@@ -46,36 +48,35 @@ class EncoderConfig:
 MINILM_L6 = EncoderConfig()
 
 
-def init_encoder_params(generator: torch.Generator,
-                        cfg: EncoderConfig = MINILM_L6, *,
+def init_encoder_params(key, cfg: EncoderConfig = MINILM_L6, *,
                         device="cuda") -> dict:
-    """The reference's parameter tree with its scales: ``embed`` (V, d),
+    """The reference's ``init_encoder_params(key, cfg)`` with its scales,
+    from ``split(key, 8)`` (``repro_torch.prng`` keys): ``embed`` (V, d),
     ``pos_embed`` (max_len, d), ``blocks`` of per-layer leaves stacked on
     a leading (n_layers,) axis (``norm1``, ``wqkv`` (d, 3d), ``wo``,
     ``norm2``, ``w1`` (d, d_ff), ``w2``) and ``final_norm``, all f32 on
-    ``device``, drawn from ``generator`` (which must live there). The
-    numbers differ from JAX's; tests carry JAX's across
-    (``models.convert.tree_from_jax``)."""
+    ``device``. Equal to the reference's within its erfinv's rounding
+    (``prng``), on any device."""
     dev = resolve_device(device)
     d, ff, l = cfg.d_model, cfg.d_ff, cfg.n_layers
+    ks = prng.split(key, 8)
 
-    def nrm(shape, scale):
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=dev) * scale
+    def nrm(k, shape, scale):
+        return prng.normal(k, shape, scale=scale, device=dev)
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
     return {
-        "embed": nrm((cfg.vocab, d), 0.02),
-        "pos_embed": nrm((cfg.max_len, d), 0.02),
+        "embed": nrm(ks[0], (cfg.vocab, d), 0.02),
+        "pos_embed": nrm(ks[1], (cfg.max_len, d), 0.02),
         "blocks": {
             "norm1": ones((l, d)),
-            "wqkv": nrm((l, d, 3 * d), d ** -0.5),
-            "wo": nrm((l, d, d), d ** -0.5),
+            "wqkv": nrm(ks[2], (l, d, 3 * d), d ** -0.5),
+            "wo": nrm(ks[3], (l, d, d), d ** -0.5),
             "norm2": ones((l, d)),
-            "w1": nrm((l, d, ff), d ** -0.5),
-            "w2": nrm((l, ff, d), ff ** -0.5),
+            "w1": nrm(ks[4], (l, d, ff), d ** -0.5),
+            "w2": nrm(ks[5], (l, ff, d), ff ** -0.5),
         },
         "final_norm": ones((d,)),
     }

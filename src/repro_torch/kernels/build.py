@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"cosine_topk": "cosine_topk.cu", "ivf_topk": "ivf_topk.cu",
            "flash_attention": "flash_attention.cu",
-           "decode_attention": "decode_attention.cu"}
+           "decode_attention": "decode_attention.cu",
+           "threefry": "threefry.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

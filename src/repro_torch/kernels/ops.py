@@ -16,7 +16,8 @@ form has no dispatch here, as in the JAX ``ops``, and is called as
 ``ivf_topk`` dispatches the IVF candidate kernel the same way, with the
 ``backend`` override of ``IVFIndex``; ``flash_attention`` (prefill) and
 ``decode_attention`` (one token over a KV cache) dispatch the attention
-kernels of the model-backed miss path.
+kernels of the model-backed miss path; ``threefry_fill`` the draw kernel
+of ``repro_torch.prng``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import threefry as kthreefry
 from repro_torch.kernels.cosine_topk import (check_args, check_interval_args,
                                              check_masked_args,
                                              check_quant_args,
@@ -200,3 +202,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o, lse = ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
                                       scale=scale, return_lse=True, **kw)
     return o.to(q.dtype), lse
+
+
+def threefry_fill(out: torch.Tensor, key, *, kind: str = "normal",
+                  offset: int = 0, lo: float = ref.NORMAL_LO, hi: float = 1.0,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Fill ``out`` in place with draws of ``key`` at counters ``offset``
+    on (``kernels.threefry``): the kernel on CUDA, the plain version on the
+    CPU, nothing on ``meta`` (shapes only). Returns ``out``."""
+    if out.device.type == "cuda":
+        return kthreefry.threefry_cuda(out, key, kind=kind, offset=offset,
+                                       lo=lo, hi=hi, scale=scale)
+    kthreefry.check_args(out, key, kind, offset)
+    if out.device.type == "meta":
+        return out
+    return ref.threefry_fill_ref(out, key, kind=kind, offset=offset, lo=lo,
+                                 hi=hi, scale=scale)

@@ -2,7 +2,9 @@
 ``repro.kernels.ref``): the cosine top-k in its three mask forms, each
 also over an int8 slab with per-row scales, the IVF
 candidate top-k, and the two attention kernels of the model-backed miss
-path (prefill flash attention and single-token decode attention).
+path (prefill flash attention and single-token decode attention), and
+the counter-based draws of the reference's ``jax.random`` streams
+(threefry2x32, ``threefry_fill_ref``).
 
 They define the numerical contract. The kernel wrappers take them for CPU
 tensors, and ``chip_smoke.py`` holds each CUDA kernel against them on the
@@ -10,6 +12,7 @@ card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.similarity import NEG_INF, cosine_scores, masked_topk
@@ -335,3 +338,138 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         lse = torch.logsumexp(s.masked_fill(~visible, float("-inf")), dim=-1)
         return o, lse.reshape(b, h)
     return o.to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# threefry2x32: the reference's jax.random streams (csrc/threefry.cu)
+# --------------------------------------------------------------------- #
+M32 = 0xFFFFFFFF
+THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+THREEFRY_KINDS = {"bits": 0, "uniform": 1, "normal": 2}
+#: elements a chunk of the plain draw. On the CPU a chunk is under
+#: PyTorch's grain size (32,768), so every op of it runs on one thread:
+#: ~300 small ops a chunk would otherwise each wait on a parallel region,
+#: which under oversubscribed cores (test workers) costs milliseconds an op;
+#: its int64 words stay in cache. On a card fewer, larger chunks cut the
+#: launches (~200 MB of temporaries).
+THREEFRY_CHUNK = 1 << 14
+THREEFRY_CHUNK_DEVICE = 1 << 22
+#: Giles' single-precision erfinv (XLA's ``ErfInv32``), highest degree
+#: first: w < 5 and w >= 5, with w = -log1p(-u * u)
+ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+#: f32 constants of ``jax.random.normal``: its uniform's lower end
+#: nextafter(-1, 0) and sqrt(2), each rounded to f32
+NORMAL_LO = -0.99999994039535522
+SQRT2_F32 = 1.41421353816986084
+
+
+def threefry2x32_ref(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of counter words (x0, x1) under
+    the key (k0, k1), as ``jax._src.prng`` computes it. x0 and x1 are
+    int64 tensors holding uint32 values (left as they are); so are the two
+    words returned. The rounds update two new tensors in place."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = x0.add(k0).bitwise_and_(M32)
+    x1 = x1.add(k1).bitwise_and_(M32)
+    high = torch.empty_like(x1)
+    for i in range(5):
+        for r in THREEFRY_ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(M32)
+            torch.bitwise_left_shift(x1, r, out=high)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(high) \
+                .bitwise_and_(M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(M32)
+    return x0, x1
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c with one rounding, as XLA's CPU code contracts it:
+    emulated in f64, where a product of two f32 is exact. The f64 sum
+    rounds once more than an FMA, which differs only when it falls on an
+    f32 tie."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _cpu_numpy(fn, torch_fn, x: torch.Tensor) -> torch.Tensor:
+    """``torch_fn(x)``, on the CPU through numpy's ``fn``: PyTorch's CPU
+    kernels for log1p and sqrt split even a few thousand elements over the
+    intra-op threads, which on oversubscribed cores (parallel test workers)
+    costs milliseconds a call; numpy runs on the caller's thread."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(fn(x.numpy()))
+    return torch_fn(x)
+
+
+def erfinv_ref(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of f32 ``x`` in (-1, 1) as XLA computes it on the CPU:
+    Giles' polynomial in w = -log1p(-x * x), evaluated by Horner's rule
+    with a fused multiply-add a step (``_fma``), +-inf at +-1."""
+    w = -_cpu_numpy(np.log1p, torch.log1p, -x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5,
+                    _cpu_numpy(np.sqrt, torch.sqrt, w.clamp_min(0.0)) - 3.0)
+    coef = [torch.where(small, a, b)
+            for a, b in zip(*(torch.tensor(c, dtype=torch.float32,
+                                           device=x.device)
+                              for c in (ERFINV_SMALL, ERFINV_LARGE)))]
+    p = coef[0]
+    for c in coef[1:]:
+        p = _fma(p, w, c)
+    r = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, r)
+
+
+def threefry_fill_ref(out: torch.Tensor, key, *, kind: str = "normal",
+                      offset: int = 0, lo: float = NORMAL_LO,
+                      hi: float = 1.0, scale: float = 1.0) -> torch.Tensor:
+    """Fill the contiguous ``out`` with the draws of counters ``offset`` ..
+    ``offset + out.numel() - 1`` of ``key`` (two uint32), in row-major
+    order: element i takes counter words (c >> 32, c & 0xFFFFFFFF), c =
+    offset + i, as ``jax._src.prng.iota_2x32_shape`` splits them, and
+    hashes them to (b0, b1).
+
+    ``kind``:
+      ``bits``: b0 ^ b1 (``jax.random.bits``, 32 bits), into int64;
+      ``uniform``: max(lo, f * (hi - lo) + lo), one fused multiply-add,
+        with f the float of the bits' top 23 as mantissa of [1, 2), minus
+        1 (``jax.random.uniform`` of minval lo, maxval hi), into float32;
+      ``normal``: scale * (sqrt(2) * erfinv(u)) with u that uniform at lo =
+        nextafter(-1, 0), hi = 1 (``jax.random.normal`` times ``scale``,
+        each product in f32), cast to ``out``'s float32 or bfloat16
+        (round to nearest even).
+    The work goes in chunks of ``THREEFRY_CHUNK`` elements on the CPU
+    (``THREEFRY_CHUNK_DEVICE`` elsewhere), so no int64 temporary is larger
+    than one chunk. Returns ``out``."""
+    k0, k1 = (int(k) & M32 for k in key)
+    flat = out.view(-1)
+    f32 = torch.float32
+    lo32 = torch.tensor(lo, dtype=f32, device=out.device)
+    span = torch.tensor(hi, dtype=f32, device=out.device) - lo32
+    chunk = THREEFRY_CHUNK if out.device.type == "cpu" \
+        else THREEFRY_CHUNK_DEVICE
+    for start in range(0, flat.numel(), chunk):
+        n = min(chunk, flat.numel() - start)
+        c = torch.arange(offset + start, offset + start + n,
+                         dtype=torch.int64, device=out.device)
+        b0, b1 = threefry2x32_ref(k0, k1, c >> 32, c & M32)
+        bits = b0 ^ b1
+        if kind == "bits":
+            flat[start:start + n] = bits
+            continue
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(f32) - 1.0
+        u = torch.maximum(lo32, _fma(f, span, lo32))
+        if kind == "uniform":
+            flat[start:start + n] = u
+            continue
+        sqrt2 = torch.tensor(SQRT2_F32, dtype=f32, device=out.device)
+        x = sqrt2 * erfinv_ref(u) * torch.tensor(scale, dtype=f32,
+                                                 device=out.device)
+        flat[start:start + n] = x.to(out.dtype)
+    return out

@@ -49,8 +49,9 @@ simulated API, as ``repro.launch.serve --backend model`` does: ``--arch``
 ``hymba-1.5b``, ``qwen2-vl-2b`` (text only, no prefix); the audio
 ``musicgen-large`` raises a ValueError: the text miss path has one
 codebook, and the reference fails there too) at its reduced width,
-weights drawn from a seeded generator on the device (nothing is
-downloaded). ``--full-width`` takes the published width instead
+weights drawn from ``prng.key(0)`` on the device, equal to the
+reference's ``init_params(PRNGKey(0))`` within 1e-5 relative (``prng``;
+nothing is downloaded). ``--full-width`` takes the published width instead
 (``build(reduced=False)``), and ``--n-layers N`` cuts the depth: grok-1 and
 llama4 do not fit one 80 GB card whole (``--n-layers 2``: two MoE layers
 of grok-1, one dense and one MoE layer of llama4).
@@ -65,6 +66,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.core.distributed import make_mesh
 from repro_torch.core.index import IVFIndex
@@ -121,8 +123,8 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
     multi-tenant stream; ``index`` is ``"exact"`` or ``"ivf"``.
     ``backend="model"`` puts ``arch`` (reduced unless ``reduced=False``;
     ``n_layers`` layers if given) behind the cache, its weights drawn from
-    a generator on ``device`` seeded with 0 (``repro.launch.serve`` draws
-    them from ``PRNGKey(0)``).
+    ``prng.key(0)`` on ``device``: ``repro.launch.serve``'s from
+    ``PRNGKey(0)``, within 1e-5 relative, on any device.
     ``tracer`` goes to the engine. ``shards > 0`` serves through a
     ``DistributedCache`` of that many shards on ``device``; a sequence of
     devices, through one shard on each, the engine on the first."""
@@ -152,7 +154,7 @@ def build(*, corpus: int = 2000, queries: int = 500, threshold: float = 0.8,
         if n_layers is not None:
             config = dataclasses.replace(config, n_layers=n_layers)
         model = Model(config, device=device)
-        model.init_params(torch.Generator(device=model.device).manual_seed(0))
+        model.init_params(prng.key(0))
         llm = ModelBackend(model, HashTokenizer(vocab_size=config.vocab))
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -11,9 +11,10 @@ forward and backward run in the hand-written flash-attention kernels.
 
 The batches are the reference's: ``make_batches`` is its numpy sampler
 over the same tokenizer and corpus, so the token rows are equal. Weights
-are drawn from a generator seeded with 0 on the device (the reference
-draws them from ``PRNGKey(0)``), unless ``train`` gets ``params=``, e.g.
-``convert.params_from_jax`` of the reference's. Like the reference, it
+are drawn from ``prng.key(0)`` on the device, equal to the reference's
+``init_params(PRNGKey(0))`` within 1e-5 relative on any device (``prng``),
+unless ``train`` gets ``params=``, e.g. ``convert.params_from_jax`` of the
+reference's. Like the reference, it
 feeds (B, L) text tokens, which the audio family (B, L, C codebook
 tokens) cannot take: it raises a ValueError there, and audio trains
 through ``Model.loss_fn`` directly.
@@ -27,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.core.types import resolve_device
 from repro_torch.data.qa_dataset import build_corpus
@@ -71,7 +73,7 @@ def train(arch: str = "deepseek-7b", *, steps: int = 200, batch: int = 8,
     device = resolve_device(device)
     model = Model(config, device=device)
     if params is None:
-        model.init_params(torch.Generator(device=device).manual_seed(0))
+        model.init_params(prng.key(0))
     else:
         model.load_state_dict(params)
     model.requires_grad_(True)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.types import resolve_device
+
 
 def to_tensor(a: np.ndarray) -> torch.Tensor:
     """A numpy array as a CPU tensor of the same dtype; bfloat16 by its
@@ -42,9 +44,12 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def tree_from_jax(tree: dict, device="cpu") -> dict:
+def tree_from_jax(tree: dict, device="cuda") -> dict:
     """A JAX parameter tree (nested dicts of numpy arrays, e.g. the
     encoder's ``init_encoder_params``) as the same nesting of tensors on
-    ``device``, each leaf's shape and dtype kept."""
-    return {name: tree_from_jax(leaf, device) if isinstance(leaf, dict)
-            else to_tensor(leaf).to(device) for name, leaf in tree.items()}
+    ``device``, each leaf's shape and dtype kept. ``device`` defaults to
+    CUDA and raises without it, as every entry point does; pass
+    ``device="cpu"`` for the host."""
+    dev = resolve_device(device)
+    return {name: tree_from_jax(leaf, dev) if isinstance(leaf, dict)
+            else to_tensor(leaf).to(dev) for name, leaf in tree.items()}

@@ -75,6 +75,7 @@ from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.launch import sharding as shlib
@@ -390,74 +391,94 @@ class Model(nn.Module):
     # parameter construction
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> "Model":
-        """Random init with the JAX package's scales: normal x scale drawn
-        in f32 on the module's device from ``generator`` (which must live
-        there), cast to the parameter's dtype; norms, ``d_skip`` ones, the
-        SSM biases and ``a_log`` zeros. A stacked weight is drawn one
-        matrix at a time (a layer slot's, an expert's), so no f32
-        temporary is larger than one matrix: grok-1's (8, 6144, 32768)
-        experts of a layer would take 6.4 GB at once. The numbers differ
-        from JAX's ``init_params``; tests carry JAX's across. On a mesh
-        each rank draws the same matrices in the same order, keeps its
-        block of each and frees the rest, so the numbers are the unsharded
-        init's and no rank holds more than one full matrix beside its
-        shards."""
+    def init_params(self, key) -> "Model":
+        """The reference's ``init_params(key)`` (``repro_torch.prng``
+        keys): ``split(key, 16)`` taken in the reference's leaf order
+        (embed, lm_head, prefix_proj, meta_tokens, wq, wk, wv, wo, the SSM
+        layers' key, mlp_gate, mlp_up, mlp_down, router, moe_gate, moe_up,
+        moe_down, each where the config has it), each leaf ``normal * scale``
+        in f32 rounded once to its dtype; an SSM layer (g, i) draws
+        ``in_proj``, ``conv_w`` and ``out_proj`` from ``split`` of its own
+        key of ``split(next, G * I)``. Norms and ``d_skip`` are ones, the
+        SSM biases and ``a_log`` zeros. The numbers are the reference's
+        within its erfinv's rounding (``prng``) on any device: CUDA draws
+        run the threefry kernel straight into the parameters' storage, one
+        launch a leaf, so no f32 temporary is made. On a mesh each rank
+        draws the rows of its block of each matrix alone, at their counter
+        offset, and keeps its columns of them, so the numbers are the
+        unsharded init's and no rank holds more than one matrix's rows of
+        its block beside its shards."""
         c = self.config
         d, hd = c.d_model, c.head_dim
+        kit = iter(prng.split(key, 16))
 
-        def draw(shape, scale):
-            return torch.randn(shape, generator=generator,
-                               dtype=torch.float32, device=self.device) \
-                * scale
-
-        def nrm(p, scale):
+        def nrm(p, scale, k, per_matrix=False):
+            """Draw ``p`` from key ``k``, its matrix [idx] (the last two
+            dims) at counter offset ``flat(idx) * rows * cols`` as one
+            draw of the whole leaf numbers it; with ``per_matrix``, ``k``
+            holds one key a matrix, each drawn from counter 0."""
+            rows, cols = p.shape[-2:]
             if not isinstance(p, DTensor):
-                for m in p.view(-1, *p.shape[-2:]):   # one matrix at a time
-                    m.copy_(draw(m.shape, scale))
+                if not per_matrix:
+                    prng.normal_(p, k, scale=scale)
+                    return
+                for flat, m in enumerate(p.view(-1, rows, cols)):
+                    prng.normal_(m, k[flat], scale=scale)
                 return
             block = self._block(p.shape, p.placements)
             local = p.to_local()
-            for idx in itertools.product(*map(range, p.shape[:-2])):
-                m = draw(p.shape[-2:], scale)
-                if all(b.start <= i < b.stop for i, b in zip(idx, block)):
-                    local[tuple(i - b.start for i, b in zip(idx, block))] \
-                        .copy_(m[block[-2:]])
+            r = block[-2]
+            for idx in itertools.product(*(range(b.start, b.stop)
+                                           for b in block[:-2])):
+                flat = 0
+                for i, n in zip(idx, p.shape[:-2]):
+                    flat = flat * n + i
+                mk, base = (k[flat], 0) if per_matrix \
+                    else (k, flat * rows * cols)
+                m = prng.normal(mk, (r.stop - r.start, cols), scale=scale,
+                                dtype=p.dtype, offset=base + r.start * cols,
+                                device=self.device)
+                local[tuple(i - b.start for i, b in zip(idx, block))] \
+                    .copy_(m[:, block[-1]])
 
-        nrm(self.embed, 0.02)
-        nrm(self.lm_head, d ** -0.5)
+        nrm(self.embed, 0.02, next(kit))
+        nrm(self.lm_head, d ** -0.5, next(kit))
         self.final_norm.fill_(1.0)
         if c.n_prefix > 0:
-            nrm(self.prefix_proj, d ** -0.5)
+            nrm(self.prefix_proj, d ** -0.5, next(kit))
         if c.n_meta_tokens > 0:
-            nrm(self.meta_tokens, 0.02)
+            nrm(self.meta_tokens, 0.02, next(kit))
         b = self.blocks
         b["norm1"].fill_(1.0)
         if c.has_attention:
-            nrm(b["wq"], d ** -0.5)
-            nrm(b["wk"], d ** -0.5)
-            nrm(b["wv"], d ** -0.5)
-            nrm(b["wo"], (c.n_heads * hd) ** -0.5)
-        if self.n_mlp_slots > 0:
-            b["norm2"].fill_(1.0)
-            nrm(b["mlp_gate"], d ** -0.5)
-            nrm(b["mlp_up"], d ** -0.5)
-            nrm(b["mlp_down"], c.d_ff ** -0.5)
-        if c.is_moe:
-            b["moe_norm"].fill_(1.0)
-            nrm(b["router"], d ** -0.5)
-            nrm(b["moe_gate"], d ** -0.5)
-            nrm(b["moe_up"], d ** -0.5)
-            nrm(b["moe_down"], c.d_ff ** -0.5)
+            nrm(b["wq"], d ** -0.5, next(kit))
+            nrm(b["wk"], d ** -0.5, next(kit))
+            nrm(b["wv"], d ** -0.5, next(kit))
+            nrm(b["wo"], (c.n_heads * hd) ** -0.5, next(kit))
         if c.has_ssm:
             sp = b.ssm
-            nrm(sp["in_proj"], d ** -0.5)
-            nrm(sp["conv_w"], c.ssm_conv ** -0.5)
-            nrm(sp["out_proj"], c.d_inner ** -0.5)
+            layers = [prng.split(lk, 3) for lk in
+                      prng.split(next(kit), self.n_groups * self.interleave)]
+            for j, (name, scale) in enumerate(
+                    (("in_proj", d ** -0.5), ("conv_w", c.ssm_conv ** -0.5),
+                     ("out_proj", c.d_inner ** -0.5))):
+                nrm(sp[name], scale, [lk[j] for lk in layers],
+                    per_matrix=True)
             for name in ("conv_b", "dt_bias", "a_log"):
                 sp[name].zero_()
             sp["d_skip"].fill_(1.0)
             sp["norm_w"].fill_(1.0)
+        if self.n_mlp_slots > 0:
+            b["norm2"].fill_(1.0)
+            nrm(b["mlp_gate"], d ** -0.5, next(kit))
+            nrm(b["mlp_up"], d ** -0.5, next(kit))
+            nrm(b["mlp_down"], c.d_ff ** -0.5, next(kit))
+        if c.is_moe:
+            b["moe_norm"].fill_(1.0)
+            nrm(b["router"], d ** -0.5, next(kit))
+            nrm(b["moe_gate"], d ** -0.5, next(kit))
+            nrm(b["moe_up"], d ** -0.5, next(kit))
+            nrm(b["moe_down"], c.d_ff ** -0.5, next(kit))
         return self
 
     # ------------------------------------------------------------------ #

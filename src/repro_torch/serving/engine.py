@@ -20,8 +20,9 @@ the threshold policy (the adaptive controller of paper §2.10).
 
 Index: ``ExactIndex`` by default, or ``IVFIndex`` (k-means buckets, the
 repo's analogue of the paper's HNSW), whose state is refit from the slab
-with a CPU generator seeded 17 before the first batch and every
-``rebuild_every`` inserts after.
+before the first batch and every ``rebuild_every`` inserts after, each
+refit drawing from a fresh split of the ``repro_torch.prng`` key 17, as
+the reference splits ``PRNGKey(17)``.
 
 Multi-tenancy: constructing the engine with a ``TenantRegistry`` partitions
 the slab into per-tenant regions and routes each request's ``tenant``
@@ -79,6 +80,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.context.session import SessionStore
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.distributed import DistributedCache, shard_axes
@@ -264,7 +266,7 @@ class CachedEngine:
         self.rebuild_every = rebuild_every
         self._inserts_since_rebuild = 0
         self._needs_refit = True
-        self._rebuild_rng = torch.Generator().manual_seed(17)
+        self._rebuild_rng = prng.key(17)
         self.refits = 0          # index refits run by this engine
         self.backend = backend
         self.embedder = embedder or HashEmbedder(dim=cache_config.dim)
@@ -407,8 +409,8 @@ class CachedEngine:
     def _maybe_refit(self) -> None:
         if self._needs_refit or \
                 self._inserts_since_rebuild >= self.rebuild_every:
-            self.runtime = self.cache.refit(self.runtime, self._now,
-                                            self._rebuild_rng)
+            self._rebuild_rng, k = prng.split(self._rebuild_rng)
+            self.runtime = self.cache.refit(self.runtime, self._now, k)
             self.refits += 1
             self._needs_refit = False
             self._inserts_since_rebuild = 0

@@ -23,6 +23,7 @@ from repro.data import audio_delay as jdelay
 from repro.data.tokenizer import HashTokenizer as JTokenizer
 from repro.models.model import Model as JModel
 from repro.serving import ModelBackend as JModelBackend
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.data import audio_delay as tdelay
 from repro_torch.data.tokenizer import HashTokenizer
@@ -121,7 +122,7 @@ def test_audio_decode_continues_its_forward():
     """Prefill then one decode step equals the forward of the extended
     delayed sequence at that position, with the prefix."""
     cfg = get_arch(ARCH).reduced()
-    tm = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    tm = Model(cfg, device="cpu").init_params(prng.key(0))
     toks, pre = map(torch.from_numpy, _audio_batch(cfg, 2, 10, seed=4))
     toks = toks.long()
     with torch.inference_mode():

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.core.index import IVFIndex
 from repro_torch.core.types import CacheConfig
@@ -52,6 +53,7 @@ from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ivf_topk as kivf
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import threefry as kthreefry
 from repro_torch.launch import serve
 from repro_torch.models.model import Model
 from repro_torch.obs import TraceConfig, Tracer
@@ -1254,7 +1256,7 @@ def test_cuda_attention_wrappers_refuse(cuda_device):
 def _yi_reduced(device, state=None):
     m = Model(get_arch("yi-6b").reduced(), device=device)
     if state is None:
-        return m.init_params(torch.Generator(device=device).manual_seed(0))
+        return m.init_params(prng.key(0))
     m.load_state_dict(state)
     return m
 
@@ -1298,8 +1300,7 @@ def test_model_families_on_cuda_match_cpu(cuda_device, arch):
     for mamba2), the MoE and SSM layers in PyTorch; logits, SSM states and
     answers equal to the same weights on the CPU."""
     cfg = get_arch(arch).reduced()
-    card = Model(cfg, device=cuda_device).init_params(
-        torch.Generator(device=cuda_device).manual_seed(0))
+    card = Model(cfg, device=cuda_device).init_params(prng.key(0))
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
     queries = ["how do I reset my router", "what is a python list",
@@ -1724,8 +1725,7 @@ def test_training_step_through_the_kernels_matches_cpu(cuda_device, arch):
     ``wq``'s gradient is not zero, and the backward kernel ran once a
     layer."""
     cfg = get_arch(arch).reduced()
-    card = Model(cfg, device=cuda_device).init_params(
-        torch.Generator(device=cuda_device).manual_seed(0))
+    card = Model(cfg, device=cuda_device).init_params(prng.key(0))
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
     rng = np.random.default_rng(3)
@@ -1758,8 +1758,7 @@ def test_audio_and_vlm_on_cuda_match_cpu(cuda_device, arch):
     through the flash kernel and three decode steps through the decode
     kernel, logits and caches equal to the same weights on the CPU."""
     cfg = get_arch(arch).reduced()
-    card = Model(cfg, device=cuda_device).init_params(
-        torch.Generator(device=cuda_device).manual_seed(0))
+    card = Model(cfg, device=cuda_device).init_params(prng.key(0))
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
     rng = np.random.default_rng(5)
@@ -1792,8 +1791,8 @@ def test_train_driver_on_cuda_matches_cpu(cuda_device):
     the card from the CPU run's initial weights, losses and gradient norms
     within 1e-4 of the CPU's, through the backward kernel."""
     from repro_torch.launch import train as tr
-    init = Model(get_arch("deepseek-7b").reduced(), device="cpu").init_params(
-        torch.Generator().manual_seed(0)).state_dict()
+    init = Model(get_arch("deepseek-7b").reduced(),
+                 device="cpu").init_params(prng.key(0)).state_dict()
     kflash.reset_launches()
     card = tr.train(steps=3, batch=2, seq=32, device="cuda", params=init,
                     log=lambda *a: None)
@@ -1810,8 +1809,7 @@ def test_encoder_on_cuda_matches_cpu(cuda_device):
     ragged lengths with rows of length 1 and 0: within 1e-5 (f32, TF32
     off)."""
     from repro_torch.embedding import MINILM_L6, encode, init_encoder_params
-    params = init_encoder_params(torch.Generator().manual_seed(0),
-                                 device="cpu")
+    params = init_encoder_params(prng.key(0), device="cpu")
     card = {k: ({n: t.to(cuda_device) for n, t in v.items()}
                 if isinstance(v, dict) else v.to(cuda_device))
             for k, v in params.items()}
@@ -1860,8 +1858,7 @@ def test_sharded_model_on_a_one_rank_nccl_mesh(cuda_device):
                             rank=0, world_size=1)
     try:
         mesh = make_local_mesh(1, 1, device_type="cuda")
-        plain = Model(cfg, device=cuda_device).init_params(
-            torch.Generator(device=cuda_device).manual_seed(0))
+        plain = Model(cfg, device=cuda_device).init_params(prng.key(0))
         sharded = Model(cfg, device=cuda_device, mesh=mesh)
         sharded.load_state_dict(plain.state_dict())
         assert isinstance(sharded.blocks["wq"], DTensor)
@@ -1917,18 +1914,82 @@ def _close_leaves(got, want, tol, where=""):
 @pytest.mark.parametrize("name,kernels", [
     ("quickstart", ("cosine_topk",)),
     ("serve_cached_chatbot", ("cosine_topk", "flash_attention",
-                              "decode_attention"))])
-def test_cuda_example_matches_cpu(cuda_device, name, kernels, capsys):
+                              "decode_attention", "threefry_normal")),
+    ("train_small", ("threefry_normal",))])
+def test_cuda_example_matches_cpu(cuda_device, name, kernels, capsys,
+                                  tmp_path):
     """The example on the card launches its kernels and gives the CPU run's
-    decisions and answers, scores within 1e-5 and counters within 1e-4."""
+    decisions and answers, scores within 1e-5 and counters within 1e-4
+    (``train_small``, reduced for 12 steps: its loss curve, each device
+    drawing its weights from key 0)."""
     mod = _example(name)
-    for m in (kmod, kflash, kdec):
+    argv = []
+    if name == "train_small":
+        argv = ["--reduced", "--steps", "12", "--checkpoint",
+                str(tmp_path / "mamba2.npz")]
+    for m in (kmod, kflash, kdec, kthreefry):
         m.reset_launches()
-    card = mod.main(["--device", "cuda"])
-    launched = {**kmod.launches, **kflash.launches, **kdec.launches}
+    card = mod.main(["--device", "cuda", *argv])
+    launched = {**kmod.launches, **kflash.launches, **kdec.launches,
+                **kthreefry.launches}
     assert all(launched[k] > 0 for k in kernels), launched
-    cpu = mod.main(["--device", "cpu"])
+    cpu = mod.main(["--device", "cpu", *argv])
     capsys.readouterr()
     assert card["decisions"] == cpu["decisions"]
     _close_leaves(card["scores"], cpu["scores"], 1e-5, "scores")
     _close_leaves(card["counters"], cpu["counters"], 1e-4, "counters")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 2 ** 32 - 1000, 3 * 2 ** 32 + 7])
+def test_cuda_threefry_matches_plain_version(cuda_device, dtype, offset):
+    """The draw kernel against its plain version on the card: bits and
+    uniforms bit for bit, normals (times a scale, in the leaf's dtype)
+    within 1e-5 relative in f32 and at most a bf16 ulp apart in bf16; a
+    draw at an offset is that slice of the whole draw; one launch a
+    call."""
+    key = tuple(int(k) for k in prng.key(11))
+    n = 70001
+    for kind, out_dtype in (("bits", torch.int64), ("uniform", torch.float32)):
+        got = kthreefry.threefry_cuda(
+            torch.empty(n, dtype=out_dtype, device=cuda_device), key,
+            kind=kind, offset=offset, lo=0.0)
+        want = tref.threefry_fill_ref(torch.empty_like(got), key, kind=kind,
+                                      offset=offset, lo=0.0)
+        assert torch.equal(got, want), kind
+    kthreefry.reset_launches()
+    got = prng.normal(prng.key(11), (7, n), scale=0.05,
+                      dtype=getattr(torch, dtype), offset=offset,
+                      device=cuda_device)
+    assert kthreefry.launches["threefry_normal"] == 1
+    want = prng.normal(prng.key(11), (7, n), scale=0.05,
+                       dtype=getattr(torch, dtype), offset=offset,
+                       device="cpu")
+    a, b = got.cpu().float(), want.float()
+    if dtype == "float32":
+        assert float(((a - b).abs() / b.abs()).max()) <= 1e-5
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(a.abs(),
+                                                              b.abs())
+        assert bool(torch.all((a - b).abs() <= ulp))
+    part = prng.normal(prng.key(11), (n,), scale=0.05,
+                       dtype=getattr(torch, dtype), offset=offset + 3 * n,
+                       device=cuda_device)
+    assert torch.equal(part, got[3])
+
+
+@pytest.mark.cuda
+def test_cuda_init_params_draws_the_cpu_weights(cuda_device):
+    """The reduced yi-6b drawn on the card from key 0 holds the CPU draw's
+    weights within 1e-5 relative, one threefry launch a drawn leaf."""
+    kthreefry.reset_launches()
+    card = Model(get_arch("yi-6b").reduced(),
+                 device=cuda_device).init_params(prng.key(0))
+    assert kthreefry.launches["threefry_normal"] == 9
+    cpu = Model(get_arch("yi-6b").reduced(), device="cpu").init_params(
+        prng.key(0))
+    for name, t in cpu.state_dict().items():
+        got = card.state_dict()[name].cpu()
+        assert float(((got - t).abs() / t.abs().clamp_min(1e-30)).max()) \
+            <= 1e-5, name

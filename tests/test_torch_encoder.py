@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.embedding import encoder as jenc
+from repro_torch import prng
 from repro_torch.embedding import (MINILM_L6, EncoderConfig, encode,
                                    init_encoder_params)
 from repro_torch.models.convert import tree_from_jax
@@ -53,8 +54,8 @@ def test_encode_matches_jax(cfg, lengths):
                                                          jparams),
                                   jnp.asarray(tokens), jnp.asarray(lens),
                                   cfg))
-    got = encode(tree_from_jax(jparams), torch.from_numpy(tokens),
-                 torch.from_numpy(lens), cfg)
+    got = encode(tree_from_jax(jparams, device="cpu"),
+                 torch.from_numpy(tokens), torch.from_numpy(lens), cfg)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert np.isfinite(want).all() and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
@@ -63,8 +64,7 @@ def test_encode_matches_jax(cfg, lengths):
 
 
 def test_params_tree_and_scales():
-    gen = torch.Generator().manual_seed(0)
-    params = init_encoder_params(gen, NARROW, device="cpu")
+    params = init_encoder_params(prng.key(0), NARROW, device="cpu")
     want = jax.tree_util.tree_map(
         lambda a: (a.shape, a.dtype.name), _jax_params(NARROW))
     got = jax.tree_util.tree_map(
@@ -82,7 +82,7 @@ def test_params_tree_and_scales():
 def test_output_contract():
     """The reference's ``TestEncoder.test_output_contract`` on the port."""
     gen = torch.Generator().manual_seed(0)
-    params = init_encoder_params(gen, device="cpu")
+    params = init_encoder_params(prng.key(0), device="cpu")
     tokens = torch.randint(0, MINILM_L6.vocab, (3, 16), generator=gen)
     emb = encode(params, tokens, torch.tensor([16, 8, 1]))
     assert emb.shape == (3, MINILM_L6.d_model)
@@ -94,7 +94,7 @@ def test_padding_invariance():
     """Positions at or past a row's length do not move it (the reference's
     ``test_padding_invariance``)."""
     gen = torch.Generator().manual_seed(0)
-    params = init_encoder_params(gen, device="cpu")
+    params = init_encoder_params(prng.key(0), device="cpu")
     t1 = torch.randint(3, 1000, (1, 16), generator=gen)
     t2 = t1.clone()
     t2[:, 8:] = 999
@@ -104,8 +104,7 @@ def test_padding_invariance():
 
 
 def test_too_long_raises():
-    gen = torch.Generator().manual_seed(0)
-    params = init_encoder_params(gen, NARROW, device="cpu")
+    params = init_encoder_params(prng.key(0), NARROW, device="cpu")
     tokens = torch.zeros((1, NARROW.max_len + 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="max_len"):
         encode(params, tokens, torch.tensor([4]), NARROW)
@@ -115,4 +114,4 @@ def test_init_needs_a_device_it_has():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_encoder_params(torch.Generator(), NARROW)
+        init_encoder_params(prng.key(0), NARROW)

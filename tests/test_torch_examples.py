@@ -10,9 +10,10 @@ within 1e-4. Numbers that depend on arrival timing in the async scenes
 (which rows share a batch or coalesce) are not compared; the invariants
 that hold whatever the timing are, on both sides.
 
-Where a model runs (``serve_cached_chatbot``, ``train_small``), the port's
-``Model.init_params`` is replaced here by the reference's weights, carried
-across with ``convert.params_from_jax``."""
+Where a model runs (``serve_cached_chatbot``, ``train_small``), each
+package draws its own weights from key 0 (``repro_torch.prng`` reproduces
+the reference's ``jax.random`` streams; both run them in partitionable
+mode here, ``threefry_partitionable``)."""
 import ast
 import contextlib
 import importlib.util
@@ -31,13 +32,9 @@ import pytest
 import torch
 
 import repro.launch.train as jtrain
-from repro.configs import get_arch as jget_arch
 from repro.core.cache import SemanticCache as JSemanticCache
-from repro.models.model import Model as JModel
 from repro.serving.engine import CachedEngine as JEngine
 from repro.serving.scheduler import AsyncScheduler as JScheduler
-from repro_torch.models.convert import params_from_jax
-from repro_torch.models.model import Model
 
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "examples"
@@ -132,14 +129,14 @@ def run_port(name: str, capsys, *argv) -> dict:
     return out
 
 
-def carry_weights(monkeypatch, jparams) -> None:
-    """The port's seeded init loads the reference's weights instead."""
-    state = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
-
-    def init_params(model, generator):
-        model.load_state_dict(state)
-        return model
-    monkeypatch.setattr(Model, "init_params", init_params)
+@pytest.fixture(autouse=True)
+def threefry_partitionable():
+    """The reference's streams as the port draws them: jax >= 0.5 runs
+    threefry in partitionable mode by default, older jax does not."""
+    was = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    yield
+    jax.config.update("jax_threefry_partitionable", was)
 
 
 def flag(text: str, pattern: str) -> str:
@@ -365,12 +362,7 @@ def run_pair(name, tmp_path, monkeypatch, capsys):
                             for a in sys.argv]
                 return train_main()
             monkeypatch.setattr(jtrain, "main", redirected_main)
-            jcfg = jget_arch("mamba2-130m").reduced()
-            carry_weights(monkeypatch,
-                          JModel(jcfg).init_params(jax.random.PRNGKey(0)))
         g, text = run_reference(name, monkeypatch, *argv)
-        if name == "serve_cached_chatbot":
-            carry_weights(monkeypatch, g["params"])
     want = REFERENCE_READERS[name](g, text, rec)
     got = run_port(name, capsys, *port_argv)
     return got, want, g

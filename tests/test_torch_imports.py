@@ -119,6 +119,13 @@ def test_last_modules_slice_files_are_checked():
             "models/model.py"} <= names
 
 
+def test_prng_slice_files_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"prng.py", "kernels/threefry.py", "kernels/ops.py",
+            "kernels/ref.py"} <= names
+
+
 def test_examples_slice_files_are_checked():
     names = {p.name for p in _port_files() if p.parent == EXAMPLES}
     assert names == {p.name for p in (ROOT / "examples").glob("*.py")}
@@ -193,6 +200,9 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.core import HNSWIndex\n"
         "from repro_torch.models.convert import tree_from_jax\n"
         "from repro_torch.launch import dryrun, roofline, sharding\n"
+        "from repro_torch import prng\n"
+        "from repro_torch.kernels.threefry import threefry_cuda\n"
+        "from repro_torch.kernels.ref import threefry_fill_ref\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

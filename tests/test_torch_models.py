@@ -45,6 +45,7 @@ from repro.models.model import Model as JModel
 from repro.serving import CachedEngine as JEngine
 from repro.serving import ModelBackend as JModelBackend
 from repro.serving import Request as JRequest
+from repro_torch import prng
 from repro_torch.configs import ARCHITECTURES, get_arch
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.kernels import flash_attention as kflash
@@ -520,8 +521,7 @@ def decode_matches_own_forward(arch):
     """Prefill -> decode equals the forward of the extended sequence, as
     ``tests/test_arch_smoke.py`` checks for JAX."""
     _, tcfg = configs(arch)
-    tm = Model(tcfg, device="cpu").init_params(
-        torch.Generator().manual_seed(0))
+    tm = Model(tcfg, device="cpu").init_params(prng.key(0))
     toks = torch.from_numpy(_tokens(tcfg.vocab, 2, 24, seed=4)).long()
     with torch.inference_mode():
         lg, caches = tm(toks, collect_cache=True, cache_size=64)
@@ -559,8 +559,8 @@ def test_params_from_jax_keeps_every_leaf_and_dtype():
 
 def test_init_params_scales_and_generator():
     _, tcfg = configs("yi-6b")
-    a = Model(tcfg, device="cpu").init_params(torch.Generator().manual_seed(0))
-    b = Model(tcfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    a = Model(tcfg, device="cpu").init_params(prng.key(0))
+    b = Model(tcfg, device="cpu").init_params(prng.key(0))
     for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(x, y), name
     d = tcfg.d_model
@@ -575,7 +575,7 @@ def test_each_arch_runs_or_names_its_slice(arch):
     codebook tokens with per-codebook logits, audio and vlm also behind
     their frontend's prefix embeddings."""
     cfg = get_arch(arch).reduced()
-    m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    m = Model(cfg, device="cpu").init_params(prng.key(0))
     assert m.config is cfg
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     toks = torch.from_numpy(np.random.default_rng(1).integers(

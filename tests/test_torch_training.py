@@ -34,6 +34,7 @@ from repro.launch.train import make_batches as jmake_batches
 from repro.models import attention as jattn
 from repro.models.model import Model as JModel
 from repro.training import optimizer as jopt
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.data.qa_dataset import build_corpus
 from repro_torch.data.tokenizer import HashTokenizer
@@ -129,7 +130,7 @@ def test_remat_policy_is_checked_and_remat_needs_grad():
     cfg = get_arch("yi-6b").reduced()
     with pytest.raises(ValueError, match="remat_policy"):
         Model(cfg, device="cpu", remat_policy="some")
-    m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    m = Model(cfg, device="cpu").init_params(prng.key(0))
     toks = torch.from_numpy(_batch(cfg)[0]).long()
     with torch.no_grad():   # no graph: remat is a no-op
         a = m(toks, remat=True)
@@ -265,7 +266,7 @@ def test_model_gradient_reaches_the_attention_projections():
     (the attention output carries its history), and ``decode_step``
     refuses to run while parameters require grad."""
     cfg = get_arch("yi-6b").reduced()
-    m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    m = Model(cfg, device="cpu").init_params(prng.key(0))
     m.requires_grad_(True)
     toks = torch.from_numpy(_batch(cfg)[0]).long()
     m.loss_fn(toks).backward()
@@ -339,7 +340,7 @@ def test_inplace_update_and_train_step_keep_the_tensors():
     dict it returns holds the same tensors) with ``adamw_update``'s
     numbers on the loss's gradients."""
     cfg = get_arch("yi-6b").reduced()
-    m = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    m = Model(cfg, device="cpu").init_params(prng.key(0))
     m.requires_grad_(True)
     named = dict(m.named_parameters())
     before = {n: p.detach().clone() for n, p in named.items()}

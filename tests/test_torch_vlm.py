@@ -23,6 +23,7 @@ import torch
 from repro.configs import get_arch as jget_arch
 from repro.models import layers as jlayers
 from repro.models.model import Model as JModel
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.models import layers as tlayers
 from repro_torch.models.convert import params_from_jax
@@ -177,7 +178,7 @@ def test_vlm_int8_kv_decode_matches_jax_logits():
 
 def test_vlm_decode_continues_its_forward_behind_the_prefix():
     cfg = get_arch(ARCH).reduced()
-    tm = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    tm = Model(cfg, device="cpu").init_params(prng.key(0))
     toks = torch.from_numpy(_tokens(cfg.vocab, 2, 20, seed=8)).long()
     pre = torch.from_numpy(_prefix(cfg, 2, seed=9))
     with torch.inference_mode():

@@ -17,6 +17,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
 
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.convert import params_from_jax
@@ -202,7 +203,7 @@ def _init_mismatch(mesh, arch) -> list[str]:
     """The parameters whose init on the mesh differs from the unsharded
     init's from the same seed."""
     plain, sharded = (Model(config(arch), device="cpu", **kw).init_params(
-        torch.Generator().manual_seed(3)) for kw in ({}, {"mesh": mesh}))
+        prng.key(3)) for kw in ({}, {"mesh": mesh}))
     want = dict(plain.named_parameters())
     return [n for n, p in sharded.named_parameters()
             if not torch.equal(p.full_tensor(), want[n])]
