@@ -29,7 +29,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
             and uniforms bit for bit over 2^24 counters across 2^32,
             normals at one full-width matrix (grok-1's expert, f32 within
             1e-5, bf16 equal but at rounding boundaries) below and past
-            2^32
+            2^32; its original layout (``jax_threefry_partitionable``
+            off): bits and uniforms bit for bit over an odd n and around
+            its h, llama4's 2-layer expert leaf drawn whole in bf16 and
+            held window by window around its block ends and h to the plain
+            version and to the kernel's own offset draws, and a reduced
+            hymba built in that mode on the card equal to its CPU build
   main      the paper's serve loop (``repro_torch.launch.serve`` defaults)
             on the card for f32 and int8 slabs, with each kernel's launches
             counted, held request by request against the same run on the CPU;
@@ -607,7 +612,8 @@ def phase_kernel(torch) -> dict:
     emit("kernel", check="dense pass 0 and row ranking card == plain, "
          "bitwise", masks=4 * len(per_row_cases))
     worst["ivf_topk"] = _ivf_kernel_cases(torch)
-    worst["threefry_normal"] = _threefry_cases(torch)
+    worst["threefry_normal"] = max(_threefry_cases(torch),
+                                   _threefry_original_cases(torch))
     _quantize_keys_check(torch)
     return worst
 
@@ -812,6 +818,29 @@ THREEFRY_MATRICES = (1, 23)
 # issue slot (4 warp instructions a clock an SM), reported beside it.
 THREEFRY_ALU_OPS = 71
 THREEFRY_ISSUED = 151
+# the original layout (jax_threefry_partitionable off, jax 0.4's default),
+# one thread a counter pair that writes both of its draws: its SASS counted
+# as above (see THREEFRY_PAIR_ALU_OPS below)
+# - an odd n (the last pair's pad) whole, and windows around its h
+THREEFRY_ODD = (1 << 24) + 1
+THREEFRY_WINDOW = 1 << 20
+# - llama4's stacked expert leaf at 2 layers (2 layers x 128 experts x d
+#   5,120 x d_ff 8,192): 1.07e10 draws, past two ends of the layout's
+#   blocks of 2^32 - 1, 21.5 GB in bf16, drawn whole on the card
+THREEFRY_LLAMA4_LEAF = (2, 128, 5120, 8192)
+# - the reduced model built in the original mode on the card and the CPU
+THREEFRY_ORIGINAL_ARCH = "hymba-1.5b"
+# one pair (two bf16 normals, both in the window) as nvcc 12.9 compiles
+# threefry_pairs_kernel for sm_90a (cuobjdump -sass, the loop on its common
+# path, counted as above): 238 instructions. ALU: 94 (the pair's choice,
+# window tests and hash 62: 15 IADD3, 21 LOP3, 20 SHF, 5 ISETP, 1 SEL; each
+# element's tail 13 and 17; the loop's 2 ISETP). FMA pipe: 19 IMAD and 64
+# FP32 (FFMA, FADD, FMUL). Elsewhere: 30 LDC, 19 branch and convergence, 2
+# I2FP, 2 STG, 1 HFMA2 and 7 moves and adds whose pipe the SASS does not
+# name (4 VIADD, 3 MOV), left out of the ALU's count. So a draw takes 47
+# ALU operations and 119 issue slots, against 71 and 151 one a thread.
+THREEFRY_PAIR_ALU_OPS = 94
+THREEFRY_PAIR_ISSUED = 238
 # H100 SXM: 64 INT32 (ALU) lanes an SM x 132 SMs x 1.98 GHz (boost clock)
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PEAK_ISSUE = 4 * 32 * 132 * 1.98e9
@@ -890,6 +919,24 @@ def _same_weights(torch, card_model, cpu_model, where: str) -> dict:
     return out
 
 
+def _window_offsets(total: int, points, width: int) -> list[int]:
+    """Offsets of windows of ``width`` centred on ``points``, inside a draw
+    of ``total``."""
+    return sorted({min(max(p - width // 2, 0), total - width)
+                   for p in points})
+
+
+def _bf16_flips(torch, got, want, where: str) -> int:
+    """Elements of two bf16 draws that differ, each by at most a bf16 ulp
+    (else fail)."""
+    flip = got != want
+    a, b = got[flip].float(), want[flip].float()
+    if not bool(torch.all((a - b).abs() <= torch.finfo(
+            torch.bfloat16).eps * torch.maximum(a.abs(), b.abs()))):
+        fail(f"{where}: an element differs by more than a bf16 ulp")
+    return int(flip.sum())
+
+
 def _threefry_cases(torch) -> float:
     """The draw kernel against its plain version on the card: bits and
     both of the port's uniforms ([0, 1) and the normal's) bit for bit over
@@ -931,14 +978,8 @@ def _threefry_cases(torch) -> float:
                             scale=scale)
         want = ref.threefry_fill_ref(torch.empty_like(got), key, offset=off,
                                      scale=scale)
-        flip = got != want
-        flips += int(flip.sum())
-        a, b = got[flip].float(), want[flip].float()
-        if not bool(torch.all((a - b).abs() <= torch.finfo(
-                torch.bfloat16).eps * torch.maximum(a.abs(), b.abs()))):
-            fail("threefry bf16 normals: an element differs by more than a "
-                 "bf16 ulp")
-        del got, want, flip
+        flips += _bf16_flips(torch, got, want, "threefry bf16 normals")
+        del got, want
     if rel_worst > THREEFRY_NORMAL_REL:
         fail(f"threefry f32 normals: {rel_worst} relative from the plain "
              "version")
@@ -953,13 +994,121 @@ def _threefry_cases(torch) -> float:
     return worst
 
 
+def _threefry_original_cases(torch) -> float:
+    """The original layout (``jax_threefry_partitionable`` off) against its
+    plain version on the card: bits and both uniforms bit for bit over a
+    whole draw of an odd n (``THREEFRY_ODD``) and windows around its h; at
+    llama4's expert leaf (``THREEFRY_LLAMA4_LEAF``), drawn whole in bf16
+    (times d^-0.5), windows around each block end and h against the plain
+    version's bf16 normals at those offsets (at most a bf16 ulp on at most
+    ``THREEFRY_BF16_FLIPS`` of them) and against the kernel's own draws at
+    those offsets (equal: a whole draw is its offset slices), bits and
+    uniforms there bit for bit, f32 normals within
+    ``THREEFRY_NORMAL_REL``; then ``THREEFRY_ORIGINAL_ARCH`` reduced, built
+    in the original mode on the card (one launch a drawn leaf) and on the
+    CPU, weights held by ``_same_weights``. Returns the largest
+    |kernel - plain| of the f32 normals."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import threefry as kthreefry
+    from repro_torch.models.model import Model
+    key = tuple(int(k) for k in prng.split(prng.key(0), 16)[14])
+    kinds = (("bits", torch.int64, ref.NORMAL_LO),
+             ("uniform", torch.float32, 0.0),
+             ("uniform", torch.float32, ref.NORMAL_LO))
+
+    def exact(n, offset, total, where):
+        for kind, dtype, lo in kinds:
+            kw = dict(kind=kind, offset=offset, lo=lo, layout="original",
+                      total=total)
+            got = kthreefry.threefry_cuda(
+                torch.empty(n, dtype=dtype, device="cuda"), key, **kw)
+            want = ref.threefry_fill_ref(torch.empty_like(got), key, **kw)
+            if not torch.equal(got, want):
+                fail(f"threefry original {kind} (lo {lo}) {where}: kernel "
+                     f"differs from the plain version at "
+                     f"{int((got != want).sum())} of {n}")
+
+    odd, width = THREEFRY_ODD, THREEFRY_WINDOW
+    exact(odd, 0, odd, f"whole n={odd}")
+    windows = {"odd": _window_offsets(odd, [-(-odd // 2)], width)}
+    for off in windows["odd"]:
+        exact(width, off, odd, f"at {off} of {odd}")
+    total = math.prod(THREEFRY_LLAMA4_LEAF)
+    scale = THREEFRY_LLAMA4_LEAF[-2] ** -0.5
+    windows["llama4"] = _window_offsets(total, ref.threefry_seams(total),
+                                        width)
+    for off in windows["llama4"]:
+        exact(width, off, total, f"at {off} of {total}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaf = kthreefry.threefry_cuda(
+        torch.empty(THREEFRY_LLAMA4_LEAF, dtype=torch.bfloat16,
+                    device="cuda"), key, scale=scale, layout="original")
+    torch.cuda.synchronize()
+    leaf_s = time.perf_counter() - t0
+    flat = leaf.view(-1)
+    flips, worst, rel_worst = 0, 0.0, 0.0
+    for off in windows["llama4"]:
+        kw = dict(offset=off, layout="original", total=total)
+        part = kthreefry.threefry_cuda(
+            torch.empty(width, dtype=torch.bfloat16, device="cuda"), key,
+            scale=scale, **kw)
+        if not torch.equal(part, flat[off:off + width]):
+            fail(f"threefry original: the draw at {off} of {total} is not "
+                 "that slice of the whole draw")
+        want = ref.threefry_fill_ref(torch.empty_like(part), key,
+                                     scale=scale, **kw)
+        flips += _bf16_flips(torch, part, want,
+                             f"threefry original bf16 at {off}")
+        got = kthreefry.threefry_cuda(
+            torch.empty(width, device="cuda"), key, **kw)
+        want = ref.threefry_fill_ref(torch.empty_like(got), key, **kw)
+        diff = (got - want).abs()
+        worst = max(worst, float(diff.max()))
+        rel_worst = max(rel_worst, float((diff / want.abs()).max()))
+    del leaf, flat
+    if rel_worst > THREEFRY_NORMAL_REL:
+        fail(f"threefry original f32 normals: {rel_worst} relative from the "
+             "plain version")
+    if flips > THREEFRY_BF16_FLIPS * width * len(windows["llama4"]):
+        fail(f"threefry original bf16 normals: {flips} elements one ulp "
+             "apart")
+    cfg = get_arch(THREEFRY_ORIGINAL_ARCH).reduced()
+    where = f"reduced {THREEFRY_ORIGINAL_ARCH}, original mode"
+    with prng.partitionable(False):
+        kthreefry.reset_launches()
+        card = Model(cfg, device="cuda").init_params(prng.key(0))
+        torch.cuda.synchronize()
+        launched = kthreefry.launches["threefry_normal"]
+        cpu = Model(cfg, device="cpu").init_params(prng.key(0))
+    if launched != _draw_count(card):
+        fail(f"{where}: the threefry kernel launched {launched} times, "
+             f"expected {_draw_count(card)}")
+    weights = _same_weights(torch, card, cpu, where)
+    del card, cpu
+    emit("kernel", kernel="threefry_normal", layout="original",
+         bits_uniforms="bit for bit", odd_n=odd, window=width,
+         windows=windows, llama4_leaf=list(THREEFRY_LLAMA4_LEAF),
+         llama4_leaf_seconds=leaf_s, whole_equals_offset_draws=True,
+         max_abs_err=worst, max_rel_err=rel_worst,
+         tolerance=THREEFRY_NORMAL_REL, bf16_one_ulp_apart=flips,
+         bf16_tolerance=THREEFRY_BF16_FLIPS, model=where,
+         model_launches=launched, weights_card_vs_cpu=weights)
+    return worst
+
+
 def _threefry_timing(torch, card: str) -> dict:
     """The draw kernel at one full-width bf16 matrix (``THREEFRY_MATRIX``
     below 2^32), its plain version and ``torch.randn`` into the same
     tensor (a yardstick: PyTorch's Philox, another stream), in turns with
     CUDA events; bound by ``THREEFRY_ALU_OPS`` a draw at the card's INT32
     (ALU) rate or the bf16 bytes written, the larger; the issue slots'
-    bound beside it."""
+    bound beside it. In the same turns the original layout draws the
+    matrix whole (``Model.init_params``' draw of such a leaf), kernel and
+    plain version, bound by ``THREEFRY_PAIR_ALU_OPS`` a pair of draws
+    (row ``original``)."""
     from repro_torch import prng
     from repro_torch.kernels import ref
     from repro_torch.kernels.threefry import threefry_cuda
@@ -968,12 +1117,16 @@ def _threefry_timing(torch, card: str) -> dict:
     off, scale = THREEFRY_MATRICES[0] * size, THREEFRY_MATRIX[0] ** -0.5
     out = torch.empty(THREEFRY_MATRIX, dtype=torch.bfloat16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
+    whole = dict(scale=scale, layout="original")
     fns = {"kernel": (lambda: threefry_cuda(out, key, offset=off,
                                             scale=scale), 20),
            "plain": (lambda: ref.threefry_fill_ref(out, key, offset=off,
                                                    scale=scale), 2),
            "library": (lambda: torch.randn(THREEFRY_MATRIX, generator=gen,
-                                           out=out), 20)}
+                                           out=out), 20),
+           "original": (lambda: threefry_cuda(out, key, **whole), 20),
+           "original_plain": (lambda: ref.threefry_fill_ref(out, key,
+                                                            **whole), 2)}
     runs = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         fn, reps = fns[name]
@@ -983,9 +1136,20 @@ def _threefry_timing(torch, card: str) -> dict:
            **_bound(size * THREEFRY_ALU_OPS, size * 2, PEAK_INT32_OPS),
            "issue_bound_ms": 1e3 * size * THREEFRY_ISSUED / PEAK_ISSUE}
     row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    pairs = -(-size // 2)
+    row["original"] = {
+        "kernel_ms": min(runs["original"]),
+        "plain_ms": min(runs["original_plain"]),
+        "library_ms": row["library_ms"],
+        **_bound(pairs * THREEFRY_PAIR_ALU_OPS, size * 2, PEAK_INT32_OPS),
+        "issue_bound_ms": 1e3 * pairs * THREEFRY_PAIR_ISSUED / PEAK_ISSUE}
+    row["original"]["share_of_bound"] = row["original"]["bound_ms"] \
+        / row["original"]["kernel_ms"]
     emit("timing", kernel="threefry_normal", shape=list(THREEFRY_MATRIX),
          dtype="bf16", offset=off, alu_ops_per_draw=THREEFRY_ALU_OPS,
          instructions_per_draw=THREEFRY_ISSUED,
+         original_alu_ops_per_pair=THREEFRY_PAIR_ALU_OPS,
+         original_instructions_per_pair=THREEFRY_PAIR_ISSUED,
          peak_int32_ops=PEAK_INT32_OPS, card=card, **row)
     return row
 
@@ -5678,7 +5842,12 @@ def main() -> None:
         "launches": launches["threefry_normal"],
         "max_abs_err": max_err["threefry_normal"], "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        # the original layout (jax_threefry_partitionable off), the matrix
+        # drawn whole; checked in the kernel phase, off the main path
+        "original": {"ms": row["original"]["kernel_ms"],
+                     **{k: row["original"][k] for k in (
+                         "plain_ms", "bound_ms", "bound_by", "library_ms")}}})
     seconds["total"] = time.perf_counter() - t_start
     emit("phase_seconds", of="all", seconds=seconds)
     summary = {"kernels": kernels}

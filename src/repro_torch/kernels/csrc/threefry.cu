@@ -2,12 +2,15 @@
 // for Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the reference draws its weights, its IVF centroids
-// and its k-means seeds with jax.random (threefry2x32 in its partitionable
-// mode, XLA's own code), and the port must draw the same numbers on the card
-// that it draws on the CPU and that JAX draws. The plain version is
-// kernels/ref.py::threefry_fill_ref; the wrapper is kernels/threefry.py.
+// and its k-means seeds with jax.random (threefry2x32, XLA's own code), and
+// the port must draw the same numbers on the card that it draws on the CPU
+// and that JAX draws. The plain version is kernels/ref.py::threefry_fill_ref;
+// the wrapper is kernels/threefry.py. Two layouts, as jax's
+// jax_threefry_partitionable flag picks them: threefry_kernel (on) and
+// threefry_pairs_kernel (off, below).
 //
-// Element i of a draw of n at counter offset o hashes the 64-bit counter
+// Partitionable layout. Element i of a draw of n at counter offset o hashes
+// the 64-bit counter
 // c = o + i, split into words (c >> 32, c & 0xFFFFFFFF) as
 // jax._src.prng.iota_2x32_shape splits a flat index, under the key (k0, k1),
 // to (b0, b1); its 32 bits are b0 ^ b1. kind 0 writes the bits (int64,
@@ -48,6 +51,25 @@
 // many blocks as fill every SM (8 an SM); stores are coalesced, the key
 // and the offset sit in registers, and nothing is read but the erfinv
 // coefficients, from the constant cache.
+//
+// Original layout (jax/_src/prng.py:1092-1135, 1203-1222 in jax 0.9.0): a
+// draw of n <= 2^32 - 1 elements (a block of a larger one; the host splits
+// the blocks' keys and launches one a block) hashes the uint32 pairs
+// (j, j + h), h = ceil(n / 2), where j + h < n, else (j, 0), the odd size's
+// pad; element i < h takes word 0 of pair i, element i >= h word 1 of pair
+// i - h, and the 32 bits are that word alone. One thread a pair: it hashes
+// once and writes each of the pair's two elements that falls in the
+// launch's window [first, first + count), so a whole draw costs one hash
+// per two draws. A window needs the pairs [first, min(end, h)) and
+// [max(first, h) - h, end - h); where they meet they are one range, else
+// the threads run over the first and then the second. Element values are
+// the partitionable kernel's (the same store code) from their bits.
+// Bound on an H100 SXM: the ALU pipe again. As nvcc compiles the bf16
+// normal for sm_90a, a pair issues 238 instructions, 94 of them on the ALU:
+// 47 a draw against the layout above's 71, so one hash shared by two draws
+// cuts the bound by a third (0.57 ms for a (6144, 32768) matrix drawn
+// whole, against 0.85). A window that is not the whole draw hashes a pair
+// for each draw where its two ranges do not meet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,11 +92,13 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-// Threefry-2x32, 20 rounds, as jax._src.prng._threefry2x32_lowering.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint64_t c) {
+// Threefry-2x32, 20 rounds, as jax._src.prng._threefry2x32_lowering: the
+// hash of the counter words (x0, x1), in place.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
+                                             uint32_t& x1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(c >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(c) + k1;
+  x0 += k0;
+  x1 += k1;
 #define ROUND(r) \
   x0 += x1;      \
   x1 = rotl(x1, r) ^ x0;
@@ -89,6 +113,12 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint
   ROUND(13) ROUND(15) ROUND(26) ROUND(6)
   x0 += k2; x1 += k0 + 5u;
 #undef ROUND
+}
+
+// The partitionable layout's 32 bits of the 64-bit counter c.
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint64_t c) {
+  uint32_t x0 = static_cast<uint32_t>(c >> 32), x1 = static_cast<uint32_t>(c);
+  threefry2x32(k0, k1, x0, x1);
   return x0 ^ x1;
 }
 
@@ -109,6 +139,24 @@ __device__ __forceinline__ float erfinv_of(float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, 3.402823466e38f) : r;
 }
 
+// One element of kind KIND from its 32 bits.
+template <int KIND, typename T>
+__device__ __forceinline__ void store(T* out, uint32_t bits, float lo, float span, float scale) {
+  if constexpr (KIND == 0) {
+    *out = static_cast<T>(bits);
+  } else if constexpr (KIND == 1) {
+    *out = uniform_of(bits, lo, span);
+  } else {
+    const float u = uniform_of(bits, lo, span);
+    const float x = __fmul_rn(__fmul_rn(1.41421353816986084f, erfinv_of(u)), scale);
+    if constexpr (sizeof(T) == 2) {
+      *out = __float2bfloat16_rn(x);
+    } else {
+      *out = x;
+    }
+  }
+}
+
 template <int KIND, typename T>
 __global__ void __launch_bounds__(THREADS)
     threefry_kernel(uint32_t k0, uint32_t k1, uint64_t offset, int64_t n, float lo, float span,
@@ -116,35 +164,80 @@ __global__ void __launch_bounds__(THREADS)
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n;
        i += stride) {
-    const uint32_t bits = threefry_bits(k0, k1, offset + static_cast<uint64_t>(i));
-    if constexpr (KIND == 0) {
-      out[i] = static_cast<T>(bits);
-    } else if constexpr (KIND == 1) {
-      out[i] = uniform_of(bits, lo, span);
-    } else {
-      const float u = uniform_of(bits, lo, span);
-      const float x = __fmul_rn(__fmul_rn(1.41421353816986084f, erfinv_of(u)), scale);
-      if constexpr (sizeof(T) == 2) {
-        out[i] = __float2bfloat16_rn(x);
-      } else {
-        out[i] = x;
-      }
-    }
+    store<KIND>(out + i, threefry_bits(k0, k1, offset + static_cast<uint64_t>(i)), lo, span,
+                scale);
   }
 }
 
+// The original layout: thread t takes pair p (the first range's t-th, then
+// the second's) of a draw of size elements with h = half, and writes its
+// elements in [first, end) to out[element - first].
 template <int KIND, typename T>
-cudaError_t launch(uint32_t k0, uint32_t k1, uint64_t offset, int64_t n, float lo, float span,
-                   float scale, void* out, cudaStream_t st) {
+__global__ void __launch_bounds__(THREADS)
+    threefry_pairs_kernel(uint32_t k0, uint32_t k1, uint32_t size, uint32_t half,
+                          uint32_t first, uint32_t end, uint32_t range0, uint32_t len0,
+                          uint32_t range1, int64_t pairs, float lo, float span, float scale,
+                          T* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; t < pairs;
+       t += stride) {
+    const uint32_t p = t < len0 ? range0 + static_cast<uint32_t>(t)
+                                : range1 + static_cast<uint32_t>(t - len0);
+    const uint32_t q = p + half;   // p < half <= 2^31: no wrap
+    uint32_t y0 = p, y1 = q < size ? q : 0u;
+    threefry2x32(k0, k1, y0, y1);
+    if (p >= first && p < end) store<KIND>(out + (p - first), y0, lo, span, scale);
+    if (q >= first && q < end) store<KIND>(out + (q - first), y1, lo, span, scale);
+  }
+}
+
+// Blocks of THREADS for n work items, as many as fill every SM, at most.
+cudaError_t grid_for(int64_t n, unsigned* blocks) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int64_t want = (n + THREADS - 1) / THREADS;
   const int64_t cap = static_cast<int64_t>(sms) * BLOCKS_PER_SM;
-  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  *blocks = static_cast<unsigned>(want < cap ? want : cap);
+  return cudaSuccess;
+}
+
+template <int KIND, typename T>
+cudaError_t launch(uint32_t k0, uint32_t k1, uint64_t offset, int64_t n, float lo, float span,
+                   float scale, void* out, cudaStream_t st) {
+  unsigned blocks = 0;
+  const cudaError_t err = grid_for(n, &blocks);
+  if (err != cudaSuccess) return err;
   threefry_kernel<KIND, T><<<blocks, THREADS, 0, st>>>(k0, k1, offset, n, lo, span, scale,
                                                        static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <int KIND, typename T>
+cudaError_t launch_pairs(uint32_t k0, uint32_t k1, uint32_t size, uint32_t first, int64_t n,
+                         float lo, float span, float scale, void* out, cudaStream_t st) {
+  const uint32_t half = size / 2 + size % 2;
+  const uint32_t end = first + static_cast<uint32_t>(n);
+  // pairs of the window's lower elements [a0, b0), of its upper ones [a1, b1)
+  const uint32_t a0 = first < half ? first : half, b0 = end < half ? end : half;
+  const uint32_t a1 = (first > half ? first : half) - half;
+  const uint32_t b1 = end > half ? end - half : 0u;
+  uint32_t range0 = a0, len0 = b0 - a0, range1 = a1;
+  int64_t pairs = static_cast<int64_t>(b0 - a0) + (b1 - a1);
+  if (a0 == b0) {
+    range0 = a1, len0 = b1 - a1;
+  } else if (a1 < b1 && a1 <= b0 && a0 <= b1) {   // they meet: one range
+    range0 = a0 < a1 ? a0 : a1;
+    len0 = (b0 > b1 ? b0 : b1) - range0;
+    pairs = len0;
+  }
+  unsigned blocks = 0;
+  const cudaError_t err = grid_for(pairs, &blocks);
+  if (err != cudaSuccess) return err;
+  threefry_pairs_kernel<KIND, T><<<blocks, THREADS, 0, st>>>(
+      k0, k1, size, half, first, end, range0, len0, range1, pairs, lo, span, scale,
+      static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -172,6 +265,31 @@ int threefry_launch(uint32_t k0, uint32_t k1, uint64_t offset, int64_t n, int ki
   if (kind == 2 && out_dtype == 1)
     return static_cast<int>(launch<2, __nv_bfloat16>(k0, k1, offset, n, lo, span, scale, out,
                                                      st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The original layout's elements first .. first + n - 1 of a draw (or a
+// block) of size <= 2^32 - 1 elements under the key (k0, k1); otherwise as
+// threefry_launch.
+int threefry_launch_original(uint32_t k0, uint32_t k1, uint32_t size, uint32_t first,
+                             int64_t n, int kind, int out_dtype, float lo, float hi,
+                             float scale, void* out, void* stream) {
+  if (n < 1 || out == nullptr || static_cast<uint64_t>(first) + static_cast<uint64_t>(n) > size)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float span = hi - lo;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == 0 && out_dtype == 2)
+    return static_cast<int>(launch_pairs<0, int64_t>(k0, k1, size, first, n, lo, span, scale,
+                                                     out, st));
+  if (kind == 1 && out_dtype == 0)
+    return static_cast<int>(launch_pairs<1, float>(k0, k1, size, first, n, lo, span, scale,
+                                                   out, st));
+  if (kind == 2 && out_dtype == 0)
+    return static_cast<int>(launch_pairs<2, float>(k0, k1, size, first, n, lo, span, scale,
+                                                   out, st));
+  if (kind == 2 && out_dtype == 1)
+    return static_cast<int>(launch_pairs<2, __nv_bfloat16>(k0, k1, size, first, n, lo, span,
+                                                           scale, out, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -206,15 +206,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def threefry_fill(out: torch.Tensor, key, *, kind: str = "normal",
                   offset: int = 0, lo: float = ref.NORMAL_LO, hi: float = 1.0,
-                  scale: float = 1.0) -> torch.Tensor:
-    """Fill ``out`` in place with draws of ``key`` at counters ``offset``
-    on (``kernels.threefry``): the kernel on CUDA, the plain version on the
-    CPU, nothing on ``meta`` (shapes only). Returns ``out``."""
+                  scale: float = 1.0, layout: str = "partitionable",
+                  total: int | None = None) -> torch.Tensor:
+    """Fill ``out`` in place with elements ``offset`` on of a draw of
+    ``key`` of ``total`` elements in ``layout`` (``kernels.threefry``):
+    the kernel on CUDA, the plain version on the CPU, nothing on ``meta``
+    (shapes only). Returns ``out``."""
+    kw = dict(kind=kind, offset=offset, lo=lo, hi=hi, scale=scale,
+              layout=layout, total=total)
     if out.device.type == "cuda":
-        return kthreefry.threefry_cuda(out, key, kind=kind, offset=offset,
-                                       lo=lo, hi=hi, scale=scale)
-    kthreefry.check_args(out, key, kind, offset)
+        return kthreefry.threefry_cuda(out, key, **kw)
+    kthreefry.check_args(out, key, kind, offset, layout, total)
     if out.device.type == "meta":
         return out
-    return ref.threefry_fill_ref(out, key, kind=kind, offset=offset, lo=lo,
-                                 hi=hi, scale=scale)
+    return ref.threefry_fill_ref(out, key, **kw)

@@ -346,6 +346,12 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 M32 = 0xFFFFFFFF
 THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 THREEFRY_KINDS = {"bits": 0, "uniform": 1, "normal": 2}
+#: how a draw's elements map to hashed counters (``jax_threefry_
+#: partitionable`` on or off; ``threefry_fill_ref``)
+THREEFRY_LAYOUTS = ("partitionable", "original")
+#: elements a block of the original layout: jax draws more words than
+#: this as blocks of this many, each under a key split from the draw's
+THREEFRY_BLOCK = M32
 #: elements a chunk of the plain draw. On the CPU a chunk is under
 #: PyTorch's grain size (32,768), so every op of it runs on one thread:
 #: ~300 small ops a chunk would otherwise each wait on a parallel region,
@@ -426,17 +432,77 @@ def erfinv_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, r)
 
 
+def threefry_split_original(key, num: int) -> list[tuple[int, int]]:
+    """``jax._src.prng._threefry_split_original(key, (num,))`` (jax 0.9.0,
+    ``jax/_src/prng.py:1150``): ``threefry_2x32`` of the counters 0 ..
+    2 num - 1, which hashes the pairs (i, num + i) for i < num to (y0,
+    y1); key j is words 2j and 2j + 1 of [y0; y1]."""
+    i = torch.arange(num, dtype=torch.int64)
+    y0, y1 = threefry2x32_ref(int(key[0]) & M32, int(key[1]) & M32, i,
+                              i + num)
+    y = torch.cat([y0, y1]).tolist()
+    return [(y[2 * j], y[2 * j + 1]) for j in range(num)]
+
+
+def threefry_blocks(key, total: int | None, offset: int, count: int
+                    ) -> list[tuple[tuple[int, int], int, int, int, int]]:
+    """The original layout's pieces of elements ``offset`` .. ``offset +
+    count - 1`` of a draw of ``total`` (default ``offset + count``), as
+    ``_threefry_random_bits_original`` (``jax/_src/prng.py:1203-1222``)
+    blocks it: ``nblocks, rem = divmod(total, 2^32 - 1)``; with no full
+    block the draw's key draws all, else the key splits (original mode)
+    into nblocks + 1 keys, block b of 2^32 - 1 elements under key b and
+    the last ``rem`` under the last. Each piece is (block key, block size,
+    first element in the block, elements, first element in the
+    window)."""
+    total = offset + count if total is None else total
+    nblocks, rem = divmod(total, THREEFRY_BLOCK)
+    keys = threefry_split_original(key, nblocks + 1) if nblocks \
+        else [tuple(int(k) & M32 for k in key)]
+    pieces = []
+    for b, k in enumerate(keys):
+        base = b * THREEFRY_BLOCK
+        size = THREEFRY_BLOCK if b < nblocks else rem
+        first, end = max(offset, base), min(offset + count, base + size)
+        if first < end:
+            pieces.append((k, size, first - base, end - first,
+                           first - offset))
+    return pieces
+
+
+def threefry_seams(total: int) -> list[int]:
+    """Where the original layout's pairing turns in a draw of ``total``:
+    each block's first element and its h (the first element of its
+    pairs' second words), and the end (the odd block's pad), sorted."""
+    nblocks, rem = divmod(total, THREEFRY_BLOCK)
+    sizes = [THREEFRY_BLOCK] * nblocks + ([rem] if rem else [])
+    seams = {total}
+    for b, size in enumerate(sizes):
+        seams |= {b * THREEFRY_BLOCK, b * THREEFRY_BLOCK + -(-size // 2)}
+    return sorted(seams)
+
+
 def threefry_fill_ref(out: torch.Tensor, key, *, kind: str = "normal",
                       offset: int = 0, lo: float = NORMAL_LO,
-                      hi: float = 1.0, scale: float = 1.0) -> torch.Tensor:
-    """Fill the contiguous ``out`` with the draws of counters ``offset`` ..
-    ``offset + out.numel() - 1`` of ``key`` (two uint32), in row-major
-    order: element i takes counter words (c >> 32, c & 0xFFFFFFFF), c =
-    offset + i, as ``jax._src.prng.iota_2x32_shape`` splits them, and
-    hashes them to (b0, b1).
+                      hi: float = 1.0, scale: float = 1.0,
+                      layout: str = "partitionable",
+                      total: int | None = None) -> torch.Tensor:
+    """Fill the contiguous ``out`` with elements ``offset`` .. ``offset +
+    out.numel() - 1`` of a draw of ``key`` (two uint32), in row-major
+    order. Element i hashes a pair of counter words to (b0, b1), by
+    ``layout``:
+      ``partitionable`` (``jax_threefry_partitionable`` on): the words
+        (c >> 32, c & 0xFFFFFFFF) of c = i, as ``jax._src.prng.
+        iota_2x32_shape`` splits a flat index; its 32 bits are b0 ^ b1;
+      ``original`` (the flag off; ``jax._src.prng.threefry_2x32``,
+        ``jax/_src/prng.py:1092-1135``): in a draw of n (``total``, or a
+        block of it, ``threefry_blocks``) the pairs (j, j + h), h =
+        ceil(n / 2), where j + h < n, else (j, 0), the odd size's pad;
+        element i < h is b0 of pair i, element i >= h b1 of pair i - h.
+        ``total`` defaults to ``offset + out.numel()``.
 
     ``kind``:
-      ``bits``: b0 ^ b1 (``jax.random.bits``, 32 bits), into int64;
+      ``bits``: the 32 bits (``jax.random.bits``), into int64;
       ``uniform``: max(lo, f * (hi - lo) + lo), one fused multiply-add,
         with f the float of the bits' top 23 as mantissa of [1, 2), minus
         1 (``jax.random.uniform`` of minval lo, maxval hi), into float32;
@@ -447,29 +513,47 @@ def threefry_fill_ref(out: torch.Tensor, key, *, kind: str = "normal",
     The work goes in chunks of ``THREEFRY_CHUNK`` elements on the CPU
     (``THREEFRY_CHUNK_DEVICE`` elsewhere), so no int64 temporary is larger
     than one chunk. Returns ``out``."""
-    k0, k1 = (int(k) & M32 for k in key)
     flat = out.view(-1)
-    f32 = torch.float32
-    lo32 = torch.tensor(lo, dtype=f32, device=out.device)
-    span = torch.tensor(hi, dtype=f32, device=out.device) - lo32
+    if layout == "partitionable":
+        pieces = [(key, None, offset, flat.numel(), 0)]
+    else:
+        pieces = threefry_blocks(key, total, offset, flat.numel())
     chunk = THREEFRY_CHUNK if out.device.type == "cpu" \
         else THREEFRY_CHUNK_DEVICE
-    for start in range(0, flat.numel(), chunk):
-        n = min(chunk, flat.numel() - start)
-        c = torch.arange(offset + start, offset + start + n,
-                         dtype=torch.int64, device=out.device)
-        b0, b1 = threefry2x32_ref(k0, k1, c >> 32, c & M32)
-        bits = b0 ^ b1
-        if kind == "bits":
-            flat[start:start + n] = bits
-            continue
-        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(f32) - 1.0
-        u = torch.maximum(lo32, _fma(f, span, lo32))
-        if kind == "uniform":
-            flat[start:start + n] = u
-            continue
-        sqrt2 = torch.tensor(SQRT2_F32, dtype=f32, device=out.device)
-        x = sqrt2 * erfinv_ref(u) * torch.tensor(scale, dtype=f32,
-                                                 device=out.device)
-        flat[start:start + n] = x.to(out.dtype)
+    for k, size, first, count, at in pieces:
+        k0, k1 = (int(w) & M32 for w in k)
+        for start in range(0, count, chunk):
+            n = min(chunk, count - start)
+            c = torch.arange(first + start, first + start + n,
+                             dtype=torch.int64, device=out.device)
+            if size is None:
+                b0, b1 = threefry2x32_ref(k0, k1, c >> 32, c & M32)
+                bits = b0 ^ b1
+            else:
+                half = (size + 1) // 2
+                upper = c >= half
+                x0 = torch.where(upper, c - half, c)
+                x1 = x0 + half
+                b0, b1 = threefry2x32_ref(
+                    k0, k1, x0, torch.where(x1 < size, x1, 0))
+                bits = torch.where(upper, b1, b0)
+            flat[at + start:at + start + n] = _draw_of_bits(
+                bits, kind, lo, hi, scale, out.dtype)
     return out
+
+
+def _draw_of_bits(bits: torch.Tensor, kind: str, lo: float, hi: float,
+                  scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """The draws of ``threefry_fill_ref``'s ``kind`` from their 32 bits."""
+    if kind == "bits":
+        return bits
+    f32, dev = torch.float32, bits.device
+    lo32 = torch.tensor(lo, dtype=f32, device=dev)
+    span = torch.tensor(hi, dtype=f32, device=dev) - lo32
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(f32) - 1.0
+    u = torch.maximum(lo32, _fma(f, span, lo32))
+    if kind == "uniform":
+        return u
+    sqrt2 = torch.tensor(SQRT2_F32, dtype=f32, device=dev)
+    x = sqrt2 * erfinv_ref(u) * torch.tensor(scale, dtype=f32, device=dev)
+    return x.to(dtype)

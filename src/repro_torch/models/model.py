@@ -414,9 +414,9 @@ class Model(nn.Module):
 
         def nrm(p, scale, k, per_matrix=False):
             """Draw ``p`` from key ``k``, its matrix [idx] (the last two
-            dims) at counter offset ``flat(idx) * rows * cols`` as one
-            draw of the whole leaf numbers it; with ``per_matrix``, ``k``
-            holds one key a matrix, each drawn from counter 0."""
+            dims) at element ``flat(idx) * rows * cols`` of one draw of
+            the whole leaf; with ``per_matrix``, ``k`` holds one key a
+            matrix, each its own draw of ``rows * cols``."""
             rows, cols = p.shape[-2:]
             if not isinstance(p, DTensor):
                 if not per_matrix:
@@ -433,11 +433,11 @@ class Model(nn.Module):
                 flat = 0
                 for i, n in zip(idx, p.shape[:-2]):
                     flat = flat * n + i
-                mk, base = (k[flat], 0) if per_matrix \
-                    else (k, flat * rows * cols)
+                mk, base, total = (k[flat], 0, rows * cols) if per_matrix \
+                    else (k, flat * rows * cols, math.prod(p.shape))
                 m = prng.normal(mk, (r.stop - r.start, cols), scale=scale,
                                 dtype=p.dtype, offset=base + r.start * cols,
-                                device=self.device)
+                                total=total, device=self.device)
                 local[tuple(i - b.start for i, b in zip(idx, block))] \
                     .copy_(m[:, block[-1]])
 

@@ -1,23 +1,38 @@
 """The reference's random streams in the port: ``jax.random`` with its
-default threefry2x32 PRNG in partitionable mode (``jax_threefry_
-partitionable``, on by default since jax 0.5), in torch and numpy only.
+default threefry2x32 PRNG, in both of the modes that jax's
+``jax_threefry_partitionable`` flag picks, in torch and numpy only.
 
 Every seeded draw of the reference (model and encoder weights, IVF
 centroids, k-means seeds, the engine's refit keys) goes through
 ``jax.random``; the port draws through this module, so the numbers are
 the reference's on the CPU and on the card alike.
 
+The mode is read as jax reads its flag: from the environment variable
+``JAX_THREEFRY_PARTITIONABLE`` when it is set (jax's truth values: y,
+yes, t, true, on, 1 or n, no, f, false, off, 0), else on, the default of
+jax 0.5 and later; jax 0.4 defaults to off. So one deployment setting
+picks the same streams in both packages. ``set_partitionable(flag)`` and
+the context manager ``partitionable(flag)`` are the counterpart of
+``jax.config.update("jax_threefry_partitionable", flag)``.
+
 * Keys are host (2,) uint32 numpy arrays, as JAX's raw keys.
   ``key(seed)`` equals ``jax.random.PRNGKey(seed)`` (64-bit mode off,
   JAX's default: (0, seed mod 2^32)); ``split(key, num)`` and
-  ``fold_in(key, data)`` equal JAX's bit for bit (fold-like splitting:
-  key i of a split is the hash of counter (0, i), so ``fold_in(key, i) ==
-  split(key, n)[i]``).
-* ``bits``, ``uniform`` and ``normal`` draw ``shape`` at a flat counter
-  ``offset``: element i of the row-major draw hashes the 64-bit counter
-  offset + i, as ``iota_2x32_shape`` numbers a JAX draw's elements. So any
-  contiguous run of a tensor's elements (a matrix of a stacked weight, a
-  rank's rows) is drawn alone and equals that slice of the whole draw.
+  ``fold_in(key, data)`` equal JAX's bit for bit. ``fold_in`` hashes the
+  counter pair (0, data) in both modes. The partitionable split is
+  fold-like: key i is the hash of (0, i), so ``fold_in(key, i) ==
+  split(key, n)[i]``; the original split hashes the pairs (i, num + i)
+  and reads the keys two words at a time from the concatenated outputs.
+* ``bits``, ``uniform`` and ``normal`` draw ``shape``, or the elements
+  ``offset`` on of a draw of ``total`` elements. Partitionable mode:
+  element i of the row-major draw hashes the 64-bit counter i, as
+  ``iota_2x32_shape`` numbers a JAX draw's elements, so ``total`` does
+  not matter. Original mode: a draw of n pairs its elements as (i, i +
+  ceil(n / 2)), in blocks of 2^32 - 1 under split keys past that
+  (``kernels.ref.threefry_fill_ref``), so a draw at an offset must be
+  told ``total`` and raises without it. Either way any contiguous run of
+  a tensor's elements (a matrix of a stacked weight, a rank's rows) is
+  drawn alone and equals that slice of the whole draw.
   Bits and uniforms are JAX's bit for bit; normals follow
   ``jax.random.normal`` step by step (``sqrt(2) * erfinv(u)`` with XLA's
   polynomial erfinv) and agree within 1e-5 relative (the CPU's log1p
@@ -29,18 +44,60 @@ the reference's on the CPU and on the card alike.
   row it takes depends on how that sum rounds, so the sum follows XLA's
   CPU order (``xla_cumsum``; ``xla_sum`` for a caller's normalization).
 
-Draws on CUDA tensors run the hand-written kernel (``kernels/threefry``),
-on CPU tensors its plain version, on ``meta`` tensors nothing; the two
-give equal bits and uniforms. Only the partitionable mode exists here:
-under jax < 0.5 with the flag off, JAX's streams are other numbers.
+Draws on CUDA tensors run the hand-written kernel (``kernels/threefry``,
+one layout a mode), on CPU tensors its plain version, on ``meta``
+tensors nothing; the two give equal bits and uniforms.
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops, ref
+
+ENV = "JAX_THREEFRY_PARTITIONABLE"
+_TRUE = ("y", "yes", "t", "true", "on", "1")
+_FALSE = ("n", "no", "f", "false", "off", "0")
+
+
+def _mode_of_env() -> bool:
+    """The mode ``ENV`` sets, as jax's ``bool_env`` reads it (on when it
+    is unset); raises ValueError on any other value."""
+    val = os.environ.get(ENV, "1").lower()
+    if val not in _TRUE + _FALSE:
+        raise ValueError(f"invalid truth value {val!r} for environment "
+                         f"{ENV!r}")
+    return val in _TRUE
+
+
+_partitionable = _mode_of_env()
+
+
+def is_partitionable() -> bool:
+    """Whether draws, splits and keys follow the partitionable mode."""
+    return _partitionable
+
+
+def set_partitionable(flag: bool) -> None:
+    """Draw in the partitionable mode (True) or the original (False), as
+    ``jax.config.update("jax_threefry_partitionable", flag)``."""
+    global _partitionable
+    _partitionable = bool(flag)
+
+
+@contextlib.contextmanager
+def partitionable(flag: bool):
+    """``set_partitionable(flag)`` for the ``with`` block, then back."""
+    was = _partitionable
+    set_partitionable(flag)
+    try:
+        yield
+    finally:
+        set_partitionable(was)
 
 
 def key(seed: int) -> np.ndarray:
@@ -65,6 +122,9 @@ def _hash(k, counters: torch.Tensor) -> np.ndarray:
 
 def split(k, num: int = 2) -> np.ndarray:
     """``jax.random.split(k, num)``: (num, 2) uint32, one key a row."""
+    if not _partitionable:
+        return np.array(ref.threefry_split_original(_words(k), num),
+                        dtype=np.uint32).reshape(num, 2)
     return _hash(k, torch.arange(num, dtype=torch.int64))
 
 
@@ -76,40 +136,47 @@ def fold_in(k, data: int) -> np.ndarray:
 
 
 def _fill(out: torch.Tensor, k, **kw) -> torch.Tensor:
-    return ops.threefry_fill(out, _words(k), **kw)
+    return ops.threefry_fill(
+        out, _words(k),
+        layout="partitionable" if _partitionable else "original", **kw)
 
 
-def bits(k, shape, *, offset: int = 0, device=None) -> torch.Tensor:
-    """``jax.random.bits(k, shape)`` (uint32 values in int64) at counter
-    ``offset``."""
+def bits(k, shape, *, offset: int = 0, total: int | None = None,
+         device=None) -> torch.Tensor:
+    """``jax.random.bits(k, shape)`` (uint32 values in int64), or its
+    elements ``offset`` on of a draw of ``total``."""
     out = torch.empty(shape, dtype=torch.int64, device=resolve_device(device))
-    return _fill(out, k, kind="bits", offset=offset)
+    return _fill(out, k, kind="bits", offset=offset, total=total)
 
 
 def uniform(k, shape, *, minval: float = 0.0, maxval: float = 1.0,
-            offset: int = 0, device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape, float32, minval, maxval)`` at counter
-    ``offset``."""
+            offset: int = 0, total: int | None = None,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``, or its
+    elements ``offset`` on of a draw of ``total``."""
     out = torch.empty(shape, dtype=torch.float32,
                       device=resolve_device(device))
-    return _fill(out, k, kind="uniform", offset=offset, lo=minval,
-                 hi=maxval)
+    return _fill(out, k, kind="uniform", offset=offset, total=total,
+                 lo=minval, hi=maxval)
 
 
-def normal_(out: torch.Tensor, k, *, scale: float = 1.0,
-            offset: int = 0) -> torch.Tensor:
+def normal_(out: torch.Tensor, k, *, scale: float = 1.0, offset: int = 0,
+            total: int | None = None) -> torch.Tensor:
     """Fill the contiguous float32 or bfloat16 ``out`` with
     ``(jax.random.normal(k, shape, float32) * scale).astype(dtype)``'s
-    elements ``offset`` on, in place; returns ``out``."""
-    return _fill(out, k, kind="normal", offset=offset, scale=scale)
+    elements ``offset`` on, of a draw of ``total``, in place; returns
+    ``out``."""
+    return _fill(out, k, kind="normal", offset=offset, total=total,
+                 scale=scale)
 
 
 def normal(k, shape, *, scale: float = 1.0, dtype=torch.float32,
-           offset: int = 0, device=None) -> torch.Tensor:
-    """``(jax.random.normal(k, shape, float32) * scale).astype(dtype)`` at
-    counter ``offset``."""
+           offset: int = 0, total: int | None = None,
+           device=None) -> torch.Tensor:
+    """``(jax.random.normal(k, shape, float32) * scale).astype(dtype)``,
+    or its elements ``offset`` on of a draw of ``total``."""
     out = torch.empty(shape, dtype=dtype, device=resolve_device(device))
-    return normal_(out, k, scale=scale, offset=offset)
+    return normal_(out, k, scale=scale, offset=offset, total=total)
 
 
 def _windows(x: torch.Tensor, width: int, low: int) -> torch.Tensor:

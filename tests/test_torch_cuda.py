@@ -1979,6 +1979,61 @@ def test_cuda_threefry_matches_plain_version(cuda_device, dtype, offset):
     assert torch.equal(part, got[3])
 
 
+def _original_windows(total: int, width: int) -> list[int]:
+    """Offsets of windows of ``width`` around the original layout's seams
+    in a draw of ``total`` (``ref.threefry_seams``)."""
+    return sorted({min(max(p - width // 2, 0), total - width)
+                   for p in tref.threefry_seams(total)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("total", [70001, 2 ** 32 + 5, 2 * 128 * 5120 * 8192])
+def test_cuda_threefry_original_layout_matches_plain_version(
+        cuda_device, dtype, total):
+    """The original layout (``jax_threefry_partitionable`` off) on the
+    card against its plain version: bits and uniforms bit for bit, whole
+    at an odd n (70,001) and over windows around h and each block end of
+    larger draws (llama4's 2-layer expert leaf has two); normals through
+    ``prng`` within 1e-5 relative in f32 and a bf16 ulp in bf16, across
+    the first h; a window is that slice of the longer draw; one launch a
+    call whatever its blocks."""
+    key = tuple(int(k) for k in prng.key(11))
+    width = min(total, 4099)
+    for off in _original_windows(total, width):
+        for kind, out_dtype in (("bits", torch.int64),
+                                ("uniform", torch.float32)):
+            kw = dict(kind=kind, offset=off, lo=0.0, layout="original",
+                      total=total)
+            kthreefry.reset_launches()
+            got = kthreefry.threefry_cuda(
+                torch.empty(width, dtype=out_dtype, device=cuda_device), key,
+                **kw)
+            assert kthreefry.launches["threefry_normal"] == 1
+            want = tref.threefry_fill_ref(torch.empty_like(got), key, **kw)
+            assert torch.equal(got, want), (kind, off)
+    n, first = 1001, -(-min(total, tref.THREEFRY_BLOCK) // 2) - 3500
+    with prng.partitionable(False):
+        got = prng.normal(prng.key(11), (7, n), scale=0.05,
+                          dtype=getattr(torch, dtype), offset=first,
+                          total=total, device=cuda_device)
+        want = prng.normal(prng.key(11), (7, n), scale=0.05,
+                           dtype=getattr(torch, dtype), offset=first,
+                           total=total, device="cpu")
+        part = prng.normal(prng.key(11), (n,), scale=0.05,
+                           dtype=getattr(torch, dtype),
+                           offset=first + 3 * n, total=total,
+                           device=cuda_device)
+    a, b = got.cpu().float(), want.float()
+    if dtype == "float32":
+        assert float(((a - b).abs() / b.abs()).max()) <= 1e-5
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(a.abs(),
+                                                              b.abs())
+        assert bool(torch.all((a - b).abs() <= ulp))
+    assert torch.equal(part, got[3])
+
+
 @pytest.mark.cuda
 def test_cuda_init_params_draws_the_cpu_weights(cuda_device):
     """The reduced yi-6b drawn on the card from key 0 holds the CPU draw's
@@ -1989,6 +2044,31 @@ def test_cuda_init_params_draws_the_cpu_weights(cuda_device):
     assert kthreefry.launches["threefry_normal"] == 9
     cpu = Model(get_arch("yi-6b").reduced(), device="cpu").init_params(
         prng.key(0))
+    for name, t in cpu.state_dict().items():
+        got = card.state_dict()[name].cpu()
+        assert float(((got - t).abs() / t.abs().clamp_min(1e-30)).max()) \
+            <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_cuda_init_params_in_original_mode_draws_the_cpu_weights(
+        cuda_device):
+    """As above with threefry's original mode (jax < 0.5's default): the
+    reduced hymba (whole leaves and the SSM layers' own keys) drawn on the
+    card equals the CPU draw within 1e-5 relative, one launch a drawn
+    leaf or SSM matrix."""
+    cfg = get_arch("hymba-1.5b").reduced()
+    with prng.partitionable(False):
+        kthreefry.reset_launches()
+        card = Model(cfg, device=cuda_device).init_params(prng.key(0))
+        launches = kthreefry.launches["threefry_normal"]
+        cpu = Model(cfg, device="cpu").init_params(prng.key(0))
+    want = 0
+    for name, t in cpu.named_parameters():
+        if bool(torch.all((t == 0) | (t == 1))):
+            continue
+        want += math.prod(t.shape[:-2]) if ".ssm." in name else 1
+    assert launches == want
     for name, t in cpu.state_dict().items():
         got = card.state_dict()[name].cpu()
         assert float(((got - t).abs() / t.abs().clamp_min(1e-30)).max()) \

@@ -12,8 +12,10 @@ that hold whatever the timing are, on both sides.
 
 Where a model runs (``serve_cached_chatbot``, ``train_small``), each
 package draws its own weights from key 0 (``repro_torch.prng`` reproduces
-the reference's ``jax.random`` streams; both run them in partitionable
-mode here, ``threefry_partitionable``)."""
+the reference's ``jax.random`` streams). Every example runs in both
+threefry modes, set alike in both packages (``threefry_mode``); the
+distributed demo's child process gets the mode through
+``JAX_THREEFRY_PARTITIONABLE``."""
 import ast
 import contextlib
 import importlib.util
@@ -35,6 +37,7 @@ import repro.launch.train as jtrain
 from repro.core.cache import SemanticCache as JSemanticCache
 from repro.serving.engine import CachedEngine as JEngine
 from repro.serving.scheduler import AsyncScheduler as JScheduler
+from repro_torch import prng
 
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "examples"
@@ -129,13 +132,15 @@ def run_port(name: str, capsys, *argv) -> dict:
     return out
 
 
-@pytest.fixture(autouse=True)
-def threefry_partitionable():
-    """The reference's streams as the port draws them: jax >= 0.5 runs
-    threefry in partitionable mode by default, older jax does not."""
+@pytest.fixture(autouse=True, params=[True, False],
+                ids=["partitionable", "original"])
+def threefry_mode(request):
+    """Both threefry modes, set alike in jax and in ``repro_torch.prng``:
+    partitionable (jax >= 0.5's default) and original (jax 0.4's)."""
     was = jax.config.jax_threefry_partitionable
-    jax.config.update("jax_threefry_partitionable", True)
-    yield
+    jax.config.update("jax_threefry_partitionable", request.param)
+    with prng.partitionable(request.param):
+        yield request.param
     jax.config.update("jax_threefry_partitionable", was)
 
 
@@ -340,6 +345,8 @@ def run_pair(name, tmp_path, monkeypatch, capsys):
     argv, port_argv = (), ()
     if name == "distributed_cache_demo":
         env = {**os.environ, "JAX_PLATFORMS": "cpu",
+               "JAX_THREEFRY_PARTITIONABLE": str(int(
+                   prng.is_partitionable())),
                "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
                "PYTHONPATH": os.pathsep.join(
                    [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}

@@ -230,7 +230,8 @@ def test_model_on_mesh_matches_unsharded_and_jax(run, arch):
 @pytest.mark.parametrize("arch", list(worker.ARCHS))
 def test_init_and_caches_on_mesh_equal_the_unsharded(run, arch):
     """``init_params`` on the mesh, each rank keeping its block of each
-    drawn matrix, gives the unsharded init's numbers from the same seed;
+    drawn matrix, gives the unsharded init's numbers from the same seed,
+    in both threefry modes;
     ``init_decode_caches``, each rank allocating its blocks only, the
     unsharded caches."""
     ours = run["ours"]

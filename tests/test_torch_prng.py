@@ -19,16 +19,24 @@ Tolerances, with their reasons:
   * training losses: ``LOSS_TOL`` (1e-4) absolute, the step loop's sums
     in another order on weights within ``NORMAL_REL``.
 
-JAX runs threefry in partitionable mode here (the fixture), the only mode
-the port has: it is the default from jax 0.5 on.
+Every test runs in both of jax's threefry modes (the fixture sets
+``jax_threefry_partitionable`` and the port's mode alike): partitionable,
+the default from jax 0.5 on, and original, the default of jax 0.4.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax._src import dtypes as jdtypes
 from jax._src import prng as jprng
 
 from repro.configs import get_arch as jget_arch
@@ -50,6 +58,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model
 from test_torch_models import SMALL_BF16, jax_serve
 
+ROOT = Path(__file__).resolve().parents[1]
 NORMAL_REL = 1e-5
 LOSS_TOL = 1e-4
 SEEDS = (0, 1, 17, 42, 2 ** 31 + 5, 2 ** 32 - 1)
@@ -57,12 +66,15 @@ NARROW = EncoderConfig(vocab=512, d_model=64, n_layers=2, n_heads=4,
                        d_ff=128, max_len=32)
 
 
-@pytest.fixture(autouse=True)
-def threefry_partitionable():
-    """The port's mode, also under jax < 0.5, where it is off by default."""
+@pytest.fixture(autouse=True, params=[True, False],
+                ids=["partitionable", "original"])
+def threefry_mode(request):
+    """Both threefry modes, set alike in jax and in the port; yields the
+    mode (True: partitionable)."""
     was = jax.config.jax_threefry_partitionable
-    jax.config.update("jax_threefry_partitionable", True)
-    yield
+    jax.config.update("jax_threefry_partitionable", request.param)
+    with prng.partitionable(request.param):
+        yield request.param
     jax.config.update("jax_threefry_partitionable", was)
 
 
@@ -83,8 +95,12 @@ def test_key_split_fold_in_equal_jax(seed):
     for data in (0, 1, 7, 2 ** 31, 2 ** 32 - 1):
         np.testing.assert_array_equal(prng.fold_in(k, data),
                                       _u32(jax.random.fold_in(jk, data)))
-    # fold-like splitting: fold_in(k, i) is key i of a split
-    np.testing.assert_array_equal(prng.fold_in(k, 5), prng.split(k, 8)[5])
+    if prng.is_partitionable():
+        # fold-like splitting: fold_in(k, i) is key i of a split
+        np.testing.assert_array_equal(prng.fold_in(k, 5), prng.split(k, 8)[5])
+    else:
+        # the original split of one hashes the pair (0, 1), as fold_in(k, 1)
+        np.testing.assert_array_equal(prng.fold_in(k, 1), prng.split(k, 1)[0])
     with pytest.raises(ValueError, match="uint32"):
         prng.fold_in(k, 2 ** 32)
 
@@ -106,20 +122,117 @@ def test_bits_and_uniforms_equal_jax_bit_for_bit(seed, shape):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_bits_past_two_to_the_32_equal_jax_threefry_on_explicit_counts():
-    """A flat counter past 2^32 takes the high word, as JAX's
-    ``iota_2x32_shape`` splits it (grok-1's whole-depth MoE stacks pass
-    2^32 elements); held against ``threefry2x32`` on the explicit words."""
-    k = prng.key(7)
-    for off in (2 ** 32 - 500, 2 ** 32 + 12345, 3 * 2 ** 32 + 1):
-        c = np.arange(off, off + 1000, dtype=np.uint64)
+def _jax_bits_at(k, total: int, offset: int, n: int) -> np.ndarray:
+    """Elements ``offset`` .. ``offset + n - 1`` of ``jax.random.bits(k,
+    (total,))`` in the mode jax runs, built from jax's own pieces on
+    explicit counters. Partitionable: ``threefry2x32_p`` of each element's
+    64-bit index split into words. Original: the block keys from
+    ``_threefry_split_original`` (the draw's key where the draw has no full
+    block of 2^32 - 1), then ``threefry_2x32`` of the explicit counters [p;
+    q] of the elements' pairs (p, q) in their block of size m, p = i or i
+    - ceil(m / 2), q = p + ceil(m / 2) or the odd size's pad 0, which
+    returns their first words then their second."""
+    c = np.arange(offset, offset + n, dtype=np.uint64)
+    jk = jnp.asarray(np.asarray(k, dtype=np.uint32))
+    if jax.config.jax_threefry_partitionable:
         b0, b1 = jprng.threefry2x32_p.bind(
-            jnp.uint32(k[0]), jnp.uint32(k[1]),
-            jnp.asarray((c >> np.uint64(32)).astype(np.uint32)),
+            jk[0], jk[1], jnp.asarray((c >> np.uint64(32)).astype(np.uint32)),
             jnp.asarray((c & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+        return np.asarray(b0 ^ b1).astype(np.int64)
+    block = 2 ** 32 - 1
+    nblocks, rem = divmod(total, block)
+    keys = jprng._threefry_split_original(jk, (nblocks + 1,)) if nblocks \
+        else jk[None]
+    out = np.empty(n, dtype=np.int64)
+    for b in np.unique(c // np.uint64(block)):
+        at = np.flatnonzero(c // np.uint64(block) == b)
+        m = block if b < nblocks else rem
+        half = np.uint64(-(-m // 2))
+        i = c[at] - b * np.uint64(block)
+        upper = i >= half
+        p = np.where(upper, i - half, i)
+        q = np.where(p + half < m, p + half, 0)
+        y = np.asarray(jprng.threefry_2x32(
+            keys[int(b)], jnp.asarray(np.concatenate([p, q]).astype(
+                np.uint32)))).astype(np.int64)
+        out[at] = np.where(upper, y[len(at):], y[:len(at)])
+    return out
+
+
+@pytest.mark.parametrize("total", [5, 1000, 1001])
+def test_jax_bits_at_equals_jax_random_bits(total):
+    """``_jax_bits_at``, which the tests past 2^32 read, is
+    ``jax.random.bits`` where a whole draw fits in the test."""
+    jk = jax.random.PRNGKey(11)
+    whole = np.asarray(jax.random.bits(jk, (total,))).astype(np.int64)
+    for off, n in ((0, total), (total // 2 - 1, 2), (total - 2, 2)):
         np.testing.assert_array_equal(
-            prng.bits(k, (1000,), offset=off, device="cpu").numpy(),
-            np.asarray(b0 ^ b1).astype(np.int64))
+            _jax_bits_at(_u32(jk), total, off, n), whole[off:off + n])
+
+
+def test_bits_past_two_to_the_32_equal_jax_threefry_on_explicit_counts():
+    """Elements past 2^32 of a draw (grok-1's whole-depth MoE stacks pass
+    2^32 elements): in partitionable mode a flat counter past 2^32 takes
+    the high word, as JAX's ``iota_2x32_shape`` splits it; in original
+    mode they lie in the blocks past the first. Held against jax's
+    threefry on the explicit words (``_jax_bits_at``)."""
+    k, total = prng.key(7), 3 * 2 ** 32 + 5000
+    for off in (2 ** 32 - 500, 2 ** 32 + 12345, 3 * 2 ** 32 + 1):
+        np.testing.assert_array_equal(
+            prng.bits(k, (1000,), offset=off, total=total,
+                      device="cpu").numpy(),
+            _jax_bits_at(k, total, off, 1000))
+
+
+# llama4's stacked expert leaf at 2 layers (two block ends of the
+# original layout), grok-1's (one block, h past 2^30), and odd sizes
+BLOCK_TOTALS = (2 * 128 * 5120 * 8192, 2 * 8 * 6144 * 32768,
+                2 * (2 ** 32 - 1) + 12345, 2 ** 32 - 1, 2 ** 32 + 1)
+
+
+@pytest.mark.parametrize("total", BLOCK_TOTALS)
+def test_bits_around_block_ends_h_and_the_odd_pad_equal_jax(total):
+    """Windows of 64 around each original-layout block end (multiples of
+    2^32 - 1), around each block's h = ceil(size / 2) and at the draw's
+    end (the odd block's pad), as bits and as [0, 1) uniforms, against
+    ``_jax_bits_at`` in the mode the fixture sets."""
+    k = prng.key(5)
+    for point in ref.threefry_seams(total):
+        off = min(max(point - 32, 0), total - 64)
+        got = prng.bits(k, (64,), offset=off, total=total, device="cpu")
+        want = _jax_bits_at(k, total, off, 64)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(off))
+        u = prng.uniform(k, (64,), offset=off, total=total, device="cpu")
+        f = (want >> 9 | 0x3F800000).astype(np.uint32).view(np.float32) - 1
+        np.testing.assert_array_equal(u.numpy(), np.maximum(f, 0))
+
+
+@pytest.mark.parametrize("total", [2500, 3000, 2001])
+def test_blocks_equal_jax_own_blocking_at_a_small_block(total,
+                                                       threefry_mode):
+    """The blocking itself against jax's own code, with both sides' block
+    of 2^32 - 1 cut to 1,000 elements: in original mode against
+    ``_threefry_random_bits_original`` (whole draws of two and three
+    blocks, odd and even remainders, windows across the block ends); in
+    partitionable mode the cut changes nothing, against
+    ``jax.random.bits``."""
+    jk = jax.random.PRNGKey(9)
+    small = types.SimpleNamespace(**vars(jdtypes))
+    small.iinfo = lambda t: types.SimpleNamespace(max=1000) \
+        if t is np.uint32 else jdtypes.iinfo(t)
+    with mock.patch.object(jprng, "dtypes", small):
+        want = np.asarray(
+            jax.random.bits(jk, (total,)) if threefry_mode
+            else jprng._threefry_random_bits_original(jk, 32, (total,))
+        ).astype(np.int64)
+    k = _u32(jk)
+    with mock.patch.object(ref, "THREEFRY_BLOCK", 1000):
+        np.testing.assert_array_equal(
+            prng.bits(k, (total,), device="cpu").numpy(), want)
+        for off, n in ((990, 20), (1999, 2), (0, 1500), (total - 7, 7)):
+            np.testing.assert_array_equal(
+                prng.bits(k, (n,), offset=off, total=total,
+                          device="cpu").numpy(), want[off:off + n])
 
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
@@ -149,13 +262,78 @@ def test_a_draw_at_an_offset_is_that_slice_of_the_whole_draw(kind):
             "bf16": lambda **kw: prng.normal(k, device="cpu", scale=0.5,
                                              dtype=torch.bfloat16, **kw)}[kind]
     whole = draw(shape=shape).reshape(-1)
-    for off, n in ((0, 1), (96, 7 * 96), (1001, 2839)):
-        assert torch.equal(draw(shape=(n,), offset=off), whole[off:off + n])
+    total = whole.numel()
+    # the original layout's h is 1,920: windows below, across and past it
+    for off, n in ((0, 1), (96, 7 * 96), (1001, 2839), (1900, 40)):
+        assert torch.equal(draw(shape=(n,), offset=off, total=total),
+                           whole[off:off + n])
     # chunks of the plain version end where they end: the same numbers
     assert ref.THREEFRY_CHUNK < 2 ** 21
-    big = draw(shape=(ref.THREEFRY_CHUNK + 5,), offset=11)
-    assert torch.equal(big[-6:], draw(shape=(6,),
+    total = ref.THREEFRY_CHUNK + 100
+    big = draw(shape=(ref.THREEFRY_CHUNK + 5,), offset=11, total=total)
+    assert torch.equal(big[-6:], draw(shape=(6,), total=total,
                                       offset=10 + ref.THREEFRY_CHUNK))
+
+
+def test_an_offset_draw_needs_the_whole_size_in_original_mode(
+        threefry_mode):
+    """The original layout pairs a draw's elements by its whole size, so
+    a draw at an offset without ``total`` raises there; partitionable
+    draws do not need it. Past ``total`` raises in both."""
+    k = prng.key(4)
+    if threefry_mode:
+        assert torch.equal(prng.bits(k, (5,), offset=3, device="cpu"),
+                           prng.bits(k, (5,), offset=3, total=99,
+                                     device="cpu"))
+    else:
+        with pytest.raises(ValueError, match="total="):
+            prng.normal(k, (5,), offset=3, device="cpu")
+        with pytest.raises(ValueError, match="total="):
+            ops.threefry_fill(torch.empty(2), (0, 1), offset=1,
+                              layout="original")
+    # a draw from element 0 is the whole draw of its own size
+    assert torch.equal(prng.bits(k, (6,), offset=0, device="cpu"),
+                       prng.bits(k, (6,), device="cpu"))
+    with pytest.raises(ValueError, match="lie past"):
+        prng.uniform(k, (5,), offset=3, total=7, device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        ops.threefry_fill(torch.empty(2), (0, 1), layout="foldlike")
+
+
+ENV_CHECK = """
+import importlib, os, jax
+from repro_torch import prng
+assert prng.is_partitionable() is jax.config.jax_threefry_partitionable
+print(prng.is_partitionable())
+for val, want in (("off", False), ("No", False), ("TRUE", True),
+                  ("y", True), (None, True)):
+    os.environ.pop(prng.ENV, None)
+    if val is not None:
+        os.environ[prng.ENV] = val
+    assert importlib.reload(prng).is_partitionable() is want, val
+os.environ[prng.ENV] = "maybe"
+try:
+    importlib.reload(prng)
+except ValueError as e:
+    print("raises", e)
+"""
+
+
+def test_env_sets_the_default_mode_in_both_packages(threefry_mode):
+    """``JAX_THREEFRY_PARTITIONABLE`` (here "1" or "0", as the fixture's
+    mode) sets the default of jax's flag and of the port's mode alike in a
+    fresh process; the port reads jax's truth values, unset is on, and
+    anything else raises at import."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_THREEFRY_PARTITIONABLE=str(int(threefry_mode)),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", ENV_CHECK], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    first, second = out.stdout.splitlines()
+    assert first == str(threefry_mode)
+    assert second.startswith("raises invalid truth value 'maybe'")
 
 
 def test_choice_gives_jax_rows_over_twenty_seeds():

@@ -201,12 +201,20 @@ def _cp_decode(mesh, inputs, out):
 
 def _init_mismatch(mesh, arch) -> list[str]:
     """The parameters whose init on the mesh differs from the unsharded
-    init's from the same seed."""
-    plain, sharded = (Model(config(arch), device="cpu", **kw).init_params(
-        prng.key(3)) for kw in ({}, {"mesh": mesh}))
-    want = dict(plain.named_parameters())
-    return [n for n, p in sharded.named_parameters()
-            if not torch.equal(p.full_tensor(), want[n])]
+    init's from the same seed, in each threefry mode (a rank draws its
+    rows at their offset in the leaf's whole draw, which the original
+    mode pairs by the whole draw's size), named ``mode:parameter``."""
+    bad = []
+    for flag in (True, False):
+        with prng.partitionable(flag):
+            plain, sharded = (
+                Model(config(arch), device="cpu", **kw).init_params(
+                    prng.key(3)) for kw in ({}, {"mesh": mesh}))
+        want = dict(plain.named_parameters())
+        bad += [f"{'partitionable' if flag else 'original'}:{n}"
+                for n, p in sharded.named_parameters()
+                if not torch.equal(p.full_tensor(), want[n])]
+    return bad
 
 
 def _mismatch(want, got) -> list[str]:
