@@ -1,0 +1,4 @@
+"""idle_share.qps: ``idle_share``, read the same way, in the cells whose tails
+spread too widely run to run to take an end-to-end bound (its ``workloads`` in
+BENCHMARK.json); there it moves ``answered_qps``."""
+from cachebench.metrics.idle_share import read  # noqa: F401
